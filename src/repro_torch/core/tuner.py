@@ -1,0 +1,205 @@
+"""Estimating (paper §7.2) — hyper-parameter search.
+
+Port of `src/repro/core/tuner.py` (`SEARCH_SPACE`, `evolve`, `tune`,
+`TunerResult`); the search is unchanged, the model and the feasibility
+bound are the port's (`core/model.py`, priced for `H100_SXM`).  The
+measured stage (`select_variant_measured`, `measured_tune`) and the
+community-profiling score wait for a later slice.
+
+Implements the paper's three-step strategy:
+
+  1. *Community profiling*: generate synthetic communities at 90/70/50%
+     densities over the typical community sizes observed in the input, and
+     evaluate candidate settings on them (here: with the white-box kernel
+     model over EXACT tile counts from real partitions of the synthetic
+     communities — the offline-profiling analogue).
+  2. *Estimation*: score a given (graph, GNN) input with the calibrated
+     model without building full schedules.
+  3. *Evolutionary optimization*: population → keep elite → crossover +
+     mutation, 10–15 iterations (paper: "10-15 iterations … enough").
+
+The search space is the knob set (gs, gpt, dt, src_win) constrained by the
+Eq. 3/4 feasibility checks in `core.model` (Eq. 4 = the kernels' own
+per-block shared memory).
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable, Optional
+
+import numpy as np
+
+from repro_torch.core.extractor import GraphProps, extract_graph_props
+from repro_torch.core.model import (AggConfig, KernelModel,
+                                    config_infeasibility, paper_eq2_latency)
+from repro_torch.core.partition import partition_graph
+from repro_torch.graphs.csr import CSRGraph
+from repro_torch.hw import H100_SXM, GPUSpec
+
+__all__ = ["TunerResult", "evolve", "tune", "SEARCH_SPACE"]
+
+SEARCH_SPACE = {
+    "gs": [4, 8, 16, 32, 64],
+    "gpt": [8, 16, 32, 64, 128],
+    "dt": [64, 128, 256, 512],
+    "src_win": [128, 256, 512, 1024, 2048],
+}
+
+
+@dataclasses.dataclass
+class TunerResult:
+    best: AggConfig
+    best_score: float
+    history: list  # (iteration, best_score)
+    evaluations: int  # UNIQUE score-fn evaluations (duplicates are memoized)
+    # best-first (score, config) over every UNIQUE config scored
+    top: list = dataclasses.field(default_factory=list)
+
+
+def _random_config(rng: np.random.Generator,
+                   base: AggConfig = AggConfig()) -> AggConfig:
+    # non-searched fields (ont, variant, feat_dtype) ride along from `base`
+    return dataclasses.replace(
+        base,
+        gs=int(rng.choice(SEARCH_SPACE["gs"])),
+        gpt=int(rng.choice(SEARCH_SPACE["gpt"])),
+        dt=int(rng.choice(SEARCH_SPACE["dt"])),
+        src_win=int(rng.choice(SEARCH_SPACE["src_win"])),
+    )
+
+
+def _crossover(a: AggConfig, b: AggConfig, rng: np.random.Generator) -> AggConfig:
+    pick = lambda x, y: x if rng.random() < 0.5 else y
+    return dataclasses.replace(
+        a, gs=pick(a.gs, b.gs), gpt=pick(a.gpt, b.gpt),
+        dt=pick(a.dt, b.dt), src_win=pick(a.src_win, b.src_win))
+
+
+def _mutate(c: AggConfig, rng: np.random.Generator, p: float = 0.25) -> AggConfig:
+    kw = dataclasses.asdict(c)
+    for k, space in SEARCH_SPACE.items():
+        if rng.random() < p:
+            vals = space
+            i = vals.index(kw[k]) if kw[k] in vals else len(vals) // 2
+            j = int(np.clip(i + rng.integers(-1, 2), 0, len(vals) - 1))
+            kw[k] = vals[j]
+    return AggConfig(**kw)
+
+
+def evolve(score_fn: Callable[[AggConfig], float], *, pop: int = 16,
+           iters: int = 12, elite: int = 4, seed: int = 0,
+           base: AggConfig = AggConfig(),
+           infeasibility_fn: Optional[
+               Callable[[AggConfig], Optional[str]]] = None,
+           max_attempts_per_member: int = 64) -> TunerResult:
+    """Generic evolutionary loop (lower score = better).
+
+    Duplicate configs are never re-scored: crossover of a small elite
+    re-produces identical `AggConfig`s constantly, and profile-mode score
+    functions build REAL partitions per call — a seen-map turns those
+    repeats into dict hits.  ``TunerResult.evaluations`` therefore counts
+    UNIQUE score-function evaluations (the tuner's true cost).
+
+    ``base`` seeds the non-searched config fields (ont, variant,
+    feat_dtype); ``infeasibility_fn`` (reason string or None = feasible)
+    overrides the default `config_infeasibility` — e.g. one bound to another
+    `GPUSpec`.  Rejection sampling is
+    BOUNDED: a sparse-but-nonempty feasible region proceeds with the
+    partial population it found; a fully infeasible space raises a
+    `RuntimeError` naming the violated constraints instead of spinning
+    forever."""
+    rng = np.random.default_rng(seed)
+    if infeasibility_fn is None:
+        infeasibility_fn = config_infeasibility
+    feasible_fn = lambda c: infeasibility_fn(c) is None
+    population = []
+    attempts, reasons = 0, []
+    budget = max_attempts_per_member * pop
+    while len(population) < pop:
+        if attempts >= budget:
+            if population:
+                # sparse feasible region: run with what we found rather
+                # than abort (the elites will breed inside it)
+                break
+            uniq = list(dict.fromkeys(reasons[-16:]))
+            raise RuntimeError(
+                f"tuner search space is infeasible: {attempts} rejection-"
+                f"sampling attempts produced {len(population)}/{pop} "
+                f"feasible configs (feat_dtype={base.feat_dtype}).  "
+                f"Sample rejection reasons: {uniq}")
+        c = _random_config(rng, base)
+        attempts += 1
+        reason = infeasibility_fn(c)
+        if reason is None:
+            population.append(c)
+        else:
+            reasons.append(reason)
+    seen: dict[AggConfig, float] = {}
+
+    def score(c: AggConfig) -> float:
+        s = seen.get(c)
+        if s is None:
+            s = seen[c] = score_fn(c)
+        return s
+
+    history = []
+    scored = [(score(c), c) for c in population]
+    for it in range(iters):
+        scored.sort(key=lambda x: x[0])
+        history.append((it, scored[0][0]))
+        keep = [c for _, c in scored[:elite]]
+        children = []
+        child_attempts = 0
+        # the elites are feasible, so feasible children are normally easy to
+        # produce — but a tight feasibility surface can make mutation
+        # near-always-reject; bound the attempts and continue with a
+        # smaller brood rather than spin
+        while (len(children) < pop - elite
+               and child_attempts < max_attempts_per_member * pop):
+            a, b = rng.choice(len(keep), 2, replace=True)
+            child = _mutate(_crossover(keep[a], keep[b], rng), rng)
+            child_attempts += 1
+            if feasible_fn(child):
+                children.append(child)
+        scored = scored[:elite] + [(score(c), c) for c in children]
+    scored.sort(key=lambda x: x[0])
+    history.append((iters, scored[0][0]))
+    ranked = sorted(seen.items(), key=lambda kv: kv[1])
+    return TunerResult(best=scored[0][1], best_score=scored[0][0],
+                       history=history, evaluations=len(seen),
+                       top=[(s, c) for c, s in ranked[:8]])
+
+
+def tune(g: CSRGraph, dim: int, *, props: GraphProps | None = None,
+         mode: str = "model", iters: int = 12, pop: int = 16,
+         seed: int = 0, feat_dtype: str = "float32",
+         variant: str = "folded",
+         hw: GPUSpec = H100_SXM) -> TunerResult:
+    """Pick (gs, gpt, dt, src_win) for a given graph and embedding dim.
+
+    mode="model":   white-box model over predicted tile counts (fast; §7.1).
+    mode="profile": score by building real partitions (exact tiles; §7.2).
+    mode="paper":   literal Eq. 2 surrogate (fidelity baseline).
+
+    ``feat_dtype`` is the feature/activation dtype policy: every candidate
+    is stamped with it, the kernel model prices its ``bytes_feat``, and
+    feasibility applies its alignment — the returned ``best`` therefore
+    passes `config_infeasibility` (None) under its own dtype.  ``variant`` (port
+    addition) names the gather kernel the plan will run; the model and
+    Eq. 4 price that kernel.
+    """
+    pr = props or extract_graph_props(g, detect_communities=False)
+    km = KernelModel(hw=hw)
+    base = AggConfig(feat_dtype=feat_dtype, variant=variant)
+    if mode == "model":
+        score = lambda c: km.latency(pr, dim, c)
+    elif mode == "profile":
+        def score(c: AggConfig) -> float:
+            p = partition_graph(g, gs=c.gs, gpt=c.gpt, ont=c.ont, src_win=c.src_win)
+            return km.latency(pr, dim, c, tiles=p.num_tiles)
+    elif mode == "paper":
+        score = lambda c: paper_eq2_latency(pr, dim, c)
+    else:
+        raise ValueError(mode)
+    return evolve(score, pop=pop, iters=iters, seed=seed, base=base,
+                  infeasibility_fn=lambda c: config_infeasibility(c, hw=hw))
