@@ -10,14 +10,20 @@ Phases, each timed, any failure exits non-zero before the result line:
      ``nvcc`` per source, all started together).
   2. kernels vs plain — schedules from the port's planner on the pubmed
      replica (`random_power_law(19717, 4.5)` with GCN A-hat weights) at
-     D in {3, 16, 500} and the full reddit replica at D in {16, 64}, plus
-     one schedule with unvisited node blocks and pow2-padded tiles; every
-     variant in float32 and bfloat16 against its plain PyTorch version on
-     the card.  Tolerance: ``max|k-p| / (1 + A) <= 1e-5`` where
+     D in {3, 16, 500}, every variant, plus one schedule with unvisited
+     node blocks and pow2-padded tiles; the full reddit replica at D in
+     {16, 64} on the gather kernel (the analytic tuner's one-hot schedule
+     of full reddit pads to 11.7M tiles, where one call takes 0.2-1.7 s);
+     float32 and bfloat16, each against its plain PyTorch version on the
+     card.  Tolerance: ``max|k-p| / (1 + A) <= 1e-5`` where
      ``A = sum|ev * feat|`` (the plain version on absolute values): a
      float32 sum taken in another order can differ by rounding that scales
      with the summed magnitudes, which cancellation hides from ``|p|``.
-     ``max|k-p|/(1+|p|)`` is reported beside it.
+     ``max|k-p|/(1+|p|)`` is reported beside it.  A second witness holds
+     both float32 sums against the plain version in float64: on every row
+     of ``n`` terms the kernel's error must stay within the summation
+     bound ``gamma_n * A`` (``gamma_n = n u / (1 - n u)``, ``u = 2^-24``),
+     the bound any order of float32 products and sums meets.
   3. serving — `repro_torch.launch.serve_gnn` at pubmed's widths (500
      input features, 3 classes, 19,717 nodes, avg degree 4.5, Zipf-1.1
      requests, batch window 16, 2 hops): the paper's GCN (2 layers, hidden
@@ -30,9 +36,11 @@ Phases, each timed, any failure exits non-zero before the result line:
      Then each kernel is timed at the largest schedule its run built.
 
 The line before the last is the ``{"kernels": [...]}`` record (times are
-medians of 20 CUDA-event-timed calls after warm-up, on warm caches; sweep
-cells slower than 20 ms per call take 5); the last
-line is ``{"ok": true, "device": {...}}``.  Details of every check go to
+medians of 20 CUDA-event-timed calls after 3 warm-up calls, on warm
+caches; ``bound_ms`` counts what the function needs on the run's data:
+each real edge's id and value, each group holding an edge, each source row
+an edge reads and each row an edge writes, 2 FLOP per edge and column,
+against `repro_torch.hw.H100_SXM`); the last line is ``{"ok": true, "device": {...}}``.  Details of every check go to
 ``chiprun_out/chip_smoke_detail.json`` when that directory exists.
 """
 from __future__ import annotations
@@ -47,9 +55,8 @@ import warnings
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 SRC = os.path.join(ROOT, "src")
-HBM_BW = 3.35e12          # H100 SXM data sheet, bytes/s
-PEAK_F32 = 67e12          # H100 SXM data sheet, FLOP/s on the CUDA cores
 TOL = 1e-5
+U32 = 2.0 ** -24          # unit roundoff of float32
 SOURCES = {"group_aggregate_onehot[folded]": (
                "src/repro_torch/kernels/csrc/group_aggregate_onehot.cu",
                "src/repro/kernels/group_aggregate.py:67"),
@@ -74,20 +81,9 @@ def check(cond: bool, msg: str) -> None:
         raise SmokeFailure(msg)
 
 
-def time_ms(fn, iters: int = 20, warmup: int = 3, slow_ms: float = None):
-    """Median of ``iters`` CUDA-event-timed calls after ``warmup`` calls;
-    with ``slow_ms``, a first call slower than it cuts the depth to 5
-    calls after 1 warm-up.  Returns ``(median_ms, calls)``."""
+def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
+    """Median of ``iters`` CUDA-event-timed calls after ``warmup`` calls."""
     import torch
-    if slow_ms is not None:
-        s = torch.cuda.Event(enable_timing=True)
-        e = torch.cuda.Event(enable_timing=True)
-        s.record()
-        fn()
-        e.record()
-        e.synchronize()
-        if s.elapsed_time(e) > slow_ms:
-            iters, warmup = 5, 0
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
@@ -100,7 +96,7 @@ def time_ms(fn, iters: int = 20, warmup: int = 3, slow_ms: float = None):
         e.record()
         e.synchronize()
         times.append(s.elapsed_time(e))
-    return statistics.median(times), iters
+    return statistics.median(times)
 
 
 class KernelCase:
@@ -108,41 +104,54 @@ class KernelCase:
     `kernels.ops.aggregate` hands them to the wrapper, the plain version's
     call on the same inputs, the library yardstick and the bound."""
 
-    def __init__(self, sched, graph, edge_vals, d, dtype, variant, dt, seed):
+    def __init__(self, sched, graph, edge_vals, d, dtype, variant, dt, seed,
+                 device="cuda"):
         import torch
 
+        from repro_torch.hw import H100_SXM
         from repro_torch.kernels.ops import _pad_to, dim_tile
-        gen = torch.Generator(device="cuda").manual_seed(seed)
+        gen = torch.Generator(device=device).manual_seed(seed)
         self.s, self.variant, self.d = sched, variant, d
         feat = torch.randn((sched.num_nodes, d), generator=gen,
-                           device="cuda").to(dtype)
+                           device=device).to(dtype)
         self.dt = dim_tile(dt, d, dtype)
         d_pad = -(-d // self.dt) * self.dt
         self.feat_p = _pad_to(feat, sched.padded_src_rows, d_pad)
         # the library yardstick: one CSR sparse x dense product (f32)
         n = graph.num_nodes
-        vals = (torch.ones(graph.num_edges, device="cuda") if edge_vals is None
-                else torch.as_tensor(edge_vals, device="cuda"))
+        vals = (torch.ones(graph.num_edges, device=device) if edge_vals is None
+                else torch.as_tensor(edge_vals, device=device))
         with warnings.catch_warnings():
             warnings.simplefilter("ignore")          # "sparse CSR is beta"
             self.csr = torch.sparse_csr_tensor(
-                torch.as_tensor(graph.indptr, device="cuda"),
+                torch.as_tensor(graph.indptr, device=device),
                 torch.as_tensor(graph.indices, dtype=torch.int64,
-                                device="cuda"),
+                                device=device),
                 vals, size=(n, n), check_invariants=False)
         self.dense = feat.float()
+        # the bound counts what the function needs on this data, not the
+        # schedule's padding: each edge's id and value, each group holding
+        # an edge its output row, each source row an edge reads (in the
+        # feature dtype) and each row an edge writes (f32) once
         T, gpt, gs = sched.nbrs.shape
-        slots, groups = T * gpt * gs, T * gpt
-        item = feat.element_size()
-        nbytes = (sched.padded_src_rows * d * item + 8 * slots + 4 * groups
-                  + sched.padded_out_rows * d * 4)
-        flops = 2.0 * slots * d
-        t_bytes, t_ops = nbytes / HBM_BW * 1e3, flops / PEAK_F32 * 1e3
+        groups = torch.unique(sched.edge_slot)
+        src = sched.nbrs.reshape(T * gpt, gs)[sched.edge_slot, sched.edge_pos]
+        dst = (sched.tile_node_block.long()[groups // gpt] * sched.ont
+               + sched.local_node.reshape(-1)[groups].long())
+        n_src, n_dst = torch.unique(src).numel(), torch.unique(dst).numel()
+        edges = sched.num_edges
+        nbytes = (n_src * d * feat.element_size() + 8 * edges
+                  + 4 * groups.numel() + n_dst * d * 4)
+        flops = 2.0 * edges * d
+        t_bytes = nbytes / H100_SXM.hbm_bw * 1e3
+        t_ops = flops / H100_SXM.peak_flops_f32 * 1e3
         self.bound_ms = max(t_bytes, t_ops)
         self.bound_by = "bytes" if t_bytes >= t_ops else "operations"
-        self.shape = {"tiles": T, "gpt": gpt, "gs": gs, "src_win": sched.src_win,
-                      "nodes": sched.num_nodes, "D": d, "dt": self.dt,
-                      "dtype": str(dtype).removeprefix("torch."),
+        self.shape = {"tiles": T, "live_tiles": sched.live_tiles, "gpt": gpt,
+                      "gs": gs, "src_win": sched.src_win,
+                      "nodes": sched.num_nodes, "edges": edges,
+                      "src_rows": n_src, "out_rows": n_dst, "D": d,
+                      "dt": self.dt, "dtype": str(dtype).removeprefix("torch."),
                       "runs": sched.num_runs}
 
     def kernel(self):
@@ -154,45 +163,95 @@ class KernelCase:
             src_win=s.src_win, dt=self.dt, out_rows=s.padded_out_rows,
             variant=self.variant)
 
-    def plain(self, magnitude: bool = False):
+    def plain(self):
         from repro_torch.kernels.group_aggregate import group_aggregate_plain
         s = self.s
-        feat, ev = self.feat_p, s.edge_val
-        if magnitude:
-            feat, ev = feat.abs(), ev.abs()
         return group_aggregate_plain(
-            feat, s.nbrs, ev, s.local_node, s.tile_node_block,
+            self.feat_p, s.nbrs, s.edge_val, s.local_node, s.tile_node_block,
             ont=s.ont, out_rows=s.padded_out_rows)
+
+    def oracle(self, feat, ev):
+        """The schedule's sum in float64 (uncounted: a witness, not the
+        plain version)."""
+        import torch
+
+        from repro_torch.kernels.ref import group_aggregate_ref
+        s = self.s
+        return group_aggregate_ref(feat, s.nbrs, ev, s.local_node,
+                                   s.tile_node_block, s.ont,
+                                   s.padded_out_rows, acc_dtype=torch.float64)
 
     def library(self):
         import torch
         return torch.sparse.mm(self.csr, self.dense)
 
-    def run(self, slow_ms: float = None) -> dict:
-        """Check against the plain version, then time kernel, plain
-        version and library call (``slow_ms``: see `time_ms`)."""
+    def check(self) -> dict:
+        """Kernel vs plain version in float32, and both vs the float64
+        witness within the float32 summation bound (see the module doc)."""
         import torch
-        k = self.kernel()
-        p = self.plain()
-        mag = self.plain(magnitude=True)
-        torch.cuda.synchronize()
-        n, d = self.s.num_nodes, self.d
-        visited = torch.repeat_interleave(self.s.block_visited, self.s.ont)[:n]
-        k, p = k[:n, :d][visited], p[:n, :d][visited]
-        mag = mag[:n, :d][visited]
-        check(bool(torch.isfinite(k).all()), f"non-finite kernel output {self.shape}")
+        s, n, d = self.s, self.s.num_nodes, self.d
+        k = self.kernel().double()
+        p = self.plain().double()
+        feat, ev = self.feat_p.double(), s.edge_val.double()
+        exact = self.oracle(feat, ev)
+        mag = self.oracle(feat.abs(), ev.abs())
+        terms = self.oracle(torch.ones_like(feat[:, :1]), (ev != 0).double())
+        visited = torch.repeat_interleave(s.block_visited, s.ont)[:n]
+        k, p, exact, mag = (t[:n, :d][visited] for t in (k, p, exact, mag))
+        terms = terms[:n][visited]
+        check(bool(torch.isfinite(k).all()),
+              f"non-finite kernel output {self.shape}")
+        limit = terms * U32 / (1.0 - terms * U32) * mag
+
+        def over_bound(x):
+            err = (x - exact).abs()
+            return float(torch.where(
+                limit > 0, err / limit.clamp_min(1e-300),
+                torch.where(err > 0, torch.inf, 0.0)).max())
+
         diff = (k - p).abs()
         rec = dict(self.shape, variant=self.variant,
                    max_abs_err=float(diff.max()),
                    max_err=float((diff / (1.0 + p.abs())).max()),
                    max_err_scaled=float((diff / (1.0 + mag)).max()),
+                   err_f64=float(((k - exact).abs()
+                                  / (1.0 + exact.abs())).max()),
+                   plain_err_f64=float(((p - exact).abs()
+                                        / (1.0 + exact.abs())).max()),
+                   over_bound=over_bound(k), plain_over_bound=over_bound(p),
                    bound_ms=self.bound_ms, bound_by=self.bound_by)
-        del k, p, mag
-        rec["ms"], rec["calls"] = time_ms(self.kernel, slow_ms=slow_ms)
-        rec["plain_ms"], rec["plain_calls"] = time_ms(self.plain,
-                                                      slow_ms=slow_ms)
-        rec["library_ms"], _ = time_ms(self.library, slow_ms=slow_ms)
         return rec
+
+    def run(self) -> dict:
+        """Check, then time kernel, plain version and library call."""
+        import torch
+        rec = self.check()
+        torch.cuda.empty_cache()
+        rec["ms"] = time_ms(self.kernel)
+        rec["plain_ms"] = time_ms(self.plain)
+        rec["library_ms"] = time_ms(self.library)
+        return rec
+
+    @staticmethod
+    def holds(rec: dict, what: str) -> None:
+        """Fail unless ``rec`` meets both agreement checks."""
+        check(rec["max_err_scaled"] <= TOL,
+              f"{what}: kernel vs plain {rec['max_err_scaled']:.3e} > {TOL} "
+              f"at {rec}")
+        check(rec["over_bound"] <= 1.0,
+              f"{what}: kernel vs float64 at {rec['over_bound']:.3f} x the "
+              f"float32 summation bound at {rec}")
+
+    @staticmethod
+    def summary(rec: dict) -> str:
+        return (f"err={rec['max_err']:.2e} scaled={rec['max_err_scaled']:.2e} "
+                f"f64: kernel={rec['err_f64']:.2e} "
+                f"plain={rec['plain_err_f64']:.2e} "
+                f"bound-share={rec['over_bound']:.3f}/"
+                f"{rec['plain_over_bound']:.3f} "
+                f"ms={rec['ms']:.3f} plain={rec['plain_ms']:.3f} "
+                f"lib={rec['library_ms']:.3f} "
+                f"bound={rec['bound_ms']:.5f} ({rec['bound_by']})")
 
 
 def kernel_sweeps(detail: dict) -> list:
@@ -204,6 +263,7 @@ def kernel_sweeps(detail: dict) -> list:
     from repro_torch.graphs.csr import random_power_law
     from repro_torch.graphs.datasets import make_dataset
     from repro_torch.graphs.subgraph import pad_to_nodes
+    from repro_torch.kernels.group_aggregate import VARIANTS
     from repro_torch.kernels.ops import DeviceSchedule, aggregate
     from repro_torch.models.gnn import gcn_edge_values
 
@@ -216,16 +276,15 @@ def kernel_sweeps(detail: dict) -> list:
         f"({time.time() - t0:.1f}s)")
     padded = pad_to_nodes(pubmed, 32768)     # edge-less tail: unvisited blocks
     records = []
-    cases = [("pubmed", pubmed, vals_p, 16, (3, 16, 500), False),
-             ("pubmed-padded", padded, vals_p, 16, (16,), True),
-             ("reddit", reddit, vals_r, 64, (16, 64), False)]
-    for name, g, vals, dim, widths, pad in cases:
+    cases = [("pubmed", pubmed, vals_p, 16, (3, 16, 500), False, VARIANTS),
+             ("pubmed-padded", padded, vals_p, 16, (16,), True, VARIANTS),
+             ("reddit", reddit, vals_r, 64, (16, 64), False, ("direct",))]
+    for name, g, vals, dim, widths, pad, variants in cases:
         plan = None
-        for variant in ("folded", "slot_onehot", "direct"):
+        for variant in variants:
             t1 = time.time()
             # one schedule per kernel: the slot variant runs the one-hot
-            # kernel on the schedule tuned for folded (planning full reddit
-            # takes most of a minute per schedule)
+            # kernel on the schedule tuned for folded
             if plan is None or variant == "direct":
                 plan = plan_for(g, arch="gcn", in_dim=dim, hidden_dim=dim,
                                 edge_vals=vals, tune_iters=4,
@@ -244,17 +303,10 @@ def kernel_sweeps(detail: dict) -> list:
                 for dtype in (torch.float32, torch.bfloat16):
                     case = KernelCase(sched, g, vals, d, dtype, variant,
                                       cfg.dt, seed=d)
-                    rec = dict(case.run(slow_ms=20.0), graph=name)
+                    rec = dict(case.run(), graph=name)
                     records.append(rec)
-                    log(f"  D={d} {rec['dtype']}: err={rec['max_err']:.2e} "
-                        f"scaled={rec['max_err_scaled']:.2e} "
-                        f"ms={rec['ms']:.3f} plain={rec['plain_ms']:.3f} "
-                        f"lib={rec['library_ms']:.3f} "
-                        f"bound={rec['bound_ms']:.4f} ({rec['bound_by']}) "
-                        f"x{rec['calls']}")
-                    check(rec["max_err_scaled"] <= TOL,
-                          f"{variant} disagrees with its plain version: "
-                          f"{rec['max_err_scaled']:.3e} > {TOL} at {rec}")
+                    log(f"  D={d} {rec['dtype']}: {KernelCase.summary(rec)}")
+                    KernelCase.holds(rec, f"{name} {variant}")
                     del case
             if pad:
                 # the public entry point masks unvisited blocks to zeros
@@ -341,8 +393,7 @@ def serving(detail: dict) -> dict:
                           eng.cfg.compute_dtype, variant, ent.plan.config.dt,
                           seed=7)
         rec = case.run()
-        check(rec["max_err_scaled"] <= TOL, f"{name}: {kname} vs plain "
-              f"{rec['max_err_scaled']:.2e} at the serving shape")
+        KernelCase.holds(rec, f"{name}: {kname} at the serving shape")
         # every fired batch, the --verify re-serves included (the counts
         # include their launches too)
         served = int(eng.stats.batches.value)
@@ -354,11 +405,9 @@ def serving(detail: dict) -> dict:
         detail["serving"].append(rec)
         at_serving.setdefault(kname, rec)      # the float32 run comes first
         log(f"{name}: verify={res['verify_err']:.2e} torch-engine={err:.2e} "
-            f"kernel at {rec['tiles']} tiles D={rec['D']}: "
-            f"err={rec['max_err']:.2e} scaled={rec['max_err_scaled']:.2e} "
-            f"ms={rec['ms']:.3f} "
-            f"plain={rec['plain_ms']:.3f} lib={rec['library_ms']:.3f} "
-            f"bound={rec['bound_ms']:.4f} ({time.time() - t0:.1f}s)")
+            f"kernel at {rec['tiles']} tiles ({rec['live_tiles']} live, "
+            f"{rec['edges']} edges) D={rec['D']}: {KernelCase.summary(rec)} "
+            f"({time.time() - t0:.1f}s)")
         del plain, res, eng
         torch.cuda.empty_cache()
     return at_serving
@@ -409,11 +458,9 @@ def main() -> int:
         log(f"FAIL: {e}")
         return 1
 
+    from repro_torch.kernels.group_aggregate import KERNEL_OF_VARIANT
     kernels = []
-    by_kernel = {"folded": "group_aggregate_onehot[folded]",
-                 "slot_onehot": "group_aggregate_onehot[slot]",
-                 "direct": "group_aggregate_gather"}
-    for variant, kname in by_kernel.items():
+    for variant, kname in KERNEL_OF_VARIANT.items():
         rec = at_serving[kname]
         checks = [r for r in sweeps if r["variant"] == variant] + [rec]
         source, replaces = SOURCES[kname]
@@ -423,11 +470,16 @@ def main() -> int:
             "max_abs_err": max(r["max_abs_err"] for r in checks),
             "max_err": max(r["max_err"] for r in checks),
             "max_err_scaled": max(r["max_err_scaled"] for r in checks),
+            "err_f64": max(r["err_f64"] for r in checks),
+            "plain_err_f64": max(r["plain_err_f64"] for r in checks),
+            "over_bound": max(r["over_bound"] for r in checks),
+            "plain_over_bound": max(r["plain_over_bound"] for r in checks),
             "ms": rec["ms"], "plain_ms": rec["plain_ms"],
             "bound_ms": rec["bound_ms"], "bound_by": rec["bound_by"],
             "library_ms": rec["library_ms"], "phase": rec["phase"],
-            "shape": {k: rec[k] for k in ("tiles", "gpt", "gs", "src_win",
-                                          "nodes", "D", "dt", "dtype")},
+            "shape": {k: rec[k] for k in ("tiles", "live_tiles", "gpt", "gs",
+                                          "src_win", "nodes", "edges", "D",
+                                          "dt", "dtype")},
             "launches_per_batch": rec["launches_per_batch"],
             "batches_served": rec["batches_served"]})
     detail["kernels"] = kernels

@@ -32,6 +32,7 @@ from typing import Dict
 
 import torch
 
+from repro_torch.hw import H100_SXM
 from repro_torch.kernels import build
 from repro_torch.kernels.ref import group_aggregate_ref
 
@@ -50,7 +51,6 @@ PLAIN = "group_aggregate_ref"
 launches: Dict[str, int] = {k: 0 for k in (*KERNEL_OF_VARIANT.values(), PLAIN)}
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
-_SMEM_LIMIT = 232_448          # bytes of shared memory per block on sm_90
 # one-hot kernel chunking (see csrc/group_aggregate_onehot.cu)
 _ONEHOT_ROWS = 32              # window rows per chunk (ch)
 _ONEHOT_COLS = 64              # most columns per block (dc)
@@ -190,10 +190,10 @@ def group_aggregate(feat_padded: torch.Tensor, nbrs: torch.Tensor,
     num_runs = run_start.numel() - 1
 
     geo = launch_geometry(variant, gs=gs, gpt=gpt, ont=ont, dt=dt)
-    if geo.smem_bytes > _SMEM_LIMIT:
+    if geo.smem_bytes > H100_SXM.smem_per_block:
         raise ValueError(f"{variant} at gs={gs} gpt={gpt} ont={ont} dt={dt} "
                          f"needs {geo.smem_bytes} B of shared memory per "
-                         f"block (> {_SMEM_LIMIT} B)")
+                         f"block (> {H100_SXM.smem_per_block} B)")
     out = torch.empty((out_rows, d_pad), dtype=torch.float32, device=dev)
     stream = ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
     ptr = lambda x: ctypes.c_void_p(x.data_ptr())
