@@ -35,12 +35,46 @@ Phases, each timed, any failure exits non-zero before the result line:
      and a few requests must match the same engine on ``backend="torch"``.
      Then each kernel is timed at the largest schedule its run built.
 
+  4. edge-gradient kernels vs plain — the GAT schedules of the pubmed
+     replica (`make_dataset("pubmed")`, 19,717 nodes) from
+     ``plan_for(arch="gat", with_backward=True)``, one tuned for the
+     ``slot_onehot`` kernel (block edge-gradient kernel) and one for
+     ``direct`` (gather edge-gradient kernel), at D in {1, 16, 128},
+     float32 and bfloat16, real slots only.  Tolerance: ``max|k-p| /
+     (1 + sum|g*f|) <= 1e-5`` and the float64 witness within
+     ``gamma_D * sum|g*f|`` on every slot, as phase 2.  Then the autograd
+     `Function` on the card: ``feat`` and ``edge_values`` gradients on
+     ``backend="cuda"`` against ``backend="torch"``, ``<= 1e-5`` in the
+     same magnitude-scaled form.
+  5. training — `repro_torch.launch.train.run` on the full pubmed replica
+     (19,717 nodes, in-dim 128, 3 classes, 20 steps each, a fresh
+     checkpoint directory per run): GAT hidden 16 on ``slot_onehot`` and
+     on ``direct`` (float32), GCN hidden 16 on ``folded`` in float32 and
+     bfloat16.  Launch counts are zeroed just before each run and read
+     just after: every training step must launch the configured forward
+     kernel and, for GAT, the configured edge-gradient kernel exactly as
+     often as the model asks (GCN 4 forward-kernel launches per step; GAT
+     6 forward and 4 edge-gradient launches: the denominator's all-ones
+     input takes no gradient, so its transposed aggregation is skipped);
+     the plain versions run only for the label teacher's one forward
+     (``planted_labels`` runs on ``backend="torch"`` by design) and never
+     in training.  The last loss must be below the first, and three steps
+     on ``backend="cuda"`` must match three on ``backend="torch"`` from the
+     same parameters within ``max|a-b|/(1+|b|) <= 1e-4``.  The
+     edge-gradient kernels are then timed at the GAT runs' hidden-width
+     shape.
+
 The line before the last is the ``{"kernels": [...]}`` record (times are
 medians of 20 CUDA-event-timed calls after 3 warm-up calls, on warm
 caches; ``bound_ms`` counts what the function needs on the run's data:
 each real edge's id and value, each group holding an edge, each source row
 an edge reads and each row an edge writes, 2 FLOP per edge and column,
-against `repro_torch.hw.H100_SXM`); the last line is ``{"ok": true, "device": {...}}``.  Details of every check go to
+against `repro_torch.hw.H100_SXM`; for the edge-gradient kernels each real
+edge's id and result, each group holding an edge, the source and
+cotangent rows edges read, 2 FLOP per edge and column; ``library_ms`` is
+one `torch.sparse.mm` for the aggregation kernels and one
+`torch.sparse.sampled_addmm` on the same CSR pattern for the
+edge-gradient kernels, float32); the last line is ``{"ok": true, "device": {...}}``.  Details of every check go to
 ``chiprun_out/chip_smoke_detail.json`` when that directory exists.
 """
 from __future__ import annotations
@@ -65,7 +99,13 @@ SOURCES = {"group_aggregate_onehot[folded]": (
                "src/repro/kernels/group_aggregate.py:67"),
            "group_aggregate_gather": (
                "src/repro_torch/kernels/csrc/group_aggregate_gather.cu",
-               "src/repro/kernels/group_aggregate.py:117")}
+               "src/repro/kernels/group_aggregate.py:117"),
+           "group_edge_grad[block]": (
+               "src/repro_torch/kernels/csrc/group_edge_grad.cu",
+               "src/repro/kernels/group_aggregate.py:183"),
+           "group_edge_grad[gather]": (
+               "src/repro_torch/kernels/csrc/group_edge_grad.cu",
+               "src/repro/kernels/group_aggregate.py:224")}
 
 
 class SmokeFailure(Exception):
@@ -99,6 +139,30 @@ def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return statistics.median(times)
 
 
+def real_work(sched) -> tuple:
+    """What a schedule's function needs on its data, not its padding:
+    ``(edges, groups holding an edge, distinct source rows edges read,
+    distinct rows edges write)``."""
+    import torch
+    T, gpt, gs = sched.nbrs.shape
+    groups = torch.unique(sched.edge_slot)
+    src = sched.nbrs.reshape(T * gpt, gs)[sched.edge_slot, sched.edge_pos]
+    dst = (sched.tile_node_block.long()[groups // gpt] * sched.ont
+           + sched.local_node.reshape(-1)[groups].long())
+    return (sched.num_edges, groups.numel(), torch.unique(src).numel(),
+            torch.unique(dst).numel())
+
+
+def bound(nbytes: float, flops: float) -> tuple:
+    """``(bound_ms, bound_by)``: the larger of bytes over the card's
+    memory rate and float32 operations over its peak rate."""
+    from repro_torch.hw import H100_SXM
+    t_bytes = nbytes / H100_SXM.hbm_bw * 1e3
+    t_ops = flops / H100_SXM.peak_flops_f32 * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                 else "operations")
+
+
 class KernelCase:
     """One kernel call at one shape: padded inputs exactly as
     `kernels.ops.aggregate` hands them to the wrapper, the plain version's
@@ -108,7 +172,6 @@ class KernelCase:
                  device="cuda"):
         import torch
 
-        from repro_torch.hw import H100_SXM
         from repro_torch.kernels.ops import _pad_to, dim_tile
         gen = torch.Generator(device=device).manual_seed(seed)
         self.s, self.variant, self.d = sched, variant, d
@@ -133,20 +196,11 @@ class KernelCase:
         # schedule's padding: each edge's id and value, each group holding
         # an edge its output row, each source row an edge reads (in the
         # feature dtype) and each row an edge writes (f32) once
+        edges, groups, n_src, n_dst = real_work(sched)
+        self.bound_ms, self.bound_by = bound(
+            n_src * d * feat.element_size() + 8 * edges + 4 * groups
+            + n_dst * d * 4, 2.0 * edges * d)
         T, gpt, gs = sched.nbrs.shape
-        groups = torch.unique(sched.edge_slot)
-        src = sched.nbrs.reshape(T * gpt, gs)[sched.edge_slot, sched.edge_pos]
-        dst = (sched.tile_node_block.long()[groups // gpt] * sched.ont
-               + sched.local_node.reshape(-1)[groups].long())
-        n_src, n_dst = torch.unique(src).numel(), torch.unique(dst).numel()
-        edges = sched.num_edges
-        nbytes = (n_src * d * feat.element_size() + 8 * edges
-                  + 4 * groups.numel() + n_dst * d * 4)
-        flops = 2.0 * edges * d
-        t_bytes = nbytes / H100_SXM.hbm_bw * 1e3
-        t_ops = flops / H100_SXM.peak_flops_f32 * 1e3
-        self.bound_ms = max(t_bytes, t_ops)
-        self.bound_by = "bytes" if t_bytes >= t_ops else "operations"
         self.shape = {"tiles": T, "live_tiles": sched.live_tiles, "gpt": gpt,
                       "gs": gs, "src_win": sched.src_win,
                       "nodes": sched.num_nodes, "edges": edges,
@@ -223,13 +277,19 @@ class KernelCase:
         return rec
 
     def run(self) -> dict:
-        """Check, then time kernel, plain version and library call."""
+        """Check, then time kernel, plain version and library call (the
+        yardstick only: a library call this PyTorch build lacks is
+        reported as None, not a failure)."""
         import torch
         rec = self.check()
         torch.cuda.empty_cache()
         rec["ms"] = time_ms(self.kernel)
         rec["plain_ms"] = time_ms(self.plain)
-        rec["library_ms"] = time_ms(self.library)
+        try:
+            rec["library_ms"] = time_ms(self.library)
+        except RuntimeError as e:
+            log(f"  library call unavailable: {e}")
+            rec["library_ms"] = None
         return rec
 
     @staticmethod
@@ -250,7 +310,7 @@ class KernelCase:
                 f"bound-share={rec['over_bound']:.3f}/"
                 f"{rec['plain_over_bound']:.3f} "
                 f"ms={rec['ms']:.3f} plain={rec['plain_ms']:.3f} "
-                f"lib={rec['library_ms']:.3f} "
+                f"lib={_lib(rec)} "
                 f"bound={rec['bound_ms']:.5f} ({rec['bound_by']})")
 
 
@@ -413,6 +473,333 @@ def serving(detail: dict) -> dict:
     return at_serving
 
 
+class EdgeGradCase(KernelCase):
+    """One edge-gradient kernel call at one shape: padded cotangent and
+    features exactly as `kernels.ops._edge_cotangent` hands them to the
+    wrapper, the plain version on the same inputs, the library yardstick
+    and the bound.  Only real slots are compared (padded slots and pad
+    tiles are don't-care)."""
+
+    def __init__(self, sched, graph, d, dtype, variant, dt, seed,
+                 device="cuda"):
+        import torch
+
+        from repro_torch.kernels.ops import _pad_to, dim_tile
+        gen = torch.Generator(device=device).manual_seed(seed)
+        self.s, self.variant, self.d = sched, variant, d
+        n = sched.num_nodes
+        grad = torch.randn((n, d), generator=gen, device=device).to(dtype)
+        feat = torch.randn((n, d), generator=gen, device=device).to(dtype)
+        self.dt = dim_tile(dt, d, dtype)
+        d_pad = -(-d // self.dt) * self.dt
+        self.grad_p = _pad_to(grad, sched.padded_out_rows, d_pad)
+        self.feat_p = _pad_to(feat, sched.padded_src_rows, d_pad)
+        # the library yardstick: one SDDMM on the graph's CSR pattern,
+        # out[e] = <grad[row e], feat[col e]> (f32)
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")          # "sparse CSR is beta"
+            self.csr = torch.sparse_csr_tensor(
+                torch.as_tensor(graph.indptr, device=device),
+                torch.as_tensor(graph.indices, dtype=torch.int64,
+                                device=device),
+                torch.ones(graph.num_edges, device=device), size=(n, n),
+                check_invariants=False)
+        self.grad32 = grad.float()
+        self.feat32_t = feat.float().t().contiguous()
+        # 4 B id + 4 B result per real edge, 4 B per group holding an edge,
+        # the source rows and cotangent rows edges read (feature dtype)
+        edges, groups, n_src, n_dst = real_work(sched)
+        self.bound_ms, self.bound_by = bound(
+            8 * edges + 4 * groups + (n_src + n_dst) * d * feat.element_size(),
+            2.0 * edges * d)
+        T, gpt, gs = sched.nbrs.shape
+        self.shape = {"tiles": T, "live_tiles": sched.live_tiles, "gpt": gpt,
+                      "gs": gs, "src_win": sched.src_win, "nodes": n,
+                      "edges": edges, "src_rows": n_src, "out_rows": n_dst,
+                      "D": d, "dt": self.dt,
+                      "dtype": str(dtype).removeprefix("torch."),
+                      "runs": sched.num_runs}
+
+    def _real(self, per_slot):
+        s = self.s
+        return per_slot.reshape(-1, s.gs)[s.edge_slot, s.edge_pos]
+
+    def kernel(self):
+        from repro_torch.kernels.group_aggregate import group_edge_grad
+        s = self.s
+        return group_edge_grad(
+            self.grad_p, self.feat_p, s.nbrs, s.local_node,
+            s.tile_node_block, s.tile_window, s.run_start, gs=s.gs,
+            gpt=s.gpt, ont=s.ont, src_win=s.src_win, dt=self.dt,
+            variant=self.variant)
+
+    def plain(self):
+        from repro_torch.kernels.group_aggregate import group_edge_grad_plain
+        s = self.s
+        return group_edge_grad_plain(self.grad_p, self.feat_p, s.nbrs,
+                                     s.local_node, s.tile_node_block,
+                                     ont=s.ont)
+
+    def oracle(self, grad, feat):
+        """The per-slot dots in float64 (uncounted witness)."""
+        import torch
+
+        from repro_torch.kernels.ref import group_edge_grad_ref
+        s = self.s
+        return group_edge_grad_ref(grad, feat, s.nbrs, s.local_node,
+                                   s.tile_node_block, s.ont,
+                                   acc_dtype=torch.float64)
+
+    def library(self):
+        import torch
+        return torch.sparse.sampled_addmm(self.csr, self.grad32,
+                                          self.feat32_t, beta=0.0)
+
+    def check(self) -> dict:
+        """Kernel vs plain version, and both vs the float64 witness within
+        the float32 summation bound of a D-term dot product."""
+        import torch
+        k = self._real(self.kernel()).double()
+        p = self._real(self.plain()).double()
+        g, f = self.grad_p.double(), self.feat_p.double()
+        exact = self._real(self.oracle(g, f))
+        mag = self._real(self.oracle(g.abs(), f.abs()))
+        check(bool(torch.isfinite(k).all()),
+              f"non-finite edge-gradient output {self.shape}")
+        terms = float(self.d)
+        limit = terms * U32 / (1.0 - terms * U32) * mag
+
+        def over_bound(x):
+            err = (x - exact).abs()
+            return float(torch.where(
+                limit > 0, err / limit.clamp_min(1e-300),
+                torch.where(err > 0, torch.inf, 0.0)).max())
+
+        diff = (k - p).abs()
+        return dict(self.shape, variant=self.variant,
+                    max_abs_err=float(diff.max()),
+                    max_err=float((diff / (1.0 + p.abs())).max()),
+                    max_err_scaled=float((diff / (1.0 + mag)).max()),
+                    err_f64=float(((k - exact).abs()
+                                   / (1.0 + exact.abs())).max()),
+                    plain_err_f64=float(((p - exact).abs()
+                                         / (1.0 + exact.abs())).max()),
+                    over_bound=over_bound(k), plain_over_bound=over_bound(p),
+                    bound_ms=self.bound_ms, bound_by=self.bound_by)
+
+
+
+def _lib(rec: dict) -> str:
+    v = rec["library_ms"]
+    return "n/a" if v is None else f"{v:.3f}"
+
+
+def edge_grad_checks(detail: dict) -> list:
+    """Phase 4: both edge-gradient kernels vs their plain version on the
+    pubmed replica's GAT schedules, then the autograd Function."""
+    import torch
+
+    from repro_torch.core.advisor import plan_for
+    from repro_torch.graphs.datasets import make_dataset
+    from repro_torch.kernels import group_aggregate as ga
+    from repro_torch.kernels.ops import aggregate
+    from repro_torch.kernels.ref import group_aggregate_ref, group_edge_grad_ref
+
+    t0 = time.time()
+    g, _, _ = make_dataset("pubmed", max_dim=1)
+    records, grads = [], []
+    for variant in ("slot_onehot", "direct"):
+        t1 = time.time()
+        plan = plan_for(g, arch="gat", in_dim=128, hidden_dim=16,
+                        tune_iters=4, variant=variant, with_backward=True)
+        sched, sched_bwd = plan.sched("cuda"), plan.sched_bwd("cuda")
+        cfg = plan.config
+        kname = ga.EDGE_GRAD_KERNEL_OF_VARIANT[variant]
+        log(f"pubmed gat {variant} ({kname}): gs={cfg.gs} gpt={cfg.gpt} "
+            f"dt={cfg.dt} src_win={cfg.src_win} tiles={sched.num_tiles} "
+            f"runs={sched.num_runs} bwd tiles={sched_bwd.num_tiles} "
+            f"runs={sched_bwd.num_runs} (plan {time.time() - t1:.1f}s)")
+        for d in (1, 16, 128):
+            for dtype in (torch.float32, torch.bfloat16):
+                case = EdgeGradCase(sched, plan.graph, d, dtype, variant,
+                                    cfg.dt, seed=d)
+                rec = dict(case.run(), graph="pubmed", kernel=kname)
+                records.append(rec)
+                log(f"  D={d} {rec['dtype']}: {KernelCase.summary(rec)}")
+                KernelCase.holds(rec, f"pubmed {kname}")
+                del case
+
+        # the autograd Function on the card, cuda vs torch backends
+        gen = torch.Generator(device="cuda").manual_seed(5)
+        n, e = g.num_nodes, g.num_edges
+        feat = torch.randn((n, 16), generator=gen, device="cuda")
+        cot = torch.randn((n, 16), generator=gen, device="cuda")
+        ev = 0.5 + torch.rand((e,), generator=gen, device="cuda")
+        out = {}
+        for backend in ("cuda", "torch"):
+            f = feat.clone().requires_grad_(True)
+            w = ev.clone().requires_grad_(True)
+            y = aggregate(f, sched, dt=cfg.dt, backend=backend,
+                          variant=variant, edge_values=w,
+                          sched_bwd=sched_bwd)
+            (y * cot).sum().backward()
+            out[backend] = (f.grad.double(), w.grad.double())
+        # magnitudes the float32 sums run over: |cot| aggregated over the
+        # transposed schedule with |ev|, and sum|cot[dst] * feat[src]|
+        ev_bwd = ev.abs()[sched_bwd.edge_perm]
+        evs = torch.zeros(sched_bwd.nbrs.numel() // sched_bwd.gs,
+                          sched_bwd.gs, device="cuda")
+        evs[sched_bwd.edge_slot, sched_bwd.edge_pos] = ev_bwd
+        mag_f = group_aggregate_ref(
+            torch.nn.functional.pad(cot.abs(), (0, 0, 0,
+                                                sched_bwd.padded_src_rows - n)),
+            sched_bwd.nbrs, evs.reshape(sched_bwd.nbrs.shape),
+            sched_bwd.local_node, sched_bwd.tile_node_block, sched_bwd.ont,
+            sched_bwd.padded_out_rows, acc_dtype=torch.float64)[:n]
+        per_slot = group_edge_grad_ref(
+            torch.nn.functional.pad(cot.abs(), (0, 0, 0,
+                                                sched.padded_out_rows - n)),
+            torch.nn.functional.pad(feat.abs(), (0, 0, 0,
+                                                 sched.padded_src_rows - n)),
+            sched.nbrs, sched.local_node, sched.tile_node_block, sched.ont,
+            acc_dtype=torch.float64)
+        mag_e = per_slot.reshape(-1, sched.gs)[sched.edge_slot,
+                                               sched.edge_pos]
+        (kf, ke), (pf, pe) = out["cuda"], out["torch"]
+        rec = {"variant": variant,
+               "feat_err_scaled": float(((kf - pf).abs() / (1 + mag_f)).max()),
+               "feat_err": float(((kf - pf).abs() / (1 + pf.abs())).max()),
+               "ev_err_scaled": float(((ke - pe).abs() / (1 + mag_e)).max()),
+               "ev_err": float(((ke - pe).abs() / (1 + pe.abs())).max())}
+        grads.append(rec)
+        log(f"  autograd cuda vs torch: feat {rec['feat_err_scaled']:.2e} "
+            f"(/(1+|p|) {rec['feat_err']:.2e}) edge values "
+            f"{rec['ev_err_scaled']:.2e} (/(1+|p|) {rec['ev_err']:.2e})")
+        check(rec["feat_err_scaled"] <= TOL and rec["ev_err_scaled"] <= TOL,
+              f"{variant}: autograd cuda vs torch beyond {TOL}: {rec}")
+        del sched, sched_bwd, plan
+        torch.cuda.empty_cache()
+    detail["edge_grad"] = records
+    detail["autograd"] = grads
+    log(f"edge-gradient checks done ({time.time() - t0:.1f}s)")
+    return records
+
+
+TRAIN_STEPS = 20
+TRAIN_COMMON = ["--dataset", "pubmed", "--max-nodes", "19717",
+                "--hidden-dim", "16", "--steps", str(TRAIN_STEPS),
+                "--lr", "1e-2", "--warmup", "2", "--ckpt-every", "10",
+                "--device", "cuda", "--backend", "cuda"]
+# (phase, arch, variant, dtype, forward-kernel launches per step,
+#  edge-gradient launches per step, teacher forward aggregations)
+TRAIN_PHASES = [
+    ("gat-slot-f32", "gat", "slot_onehot", "float32", 6, 4, 4),
+    ("gat-direct-f32", "gat", "direct", "float32", 6, 4, 4),
+    ("gcn-folded-f32", "gcn", "folded", "float32", 4, 0, 2),
+    ("gcn-folded-bf16", "gcn", "folded", "bfloat16", 4, 0, 2),
+]
+
+
+def training(detail: dict) -> dict:
+    """Phase 5: the training main path, one run per (arch, variant,
+    dtype); returns the edge-gradient kernels' records at the training
+    shape, keyed by kernel name."""
+    import dataclasses
+    import shutil
+    import tempfile
+
+    import torch
+
+    from repro_torch.core.aggregate import PlanExecutor
+    from repro_torch.kernels import group_aggregate as ga
+    from repro_torch.launch import train
+    from repro_torch.models.gnn import make_gnn_train_step
+    from repro_torch.optim.adamw import (AdamWConfig, adamw_init,
+                                         cosine_schedule)
+
+    at_training = {}
+    detail["training"] = []
+    for name, arch, variant, dtype, fwd_per, edge_per, teacher in TRAIN_PHASES:
+        t0 = time.time()
+        ckpt = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+        fname = ga.KERNEL_OF_VARIANT[variant]
+        ename = ga.EDGE_GRAD_KERNEL_OF_VARIANT[variant]
+        want = {k: 0 for k in ga.launches}
+        want[fname] = TRAIN_STEPS * fwd_per
+        want[ename] += TRAIN_STEPS * edge_per
+        want[ga.PLAIN] = teacher
+        try:
+            ga.reset_launches()
+            res = train.run(TRAIN_COMMON + ["--arch", arch, "--variant",
+                                            variant, "--dtype", dtype,
+                                            "--ckpt-dir", ckpt])
+            counts = dict(ga.launches)
+        finally:
+            shutil.rmtree(ckpt, ignore_errors=True)
+        hist = res["history"]
+        losses = [m["loss"] for m in hist]
+        log(f"{name}: launches={ {k: v for k, v in counts.items() if v} } "
+            f"steps={len(hist)} loss {losses[0]:.4f} -> {losses[-1]:.4f} "
+            f"avg_step={res['avg_step_s'] * 1e3:.2f}ms")
+        check(res["ok"] and len(hist) == TRAIN_STEPS,
+              f"{name}: training did not run {TRAIN_STEPS} finite steps")
+        check(counts == want, f"{name}: launch counts {counts} != {want}")
+        check(losses[-1] < losses[0],
+              f"{name}: loss did not fall ({losses[0]} -> {losses[-1]})")
+        # three steps on each backend from the run's initial parameters
+        model, batch = res["model"], res["batch"]
+        opt = AdamWConfig(lr=1e-2, schedule=cosine_schedule(2, TRAIN_STEPS))
+        torch_model = dataclasses.replace(
+            model, cfg=dataclasses.replace(model.cfg, backend="torch"),
+            executor=PlanExecutor(model.plan, backend="torch",
+                                  device="cuda"))
+        finals = []
+        for m in (model, torch_model):
+            step = make_gnn_train_step(m, opt)
+            params = {k: v.clone() for k, v in res["init_params"].items()}
+            state = (params, adamw_init(params))
+            for _ in range(3):
+                state, _ = step(state, batch)
+            finals.append(state[0])
+        param_err = max(float(((finals[0][k] - finals[1][k]).abs()
+                               / (1 + finals[1][k].abs())).max())
+                        for k in finals[0])
+        log(f"{name}: 3 steps cuda vs torch, params {param_err:.2e}")
+        check(param_err <= 1e-4, f"{name}: cuda vs torch parameters "
+              f"{param_err:.2e} > 1e-4")
+        rec = {"phase": name, "arch": arch, "variant": variant,
+               "dtype": dtype, "steps": len(hist), "launches": counts,
+               "forward_per_step": fwd_per, "edge_grad_per_step": edge_per,
+               "first_loss": losses[0], "last_loss": losses[-1],
+               "avg_step_ms": res["avg_step_s"] * 1e3,
+               "steps_per_s": 1.0 / res["avg_step_s"],
+               "step_ms": [m["step_time_s"] * 1e3 for m in hist],
+               "param_err": param_err,
+               "tiles": model.plan.partition.num_tiles,
+               "bwd_tiles": model.plan.partition_bwd.num_tiles,
+               "config": dataclasses.asdict(model.plan.config)}
+        if edge_per:
+            # the edge-gradient kernel at this run's hidden-width shape
+            ex = model.executor
+            case = EdgeGradCase(ex.sched, model.plan.graph,
+                                model.cfg.hidden_dim, model.cfg.compute_dtype,
+                                variant, model.plan.config.dt, seed=9)
+            krec = case.run()
+            KernelCase.holds(krec, f"{name}: {ename} at the training shape")
+            krec.update(phase=name, launches=counts[ename],
+                        launches_per_step=edge_per)
+            at_training[ename] = krec
+            rec["edge_grad_kernel"] = krec
+            log(f"{name}: {ename} at {krec['tiles']} tiles ({krec['edges']} "
+                f"edges) D={krec['D']}: {KernelCase.summary(krec)}")
+            del case
+        rec["seconds"] = time.time() - t0
+        detail["training"].append(rec)
+        del res, model, torch_model, batch, finals
+        torch.cuda.empty_cache()
+    return at_training
+
+
 def main() -> int:
     t_start = time.time()
     try:
@@ -454,11 +841,21 @@ def main() -> int:
         t0 = time.time()
         at_serving = serving(detail)
         log(f"phase serving: {time.time() - t0:.1f}s")
+
+        t0 = time.time()
+        edge_sweeps = edge_grad_checks(detail)
+        log(f"phase edge-gradient kernels: {len(edge_sweeps)} checks in "
+            f"{time.time() - t0:.1f}s")
+
+        t0 = time.time()
+        at_training = training(detail)
+        log(f"phase training: {time.time() - t0:.1f}s")
     except SmokeFailure as e:
         log(f"FAIL: {e}")
         return 1
 
-    from repro_torch.kernels.group_aggregate import KERNEL_OF_VARIANT
+    from repro_torch.kernels.group_aggregate import (
+        EDGE_GRAD_KERNEL_OF_VARIANT, KERNEL_OF_VARIANT)
     kernels = []
     for variant, kname in KERNEL_OF_VARIANT.items():
         rec = at_serving[kname]
@@ -482,6 +879,27 @@ def main() -> int:
                                           "dt", "dtype")},
             "launches_per_batch": rec["launches_per_batch"],
             "batches_served": rec["batches_served"]})
+    for kname in dict.fromkeys(EDGE_GRAD_KERNEL_OF_VARIANT.values()):
+        rec = at_training[kname]
+        checks = [r for r in edge_sweeps if r["kernel"] == kname] + [rec]
+        source, replaces = SOURCES[kname]
+        kernels.append({
+            "name": kname, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": rec["launches"],
+            "max_abs_err": max(r["max_abs_err"] for r in checks),
+            "max_err": max(r["max_err"] for r in checks),
+            "max_err_scaled": max(r["max_err_scaled"] for r in checks),
+            "err_f64": max(r["err_f64"] for r in checks),
+            "plain_err_f64": max(r["plain_err_f64"] for r in checks),
+            "over_bound": max(r["over_bound"] for r in checks),
+            "plain_over_bound": max(r["plain_over_bound"] for r in checks),
+            "ms": rec["ms"], "plain_ms": rec["plain_ms"],
+            "bound_ms": rec["bound_ms"], "bound_by": rec["bound_by"],
+            "library_ms": rec["library_ms"], "phase": rec["phase"],
+            "shape": {k: rec[k] for k in ("tiles", "live_tiles", "gpt", "gs",
+                                          "src_win", "nodes", "edges", "D",
+                                          "dt", "dtype")},
+            "launches_per_step": rec["launches_per_step"]})
     detail["kernels"] = kernels
     out_dir = os.path.join(ROOT, "chiprun_out")
     if os.path.isdir(out_dir):

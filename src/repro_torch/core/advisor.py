@@ -6,7 +6,9 @@ Port of `src/repro/core/advisor.py`:
   crafter (renumbering + partition + kernel dispatch).
 
 `advise()` is the one-call entry point; `plan_for()` is pure planning (the
-serving plan cache's path).  Both return a `repro_torch.core.plan.Plan`.
+serving plan cache's path).  Both return a `repro_torch.core.plan.Plan`;
+with ``with_backward=True`` it also carries the transposed graph's
+partition, the backward schedule training differentiates through.
 """
 from __future__ import annotations
 
@@ -18,7 +20,8 @@ import numpy as np
 from repro_torch.core.extractor import (GraphProps, extract_arch_props,
                                         extract_graph_props)
 from repro_torch.core.model import AggConfig, feat_dtype_align
-from repro_torch.core.partition import partition_graph, partition_stats
+from repro_torch.core.partition import (partition_graph, partition_stats,
+                                        transpose_graph)
 from repro_torch.core.plan import Plan
 from repro_torch.core.reorder import renumber
 from repro_torch.core.tuner import tune
@@ -33,8 +36,11 @@ def advise(g: CSRGraph, *, arch: str = "gcn", in_dim: int = 128,
            reorder: str = "auto",        # "auto" | "on" | "off"
            tune_mode: str = "model", tune_iters: int = 12,
            config: Optional[AggConfig] = None, seed: int = 0,
-           feat_dtype: Optional[str] = None) -> Plan:
-    """Run the full GNNAdvisor decision loop for one input.
+           with_backward: bool = False,
+           feat_dtype: Optional[str] = None,
+           variant: Optional[str] = None) -> Plan:
+    """Run the full GNNAdvisor decision loop for one input (``variant``
+    as for `plan_for`).
 
     reorder="auto" applies §6.1 renumbering unless the input already shows
     strong numbering locality or irregular community structure (the
@@ -61,7 +67,8 @@ def advise(g: CSRGraph, *, arch: str = "gcn", in_dim: int = 128,
     plan = plan_for(g_run, arch=arch, in_dim=in_dim, hidden_dim=hidden_dim,
                     num_layers=num_layers, edge_vals=vals_run, config=config,
                     tune_mode=tune_mode, tune_iters=tune_iters, seed=seed,
-                    props=props, feat_dtype=feat_dtype)
+                    props=props, with_backward=with_backward,
+                    feat_dtype=feat_dtype, variant=variant)
     plan.perm = perm
     return plan
 
@@ -72,18 +79,22 @@ def plan_for(g: CSRGraph, *, arch: str = "gcn", in_dim: int = 128,
              config: Optional[AggConfig] = None,
              tune_mode: str = "model", tune_iters: int = 12,
              seed: int = 0, props: Optional[GraphProps] = None,
+             with_backward: bool = False,
              feat_dtype: Optional[str] = None,
              variant: Optional[str] = None) -> Plan:
     """Pure planning: props -> (tune unless `config` given) -> partition.
 
-    Never renumbers or mutates the input.  (The reference's
-    ``with_backward`` pair comes with the training slice.)
+    Never renumbers or mutates the input.
 
     g : the graph to plan, in its final node numbering.
     arch : "gcn" | "gin" | "gat" — decides the §4.2 aggregation placement.
     edge_vals : optional (E,) float32 aligned with ``g.indices``.
     config : optional AggConfig — skip the tuner, partition with exactly
         these knobs.
+    with_backward : also partition the TRANSPOSED graph under the same
+        config and attach it as ``plan.partition_bwd`` (+ ``edge_perm_bwd``),
+        so `PlanExecutor` differentiates through the CUDA kernels.  Off by
+        default: inference-only plans skip the extra partitioning.
     feat_dtype : optional dtype policy stamped onto the config.
     variant : optional gather kernel stamped onto the config (port
         addition: the reference picks it by measurement, which waits for a
@@ -114,8 +125,15 @@ def plan_for(g: CSRGraph, *, arch: str = "gcn", in_dim: int = 128,
                 f"aligned dt")
     part = partition_graph(g, gs=config.gs, gpt=config.gpt, ont=config.ont,
                            src_win=config.src_win, edge_vals=edge_vals)
+    part_bwd = edge_perm = None
+    if with_backward:
+        gT, vals_t, edge_perm = transpose_graph(g, edge_vals)
+        part_bwd = partition_graph(gT, gs=config.gs, gpt=config.gpt,
+                                   ont=config.ont, src_win=config.src_win,
+                                   edge_vals=vals_t)
     return Plan(
         graph=g, partition=part, config=config, graph_props=props,
         arch=archp, perm=None, tuner=tuner_res, stats=partition_stats(part),
         reduce_dim_first=archp.reduce_dim_first,
+        partition_bwd=part_bwd, edge_perm_bwd=edge_perm,
     )

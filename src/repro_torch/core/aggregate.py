@@ -1,8 +1,10 @@
 """High-level aggregation API used by GNN layers.
 
 Port of `src/repro/core/aggregate.py`: bridges a `Plan` (advisor output)
-to a callable that aggregates tensors on one device.  Forward only in
-this slice.
+to a callable that aggregates tensors on one device.  When the plan
+carries a backward partition (`plan_for(with_backward=True)`), every call
+is differentiable on every backend: the backward re-aggregates the output
+cotangent over the transposed schedule (see `repro_torch.kernels.ops`).
 """
 from __future__ import annotations
 
@@ -29,6 +31,7 @@ class PlanExecutor:
         self.plan = plan
         self.device = resolve_device(device)
         self.sched = plan.sched(self.device)
+        self.sched_bwd = plan.sched_bwd(self.device)
         self.backend = backend
         self.dt = plan.config.dt
         self.variant = plan.config.variant
@@ -40,14 +43,18 @@ class PlanExecutor:
         the plan's ``feat_dtype``."""
         return _kernel_aggregate(feat, self.sched, dt=self.dt,
                                  backend=self.backend, variant=self.variant,
+                                 sched_bwd=self.sched_bwd,
                                  out_dtype=self.out_dtype)
 
     def aggregate_edges(self, feat: torch.Tensor,
                         edge_values: torch.Tensor) -> torch.Tensor:
         """Aggregation with DYNAMIC per-edge weights (original CSR edge
         order of the plan's graph) — the GAT path: the schedule is reused,
-        only the edge-value tensor is re-scattered per forward."""
+        only the edge-value tensor is re-scattered per forward.  With a
+        backward schedule, gradients flow to BOTH ``feat`` (transposed
+        aggregation) and ``edge_values`` (per-edge gather-dot)."""
         return _kernel_aggregate(feat, self.sched, dt=self.dt,
                                  backend=self.backend, variant=self.variant,
                                  edge_values=edge_values,
+                                 sched_bwd=self.sched_bwd,
                                  out_dtype=self.out_dtype)

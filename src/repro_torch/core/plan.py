@@ -47,8 +47,7 @@ class Plan:
     stats: dict
     reduce_dim_first: bool             # §4.2 aggregation placement decision
     # the partition of the TRANSPOSED graph under the same config (the
-    # training slice's backward schedule) + its edge permutation; carried
-    # so npz files keep every field
+    # training backward schedule) + its edge permutation
     partition_bwd: Optional[GroupPartition] = None
     edge_perm_bwd: Optional[np.ndarray] = None
     epoch: int = 0
@@ -103,6 +102,23 @@ class Plan:
         if hit is None or hit[0] is not self.partition:
             hit = cache[device] = (self.partition,
                                    DeviceSchedule(self.partition, device))
+        return hit[1]
+
+    def sched_bwd(self, device="cpu"):
+        """Cached device-resident backward `DeviceSchedule` (transposed
+        graph, with ``edge_perm``) on ``device``; None without a backward
+        partition."""
+        import torch
+
+        from repro_torch.kernels.ops import DeviceSchedule
+        if self.partition_bwd is None:
+            return None
+        device = torch.device(device)
+        cache = self.__dict__.setdefault("_sched_bwd_cache", {})
+        hit = cache.get(device)
+        if hit is None or hit[0] is not self.partition_bwd:
+            hit = cache[device] = (self.partition_bwd, DeviceSchedule(
+                self.partition_bwd, device, edge_perm=self.edge_perm_bwd))
         return hit[1]
 
     def executor(self, backend: str = "cuda", device="cuda"):

@@ -28,7 +28,8 @@ __all__ = ["SOURCES", "BUILD_DIR", "build_all", "load"]
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 # src/repro_torch/kernels/build.py -> repository root
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[3] / "build" / "repro_torch"
-SOURCES = ("group_aggregate_gather", "group_aggregate_onehot")
+SOURCES = ("group_aggregate_gather", "group_aggregate_onehot",
+           "group_edge_grad")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

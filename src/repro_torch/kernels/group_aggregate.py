@@ -19,10 +19,19 @@ at the run's start and written to device memory once) and per column
 slice.  Each source file states what bounds its kernel on the card and
 what its design does about it.
 
+The edge-value cotangent, `group_edge_grad` (port of
+`group_edge_grad_pallas` :289, `pl.pallas_call` at :351), computes per
+slot ``<grad[row(t,g)], feat[nbrs[t,g,s]]>`` in `csrc/group_edge_grad.cu`:
+``folded`` / ``slot_onehot`` run the block kernel (one thread block per
+run, the node block's cotangent staged in shared memory; replaces
+`_edge_grad_kernel` :183), ``direct`` the gather kernel (one warp per
+group; replaces `_direct_edge_grad_kernel` :224).
+
 Dispatch is by device and nothing else: a CUDA tensor launches the kernel
 (or the call raises — there is no fallback), a CPU tensor runs the plain
-PyTorch version `repro_torch.kernels.ref.group_aggregate_ref`.  Every
-launch and every plain call adds one to its count in `launches`.
+PyTorch version (`repro_torch.kernels.ref.group_aggregate_ref` /
+`group_edge_grad_ref`).  Every launch and every plain call adds one to its
+count in `launches`.
 """
 from __future__ import annotations
 
@@ -34,11 +43,12 @@ import torch
 
 from repro_torch.hw import H100_SXM
 from repro_torch.kernels import build
-from repro_torch.kernels.ref import group_aggregate_ref
+from repro_torch.kernels.ref import group_aggregate_ref, group_edge_grad_ref
 
-__all__ = ["VARIANTS", "KERNEL_OF_VARIANT", "Geometry", "group_aggregate",
-           "group_aggregate_plain", "launch_geometry", "launches",
-           "reset_launches"]
+__all__ = ["VARIANTS", "KERNEL_OF_VARIANT", "EDGE_GRAD_KERNEL_OF_VARIANT",
+           "Geometry", "group_aggregate", "group_aggregate_plain",
+           "group_edge_grad", "group_edge_grad_plain", "launch_geometry",
+           "launches", "reset_launches"]
 
 # canonical order: default first (the tuner's base config uses it)
 VARIANTS: tuple = ("folded", "slot_onehot", "direct")
@@ -46,9 +56,17 @@ KERNEL_OF_VARIANT = {"folded": "group_aggregate_onehot[folded]",
                      "slot_onehot": "group_aggregate_onehot[slot]",
                      "direct": "group_aggregate_gather"}
 PLAIN = "group_aggregate_ref"
+# the edge-value cotangent has no folded form: both one-hot variants share
+# the block kernel, as they share `_edge_grad_kernel` on the TPU
+EDGE_GRAD_KERNEL_OF_VARIANT = {"folded": "group_edge_grad[block]",
+                               "slot_onehot": "group_edge_grad[block]",
+                               "direct": "group_edge_grad[gather]"}
+EDGE_GRAD_PLAIN = "group_edge_grad_ref"
 
 # launch counts: one per kernel launch, one per plain-version call
-launches: Dict[str, int] = {k: 0 for k in (*KERNEL_OF_VARIANT.values(), PLAIN)}
+launches: Dict[str, int] = {
+    k: 0 for k in (*KERNEL_OF_VARIANT.values(), PLAIN,
+                   *EDGE_GRAD_KERNEL_OF_VARIANT.values(), EDGE_GRAD_PLAIN)}
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 # one-hot kernel chunking (see csrc/group_aggregate_onehot.cu)
@@ -56,6 +74,8 @@ _ONEHOT_ROWS = 32              # window rows per chunk (ch)
 _ONEHOT_COLS = 64              # most columns per block (dc)
 _FOLDED_GROUPS = 32            # groups per chunk, folded
 _SLOT_ROWS = 128               # W rows per chunk, slot_onehot (gc * gs)
+_EDGE_GRAD_COLS = 64           # cotangent columns staged per chunk, block
+_EDGE_GRAD_MAX_GS = 64         # slots per group the gather kernel's lanes hold
 
 
 def reset_launches() -> None:
@@ -218,4 +238,101 @@ def group_aggregate(feat_padded: torch.Tensor, nbrs: torch.Tensor,
                       i(geo.smem_bytes), stream)
     _raise_on(lib, code, KERNEL_OF_VARIANT[variant])
     launches[KERNEL_OF_VARIANT[variant]] += 1
+    return out
+
+
+def group_edge_grad_plain(grad_padded: torch.Tensor,
+                          feat_padded: torch.Tensor, nbrs: torch.Tensor,
+                          local_node: torch.Tensor,
+                          tile_node_block: torch.Tensor, *,
+                          ont: int) -> torch.Tensor:
+    """The plain PyTorch version on any device, counted in `launches`."""
+    launches[EDGE_GRAD_PLAIN] += 1
+    return group_edge_grad_ref(grad_padded, feat_padded, nbrs, local_node,
+                               tile_node_block, ont)
+
+
+def group_edge_grad(grad_padded: torch.Tensor, feat_padded: torch.Tensor,
+                    nbrs: torch.Tensor, local_node: torch.Tensor,
+                    tile_node_block: torch.Tensor, tile_window: torch.Tensor,
+                    run_start: torch.Tensor, *, gs: int, gpt: int, ont: int,
+                    src_win: int, dt: int,
+                    variant: str = "slot_onehot") -> torch.Tensor:
+    """Per-slot edge-value cotangent over the FORWARD group schedule.
+
+    For slot (t, g, s) holding edge (v <- u): ``out[t,g,s] = <grad[v],
+    feat[u]>``, summed over all D_pad columns.
+
+    grad_padded : (out_rows, D_pad) output cotangent, out_rows % ont == 0.
+    feat_padded : (N_src_pad, D_pad), the same dtype (float32 | bfloat16 |
+        float16); N_src_pad % src_win == 0, D_pad % dt == 0.
+    nbrs : (T, gpt, gs) int32; local_node : (T, gpt) int32;
+    tile_node_block / tile_window : (T,) int32; run_start : (R+1,) int32
+    as for `group_aggregate`.
+    variant : ``folded`` / ``slot_onehot`` run the block kernel,
+        ``direct`` the gather kernel (gs <= 64).
+
+    Returns (T, gpt, gs) float32.  Padded slots hold don't-care values and
+    on the CUDA path the slots of pad tiles past the live runs are left
+    unwritten: callers read only real (edge_slot, edge_pos) entries.
+    """
+    _check_variant(variant)
+    if not feat_padded.is_cuda:
+        return group_edge_grad_plain(grad_padded, feat_padded, nbrs,
+                                     local_node, tile_node_block, ont=ont)
+
+    dev = feat_padded.device
+    n_src, d_pad = feat_padded.shape
+    out_rows = grad_padded.shape[0]
+    if feat_padded.dtype not in _DTYPE_CODE:
+        raise TypeError(f"feat dtype {feat_padded.dtype} not supported; "
+                        f"one of {list(_DTYPE_CODE)}")
+    if not feat_padded.is_contiguous():
+        raise ValueError("feat_padded must be contiguous")
+    _check("grad_padded", grad_padded, feat_padded.dtype, (out_rows, d_pad),
+           dev)
+    if n_src % src_win or d_pad % dt or out_rows % ont:
+        raise ValueError(f"padding mismatch: n_src={n_src} src_win={src_win} "
+                         f"d_pad={d_pad} dt={dt} out_rows={out_rows} ont={ont}")
+    T = nbrs.shape[0]
+    _check("nbrs", nbrs, torch.int32, (T, gpt, gs), dev)
+    _check("local_node", local_node, torch.int32, (T, gpt), dev)
+    _check("tile_node_block", tile_node_block, torch.int32, (T,), dev)
+    _check("tile_window", tile_window, torch.int32, (T,), dev)
+    if run_start.dim() != 1 or run_start.numel() < 2:
+        raise ValueError("run_start must be (R+1,) with R >= 1")
+    _check("run_start", run_start, torch.int32, run_start.shape, dev)
+    num_runs = run_start.numel() - 1
+
+    kname = EDGE_GRAD_KERNEL_OF_VARIANT[variant]
+    dc = min(dt, _EDGE_GRAD_COLS)
+    smem = 4 * ont * dc
+    if variant == "direct" and gs > _EDGE_GRAD_MAX_GS:
+        raise ValueError(f"{kname} holds at most {_EDGE_GRAD_MAX_GS} slots "
+                         f"per group, got gs={gs}")
+    if variant != "direct" and smem > H100_SXM.smem_per_block:
+        raise ValueError(f"{kname} at ont={ont} dt={dt} needs {smem} B of "
+                         f"shared memory per block (> "
+                         f"{H100_SXM.smem_per_block} B)")
+    out = torch.empty((T, gpt, gs), dtype=torch.float32, device=dev)
+    stream = ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
+    ptr = lambda x: ctypes.c_void_p(x.data_ptr())
+    i = ctypes.c_int
+    dcode = _DTYPE_CODE[feat_padded.dtype]
+    lib = build.load("group_edge_grad")
+    with torch.cuda.device(dev):
+        if variant == "direct":
+            fn = _bind(lib, "repro_group_edge_grad_gather")
+            code = fn(i(dcode), ptr(grad_padded), ptr(feat_padded), ptr(nbrs),
+                      ptr(local_node), ptr(tile_node_block), ptr(run_start),
+                      ptr(out), i(num_runs), i(T), i(gs), i(gpt), i(ont),
+                      i(d_pad), stream)
+        else:
+            fn = _bind(lib, "repro_group_edge_grad_block")
+            code = fn(i(dcode), ptr(grad_padded), ptr(feat_padded), ptr(nbrs),
+                      ptr(local_node), ptr(tile_node_block), ptr(run_start),
+                      ptr(out), i(num_runs), i(gs), i(gpt), i(ont), i(d_pad),
+                      i(dc), i(smem), stream)
+    _raise_on(lib, code, kname)
+    launches[kname] += 1
     return out

@@ -1,12 +1,8 @@
 """Public aggregation entry point over a group schedule.
 
-Port of `src/repro/kernels/ops.py` (forward only: serving needs no
-gradient; the `torch.autograd.Function` with the transposed-schedule
-backward comes with the training slice).
-
-`aggregate(...)` takes raw node features plus a `DeviceSchedule`, handles
-all padding, and dispatches to the hand-written CUDA kernels or to the
-plain PyTorch version.
+Port of `src/repro/kernels/ops.py`.  `aggregate(...)` takes raw node
+features plus a `DeviceSchedule`, handles all padding, and dispatches to
+the hand-written CUDA kernels or to the plain PyTorch version.
 
 Backend dispatch rules
 ----------------------
@@ -15,7 +11,19 @@ Backend dispatch rules
     CUDA tensors: a CPU tensor raises, there is no silent fallback.
   * ``"torch"`` — `repro_torch.kernels.ref.group_aggregate_ref`, plain
     PyTorch gather + index-add on whatever device the tensors are on (the
-    counterpart of the reference's ``"xla"``): the semantic ground truth.
+    counterpart of the reference's ``"xla"``): the semantic ground truth,
+    natively differentiable.
+
+Differentiation (the reference's `jax.custom_vjp`): when a *backward
+schedule* is passed (``sched_bwd=``, a `DeviceSchedule` of the TRANSPOSED
+graph's partition, `core.partition.transpose_graph`), `aggregate` runs
+through a `torch.autograd.Function` on every backend.  Its backward is the
+forward aggregation over the transposed schedule (cotangent of ``feat``)
+plus, for dynamic edge values, `group_edge_grad` over the forward schedule
+(cotangent of ``edge_values``).  Cotangents nobody asked for
+(``ctx.needs_input_grad``) are not computed.  Without ``sched_bwd`` the
+``"torch"`` backend differentiates natively and the ``"cuda"`` backend is
+forward only: it raises when a gradient is required.
 
 Dtype rules (unchanged from the reference)
 -----------------------------------------
@@ -24,7 +32,9 @@ loads, so bf16 halves the feature bytes.  Accumulation is ALWAYS float32.
 ``out_dtype`` is the dtype of the RESULT, applied as the final cast (None
 = float32).  Static edge values are float32; dynamic edge values keep
 their own float dtype through `_scatter_edge_values` and are read as
-float32 by the kernels.
+float32 by the kernels.  Backward: the output cotangent is cast to the
+forward feature dtype before the transposed-schedule launch, and the
+returned cotangents match ``feat.dtype`` and ``edge_values.dtype``.
 """
 from __future__ import annotations
 
@@ -34,7 +44,9 @@ import numpy as np
 import torch
 
 from repro_torch.kernels.group_aggregate import (group_aggregate,
-                                                 group_aggregate_plain)
+                                                 group_aggregate_plain,
+                                                 group_edge_grad,
+                                                 group_edge_grad_plain)
 
 __all__ = ["BACKENDS", "aggregate", "DeviceSchedule", "dim_tile",
            "run_bounds"]
@@ -100,9 +112,14 @@ class DeviceSchedule:
     Construction validates what the kernels index with (ids inside their
     tile's window, local rows inside the node block), so a malformed
     schedule raises here instead of reading out of bounds on the card.
+
+    When the schedule is built from a TRANSPOSED partition to serve as a
+    backward schedule, ``edge_perm`` (E,) maps its CSR edge order back to
+    the forward graph's edge order (``ev_bwd = ev_fwd[edge_perm]``); it is
+    None for forward schedules.
     """
 
-    def __init__(self, p, device="cpu"):
+    def __init__(self, p, device="cpu", edge_perm=None):
         T = p.num_tiles
         if T:
             nbrs = np.asarray(p.nbrs)
@@ -137,6 +154,8 @@ class DeviceSchedule:
         self.block_visited = as_t(visited)
         self.edge_slot = as_t(p.edge_slot, torch.int64)
         self.edge_pos = as_t(p.edge_pos, torch.int64)
+        self.edge_perm = (None if edge_perm is None
+                          else as_t(edge_perm, torch.int64))
         self.gs, self.gpt, self.ont, self.src_win = p.gs, p.gpt, p.ont, p.src_win
         self.num_nodes = p.num_nodes
         self.num_edges = p.num_edges
@@ -170,37 +189,19 @@ def _visited_rows(sched: DeviceSchedule) -> torch.Tensor:
     return torch.repeat_interleave(sched.block_visited, sched.ont)
 
 
-def aggregate(feat: torch.Tensor, sched: DeviceSchedule, *,
-              dt: int = 128, backend: str = "cuda",
-              variant: str = "folded",
-              edge_values: Optional[torch.Tensor] = None,
-              out_dtype=None) -> torch.Tensor:
-    """out[v] = sum over v's neighbor groups of edge_val * feat[nbr].
+def _no_work(sched: DeviceSchedule, backend: str) -> bool:
+    """True when the schedule holds nothing to launch over."""
+    return sched.num_tiles == 0 or (backend == "cuda" and sched.num_runs == 0)
 
-    feat: (N, D) node features in the schedule's node order, on the
-    schedule's device.  Returns (num_nodes, D) in ``out_dtype`` (None =
-    float32).
 
-    variant: "folded" | "slot_onehot" | "direct" — which CUDA kernel runs
-    (see `repro_torch.kernels.group_aggregate`); the plain version ignores
-    it (one lowering).
-
-    edge_values: optional (E,) per-edge weights in ORIGINAL CSR edge order,
-    overriding the schedule's static values (GAT's dynamic weights).
-    """
-    if backend not in BACKENDS:
-        raise ValueError(f"unknown backend {backend!r}; one of {BACKENDS}")
+def _aggregate_impl(feat: torch.Tensor, sched: DeviceSchedule, *, dt: int,
+                    backend: str, variant: str,
+                    edge_values: Optional[torch.Tensor] = None,
+                    out_dtype=None) -> torch.Tensor:
+    """The forward aggregation (no gradient rule of its own on "cuda")."""
     n, d = feat.shape
     out_dtype = torch.float32 if out_dtype is None else out_dtype
-    if n != sched.num_nodes:
-        raise ValueError(f"feat has {n} rows, schedule {sched.num_nodes}")
-    if feat.device != sched.device:
-        raise ValueError(f"feat is on {feat.device}, schedule on "
-                         f"{sched.device}")
-    if backend == "cuda" and not feat.is_cuda:
-        raise ValueError("backend='cuda' runs the CUDA kernels and needs CUDA "
-                         "tensors; use backend='torch' on the CPU")
-    if sched.num_tiles == 0 or (backend == "cuda" and sched.num_runs == 0):
+    if _no_work(sched, backend):
         return torch.zeros((n, d), dtype=out_dtype, device=feat.device)
     ev = (sched.edge_val if edge_values is None
           else _scatter_edge_values(sched, edge_values))
@@ -224,3 +225,125 @@ def aggregate(feat: torch.Tensor, sched: DeviceSchedule, *,
         out = torch.where(_visited_rows(sched)[:n, None], out,
                           out.new_zeros(()))
     return out.to(out_dtype)
+
+
+def _edge_cotangent(g_out: torch.Tensor, feat: torch.Tensor,
+                    sched: DeviceSchedule, *, dt: int, backend: str,
+                    variant: str) -> torch.Tensor:
+    """Cotangent of the per-edge values (original CSR order): the per-edge
+    gather-dot <g_out[dst], feat[src]> over the forward schedule, (E,)
+    float32.  ``g_out`` is already in ``feat.dtype``."""
+    n, d = feat.shape
+    if _no_work(sched, backend):
+        return torch.zeros((sched.num_edges,), dtype=torch.float32,
+                           device=feat.device)
+    T, gpt, gs = sched.nbrs.shape
+    if backend == "torch":
+        per_slot = group_edge_grad_plain(
+            _pad_to(g_out, sched.padded_out_rows, d),
+            _pad_to(feat, sched.padded_src_rows, d), sched.nbrs,
+            sched.local_node, sched.tile_node_block, ont=sched.ont)
+    else:
+        dt_eff = dim_tile(dt, d, feat.dtype)
+        d_pad = -(-d // dt_eff) * dt_eff
+        per_slot = group_edge_grad(
+            _pad_to(g_out, sched.padded_out_rows, d_pad),
+            _pad_to(feat, sched.padded_src_rows, d_pad), sched.nbrs,
+            sched.local_node, sched.tile_node_block, sched.tile_window,
+            sched.run_start, gs=sched.gs, gpt=sched.gpt, ont=sched.ont,
+            src_win=sched.src_win, dt=dt_eff, variant=variant)
+    return per_slot.reshape(T * gpt, gs)[sched.edge_slot, sched.edge_pos]
+
+
+class _AggregateFn(torch.autograd.Function):
+    """Aggregation whose backward is aggregation over the transposed
+    schedule ("the transpose of aggregation is aggregation over the
+    transposed graph") plus the per-edge gather-dot for dynamic values."""
+
+    @staticmethod
+    def forward(ctx, feat, edge_values, sched, sched_bwd, dt, backend,
+                variant, out_dtype):
+        ctx.sched, ctx.sched_bwd = sched, sched_bwd
+        ctx.opts = (dt, backend, variant)
+        ctx.save_for_backward(feat, edge_values)
+        return _aggregate_impl(feat, sched, dt=dt, backend=backend,
+                               variant=variant, edge_values=edge_values,
+                               out_dtype=out_dtype)
+
+    @staticmethod
+    def backward(ctx, g_out):
+        feat, edge_values = ctx.saved_tensors
+        dt, backend, variant = ctx.opts
+        # the backward aggregation runs in the FORWARD feature dtype (bf16
+        # cotangents move bf16 bytes); accumulation stays f32 inside
+        g_out = g_out.to(feat.dtype).contiguous()
+        feat_bar = ev_bar = None
+        if ctx.needs_input_grad[0]:
+            ev_bwd = (None if edge_values is None
+                      else edge_values[ctx.sched_bwd.edge_perm])
+            feat_bar = _aggregate_impl(
+                g_out, ctx.sched_bwd, dt=dt, backend=backend,
+                variant=variant, edge_values=ev_bwd).to(feat.dtype)
+        if edge_values is not None and ctx.needs_input_grad[1]:
+            ev_bar = _edge_cotangent(g_out, feat, ctx.sched, dt=dt,
+                                     backend=backend, variant=variant
+                                     ).to(edge_values.dtype)
+        return feat_bar, ev_bar, None, None, None, None, None, None
+
+
+def aggregate(feat: torch.Tensor, sched: DeviceSchedule, *,
+              dt: int = 128, backend: str = "cuda",
+              variant: str = "folded",
+              edge_values: Optional[torch.Tensor] = None,
+              sched_bwd: Optional[DeviceSchedule] = None,
+              out_dtype=None) -> torch.Tensor:
+    """out[v] = sum over v's neighbor groups of edge_val * feat[nbr].
+
+    feat: (N, D) node features in the schedule's node order, on the
+    schedule's device.  Returns (num_nodes, D) in ``out_dtype`` (None =
+    float32).
+
+    variant: "folded" | "slot_onehot" | "direct" — which CUDA kernel runs
+    (see `repro_torch.kernels.group_aggregate`), forward, feature backward
+    and edge-value cotangent alike; the plain version ignores it (one
+    lowering).
+
+    edge_values: optional (E,) per-edge weights in ORIGINAL CSR edge order,
+    overriding the schedule's static values (GAT's dynamic weights).
+
+    sched_bwd: optional `DeviceSchedule` of the TRANSPOSED graph (same
+    config), making the call differentiable with respect to ``feat`` and
+    ``edge_values`` on every backend (see the module docstring).  It must
+    carry ``edge_perm`` when ``edge_values`` is given;
+    `core.advisor.plan_for(with_backward=True)` builds the pair.
+    """
+    if backend not in BACKENDS:
+        raise ValueError(f"unknown backend {backend!r}; one of {BACKENDS}")
+    if feat.shape[0] != sched.num_nodes:
+        raise ValueError(f"feat has {feat.shape[0]} rows, schedule "
+                         f"{sched.num_nodes}")
+    if feat.device != sched.device:
+        raise ValueError(f"feat is on {feat.device}, schedule on "
+                         f"{sched.device}")
+    if backend == "cuda" and not feat.is_cuda:
+        raise ValueError("backend='cuda' runs the CUDA kernels and needs CUDA "
+                         "tensors; use backend='torch' on the CPU")
+    if sched_bwd is None:
+        if (backend == "cuda" and torch.is_grad_enabled()
+                and (feat.requires_grad or (edge_values is not None
+                                            and edge_values.requires_grad))):
+            raise ValueError(
+                "backend='cuda' is differentiable only with a backward "
+                "schedule: pass sched_bwd (plan_for(with_backward=True))")
+        return _aggregate_impl(feat, sched, dt=dt, backend=backend,
+                               variant=variant, edge_values=edge_values,
+                               out_dtype=out_dtype)
+    if edge_values is not None and sched_bwd.edge_perm is None:
+        raise ValueError(
+            "dynamic edge_values need a backward schedule with edge_perm "
+            "(build it via transpose_graph / plan_for(with_backward=True))")
+    if sched_bwd.num_nodes != sched.num_nodes or sched_bwd.device != sched.device:
+        raise ValueError("sched_bwd must cover the same nodes on the same "
+                         "device as sched")
+    return _AggregateFn.apply(feat, edge_values, sched, sched_bwd, dt,
+                              backend, variant, out_dtype)

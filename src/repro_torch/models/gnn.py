@@ -2,10 +2,16 @@
 GNNAdvisor aggregation engine.
 
 Port of `src/repro/models/gnn.py` (`GNNConfig`, `gcn_edge_values`,
-`init_gnn_params`, `GNNModel.logits`, `build_gnn`, plus `params_from_jax`
-to carry the reference's weights across).  Forward only in this slice;
-losses, training steps and the sampled / sharded forwards come with their
-slices.
+`init_gnn_params`, `GNNModel.logits` / `loss`, `build_gnn`,
+`planted_labels`, `structural_labels`, `make_gnn_train_step`, plus
+`params_from_jax` to carry the reference's weights across).  The sampled
+and sharded forwards come with their slices.
+
+Training runs on either backend: `build_gnn` attaches the transposed
+backward schedule when the backend is ``"cuda"`` (or when
+``with_backward=True`` is forced), so ``loss.backward()`` runs the CUDA
+aggregation kernels over the transposed schedule and, for GAT, the
+edge-gradient kernels (`repro_torch.kernels.ops`).
 
 Faithful to the paper's §4.2 placement rule:
   * GCN (type-1): REDUCE DIM FIRST — X @ W before aggregation, so the
@@ -43,7 +49,8 @@ from repro_torch.graphs.csr import CSRGraph
 Params = Dict[str, torch.Tensor]
 
 __all__ = ["GNNConfig", "GNNModel", "build_gnn", "gcn_edge_values",
-           "init_gnn_params", "params_from_jax"]
+           "init_gnn_params", "make_gnn_train_step", "params_from_jax",
+           "planted_labels", "structural_labels"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -111,7 +118,9 @@ class GNNModel:
                 rows, cols = self._edges
                 e = torch.nn.functional.leaky_relu(
                     s_dst[rows] + s_src[cols], negative_slope=cfg.gat_slope)
-                emax = e.max() if e.numel() else 0.0
+                # a constant shift, outside the gradient (the reference's
+                # jax.lax.stop_gradient)
+                emax = e.max().detach() if e.numel() else 0.0
                 wgt = torch.exp(e - emax)
                 num = self.executor.aggregate_edges(z, wgt)
                 den = self.executor.aggregate_edges(
@@ -129,6 +138,12 @@ class GNNModel:
                 x = torch.relu(x)
         return x.float()
 
+    def loss(self, params: Params, feat: torch.Tensor, labels: torch.Tensor,
+             mask: Optional[torch.Tensor] = None):
+        """Masked softmax cross-entropy over the logits: ``(loss,
+        {"loss", "accuracy"})`` (0-d float32 tensors)."""
+        return _masked_xent(self.logits(params, feat), labels, mask)
+
     @property
     def _edges(self):
         cache = getattr(self, "_edges_cache", None)
@@ -139,6 +154,19 @@ class GNNModel:
                      torch.as_tensor(cols, dtype=torch.int64, device=dev))
             self._edges_cache = cache
         return cache
+
+
+def _masked_xent(lg: torch.Tensor, labels: torch.Tensor,
+                 mask: Optional[torch.Tensor] = None):
+    """Masked softmax cross-entropy + accuracy over (N, C) logits."""
+    logp = torch.log_softmax(lg, dim=-1)
+    per = -torch.gather(logp, 1, labels.long()[:, None])[:, 0]
+    if mask is None:
+        mask = torch.ones_like(per)
+    denom = torch.clamp(mask.sum(), min=1.0)
+    loss = (per * mask).sum() / denom
+    acc = ((lg.argmax(-1) == labels) * mask).sum() / denom
+    return loss, {"loss": loss, "accuracy": acc}
 
 
 def init_gnn_params(cfg: GNNConfig,
@@ -180,14 +208,29 @@ def params_from_jax(params: Dict[str, np.ndarray], device) -> Params:
 def build_gnn(g: CSRGraph, cfg: GNNConfig, *,
               generator: Optional[torch.Generator] = None,
               reorder: str = "auto", tune_iters: int = 6,
-              config=None, seed: int = 0) -> GNNModel:
+              config=None, seed: int = 0,
+              with_backward: Optional[bool] = None,
+              variant: Optional[str] = None) -> GNNModel:
     """Run the advisor on the graph, build the plan executor + parameters
-    on ``cfg.device``."""
+    on ``cfg.device``.
+
+    with_backward: attach the transposed-schedule backward partition, so
+    gradients run through the CUDA kernels.  Default (None) enables it
+    exactly when the backend is ``"cuda"``: the ``"torch"`` backend
+    differentiates natively, and inference-only use can pass False to skip
+    the extra partitioning.
+
+    variant: optional gather kernel stamped onto the plan's config (see
+    `repro_torch.core.advisor.plan_for`); None keeps the tuner's.
+    """
     set_matmul_precision()
+    if with_backward is None:
+        with_backward = cfg.backend == "cuda"
     kw = dict(arch=cfg.arch, in_dim=cfg.in_dim, hidden_dim=cfg.hidden_dim,
               num_layers=cfg.num_layers, reorder=reorder,
               tune_iters=tune_iters, config=config, seed=seed,
-              feat_dtype=cfg.feat_dtype)
+              with_backward=with_backward, feat_dtype=cfg.feat_dtype,
+              variant=variant)
     if cfg.arch == "gcn":
         g2, vals = gcn_edge_values(g)
         plan = advise(g2, edge_vals=vals, **kw)
@@ -196,3 +239,62 @@ def build_gnn(g: CSRGraph, cfg: GNNConfig, *,
     executor = PlanExecutor(plan, backend=cfg.backend, device=cfg.device)
     params = init_gnn_params(cfg, generator)
     return GNNModel(cfg=cfg, plan=plan, executor=executor, params=params)
+
+
+def structural_labels(g: CSRGraph, num_classes: int) -> np.ndarray:
+    """Degree-quantile node labels: a deterministic, aggregation-learnable
+    task that needs no full-graph teacher forward."""
+    deg = g.degrees.astype(np.float64)
+    qs = np.quantile(deg, np.linspace(0, 1, num_classes + 1)[1:-1])
+    return np.searchsorted(qs, deg, side="right").astype(np.int32)
+
+
+def planted_labels(g: CSRGraph, cfg: GNNConfig, feat: np.ndarray, *,
+                   seed: int = 7) -> np.ndarray:
+    """Labels from a frozen random teacher of the same architecture: a
+    learnable planted node-classification task for the train driver.  The
+    teacher runs the plain PyTorch version (``backend="torch"``) on
+    ``cfg.device``; its weights come from ``torch.Generator`` seeded with
+    ``seed``, so the labels differ from the reference's for the same seed."""
+    teacher = build_gnn(g, dataclasses.replace(cfg, backend="torch"),
+                        generator=torch.Generator().manual_seed(seed),
+                        reorder="off", tune_iters=2, seed=seed,
+                        with_backward=False)
+    x = torch.as_tensor(np.asarray(feat, np.float32),
+                        device=teacher.executor.device)
+    with torch.no_grad():
+        out = teacher.logits(teacher.params, x)
+    return out.argmax(-1).cpu().numpy()
+
+
+def make_gnn_train_step(model: GNNModel, opt):
+    """The `Trainer`-shaped step of full-graph GNN training.
+
+    opt: an `AdamWConfig`.  Returns ``step_fn(state, batch)`` where state is
+    ``(params, opt_state)`` and batch is ``{"feat", "labels"[, "mask"]}``
+    (tensors on the model's device, in the plan's node order).  The loss
+    and its gradient run through the model's backend; on ``"cuda"`` the
+    backward is the transposed-schedule kernels, so the plan must carry
+    ``partition_bwd`` (`build_gnn` attaches it).  Metrics are 0-d tensors
+    (``loss``, ``accuracy``, ``grad_norm``, ``lr``).
+    """
+    from repro_torch.optim.adamw import adamw_update
+
+    if model.cfg.backend == "cuda" and model.plan.partition_bwd is None:
+        raise ValueError(
+            "training on the cuda backend needs a backward schedule: "
+            "build the model with with_backward=True")
+
+    def step_fn(state, batch):
+        params, opt_state = state
+        leaves = {k: v.detach().requires_grad_(True)
+                  for k, v in params.items()}
+        loss, metrics = model.loss(leaves, batch["feat"], batch["labels"],
+                                   batch.get("mask"))
+        grads = dict(zip(leaves, torch.autograd.grad(
+            loss, list(leaves.values()))))
+        params, opt_state, om = adamw_update(opt, grads, opt_state, params)
+        return (params, opt_state), {**{k: v.detach()
+                                        for k, v in metrics.items()}, **om}
+
+    return step_fn
