@@ -64,7 +64,34 @@ Phases, each timed, any failure exits non-zero before the result line:
      edge-gradient kernels are then timed at the GAT runs' hidden-width
      shape.
 
-The line before the last is the ``{"kernels": [...]}`` record (times are
+  6. scan kernel vs plain — `kernels/selective_scan.py` at (B, S, d_inner,
+     N) = (2, 64, 128, 8) (the reduced config), (3, 40, 20, 4) (ragged),
+     (1, 256, 8192, 16) and (4, 2048, 8192, 16) (one full-width
+     Falcon-Mamba layer of the phase-7 prefill), inputs as
+     `tests/test_selective_scan.py:_inputs` from a seed.  Kernel vs the
+     float32 plain version and vs the float64 witness, each
+     ``max|k-p| / (1 + max|p|) <= 1e-5``; times beside the bound (bytes,
+     FLOP and exp/log terms; the plain version timed over 3 calls at
+     full width).
+  7. LM serving — Falcon-Mamba-7B (`repro_torch.configs.falcon_mamba_7b.full()`,
+     64 layers, bf16, random weights from a seeded generator): (a)
+     ``make_prefill_step(backend="cuda")`` at B 4, S 2048, 1 warm-up + 5
+     timed prefills (host clock, synchronized), exactly 64
+     ``selective_scan`` launches per prefill and no plain call or other
+     kernel, finite logits, peak memory, one prefill and one decode step
+     under `torch.profiler`; (b) cuda vs torch backends at B 4, S 256: every
+     layer's Mamba block output from the same input within
+     ``max|a-b|/(1+max|b|) <= 2e-2``, and the free-running last-token
+     logits read beside a control without the kernel (fused plain vs
+     chunked path; see `lm_serving`); (c) float32
+     at 4 layers: prefill (kernel) vs 64 ``lm_decode_step`` calls
+     (recurrence) within 1e-4; (d) ``repro_torch.launch.serve --arch
+     falcon-mamba-7b --full --batch 4 --prompt-len 16 --gen-len 32`` and
+     its tok/s.
+
+``--phases`` runs a subset of phases 2-7 (names in `PHASES`); with no
+arguments every phase runs.  The line before the last is the
+``{"kernels": [...]}`` record (times are
 medians of 20 CUDA-event-timed calls after 3 warm-up calls, on warm
 caches; ``bound_ms`` counts what the function needs on the run's data:
 each real edge's id and value, each group holding an edge, each source row
@@ -74,11 +101,15 @@ edge's id and result, each group holding an edge, the source and
 cotangent rows edges read, 2 FLOP per edge and column; ``library_ms`` is
 one `torch.sparse.mm` for the aggregation kernels and one
 `torch.sparse.sampled_addmm` on the same CSR pattern for the
-edge-gradient kernels, float32); the last line is ``{"ok": true, "device": {...}}``.  Details of every check go to
+edge-gradient kernels, float32; the scan kernel's record is at the timed
+shape, its ``launches`` those of phase 7a's six prefills, ``bound_by``
+"operations" with ``bound_term`` "exp/log", and ``library_ms`` null: no
+one PyTorch call computes a selective scan); the last line is ``{"ok": true, "device": {...}}``.  Details of every check go to
 ``chiprun_out/chip_smoke_detail.json`` when that directory exists.
 """
 from __future__ import annotations
 
+import argparse
 import json
 import os
 import statistics
@@ -105,7 +136,10 @@ SOURCES = {"group_aggregate_onehot[folded]": (
                "src/repro/kernels/group_aggregate.py:183"),
            "group_edge_grad[gather]": (
                "src/repro_torch/kernels/csrc/group_edge_grad.cu",
-               "src/repro/kernels/group_aggregate.py:224")}
+               "src/repro/kernels/group_aggregate.py:224"),
+           "selective_scan": (
+               "src/repro_torch/kernels/csrc/selective_scan.cu",
+               "src/repro/kernels/selective_scan.py:36")}
 
 
 class SmokeFailure(Exception):
@@ -153,14 +187,18 @@ def real_work(sched) -> tuple:
             torch.unique(dst).numel())
 
 
-def bound(nbytes: float, flops: float) -> tuple:
-    """``(bound_ms, bound_by)``: the larger of bytes over the card's
-    memory rate and float32 operations over its peak rate."""
+def bound(nbytes: float, flops: float, sfu_ops: float = 0.0) -> tuple:
+    """``(bound_ms, bound_by, term)``: the largest of bytes over the
+    card's memory rate, float32 FLOP over its peak rate and exp/log
+    results over its special-function rate.  ``bound_by`` is "bytes" or
+    "operations"; ``term`` names the largest ("bytes", "flop", "exp/log")."""
     from repro_torch.hw import H100_SXM
-    t_bytes = nbytes / H100_SXM.hbm_bw * 1e3
-    t_ops = flops / H100_SXM.peak_flops_f32 * 1e3
-    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
-                                 else "operations")
+    terms = {"bytes": nbytes / H100_SXM.hbm_bw * 1e3,
+             "flop": flops / H100_SXM.peak_flops_f32 * 1e3,
+             "exp/log": sfu_ops / H100_SXM.peak_sfu * 1e3}
+    term = max(terms, key=terms.get)
+    return (terms[term], "bytes" if term == "bytes" else "operations",
+            term)
 
 
 class KernelCase:
@@ -197,7 +235,7 @@ class KernelCase:
         # an edge its output row, each source row an edge reads (in the
         # feature dtype) and each row an edge writes (f32) once
         edges, groups, n_src, n_dst = real_work(sched)
-        self.bound_ms, self.bound_by = bound(
+        self.bound_ms, self.bound_by, _ = bound(
             n_src * d * feat.element_size() + 8 * edges + 4 * groups
             + n_dst * d * 4, 2.0 * edges * d)
         T, gpt, gs = sched.nbrs.shape
@@ -509,7 +547,7 @@ class EdgeGradCase(KernelCase):
         # 4 B id + 4 B result per real edge, 4 B per group holding an edge,
         # the source rows and cotangent rows edges read (feature dtype)
         edges, groups, n_src, n_dst = real_work(sched)
-        self.bound_ms, self.bound_by = bound(
+        self.bound_ms, self.bound_by, _ = bound(
             8 * edges + 4 * groups + (n_src + n_dst) * d * feat.element_size(),
             2.0 * edges * d)
         T, gpt, gs = sched.nbrs.shape
@@ -800,7 +838,333 @@ def training(detail: dict) -> dict:
     return at_training
 
 
-def main() -> int:
+DEVICE = "cuda"          # phases 6-7 build their inputs here
+SCAN_SHAPES = [("reduced", (2, 64, 128, 8)), ("ragged", (3, 40, 20, 4)),
+               ("layer-256", (1, 256, 8192, 16)),
+               ("timed", (4, 2048, 8192, 16))]
+SCAN_TIMED = "timed"
+
+
+def scan_inputs(B, S, di, N, seed) -> list:
+    """The operands of `tests/test_selective_scan.py:_inputs` (numpy,
+    float32) on the card."""
+    import numpy as np
+    import torch
+    rng = np.random.default_rng(seed)
+    arrs = (rng.standard_normal((B, S, di)),
+            rng.standard_normal((B, S, di)) * 0.5 - 1.0,
+            rng.standard_normal((B, S, N)),
+            rng.standard_normal((B, S, N)),
+            np.log(rng.uniform(0.5, 4.0, (di, N))),
+            rng.standard_normal(di) * 0.1,
+            rng.standard_normal(di))
+    return [torch.from_numpy(a.astype(np.float32)).to(DEVICE) for a in arrs]
+
+
+def scan_bound(B, S, di, N) -> tuple:
+    """Each input read once and y written once (f32), about 7 FLOP per
+    (b, t, d, n), and N + 2 exp/log per (b, t, d): N for exp(dt A), one
+    exp and one log1p for softplus."""
+    return bound(4.0 * (3 * B * S * di + 2 * B * S * N + di * N + 2 * di),
+                 7.0 * B * S * di * N, float(B * S * di * (N + 2)))
+
+
+def _nerr(a, b) -> float:
+    """``max|a-b| / (1 + max|b|)`` in float64."""
+    a, b = a.double(), b.double()
+    return float((a - b).abs().max() / (1.0 + b.abs().max()))
+
+
+def scan_checks(detail: dict) -> dict:
+    """Phase 6: the scan kernel vs its plain version and the float64
+    witness at the reduced, ragged and full-width layer shapes; times at
+    each.  Returns the records keyed by shape name."""
+    import torch
+
+    from repro_torch.kernels import selective_scan as ss
+    from repro_torch.kernels.ref import selective_scan_ref
+
+    out = {}
+    for name, (B, S, di, N) in SCAN_SHAPES:
+        t0 = time.time()
+        args = scan_inputs(B, S, di, N, seed=B * 1000 + S)
+        k = ss.selective_scan(*args)
+        torch.cuda.synchronize()
+        p = ss.selective_scan_plain(*args)
+        w = selective_scan_ref(*args, acc_dtype=torch.float64)
+        check(bool(torch.isfinite(k).all()) and k.shape == (B, S, di),
+              f"scan {name}: bad kernel output {tuple(k.shape)}")
+        bms, by, term = scan_bound(B, S, di, N)
+        rec = {"shape": name, "B": B, "S": S, "d_inner": di, "N": N,
+               "max_abs_err": float((k - p).abs().max()),
+               "err_plain": _nerr(k, p), "err_f64": _nerr(k, w),
+               "plain_err_f64": _nerr(p, w),
+               "bound_ms": bms, "bound_by": by, "bound_term": term}
+        del p, w
+        full = di >= 8192
+        rec["ms"] = time_ms(lambda: ss.selective_scan(*args))
+        rec["plain_ms"] = time_ms(lambda: ss.selective_scan_plain(*args),
+                                  iters=3 if full else 20,
+                                  warmup=1 if full else 3)
+        rec["seconds"] = time.time() - t0
+        log(f"scan {name} {(B, S, di, N)}: kernel vs plain "
+            f"{rec['err_plain']:.2e} vs f64 {rec['err_f64']:.2e} (plain "
+            f"{rec['plain_err_f64']:.2e}) ms={rec['ms']:.4f} "
+            f"plain={rec['plain_ms']:.3f} bound={bms:.4f} ({term}) "
+            f"({rec['seconds']:.1f}s)")
+        check(rec["err_plain"] <= TOL, f"scan {name}: kernel vs plain "
+              f"{rec['err_plain']:.3e} > {TOL}")
+        check(rec["err_f64"] <= TOL, f"scan {name}: kernel vs float64 "
+              f"{rec['err_f64']:.3e} > {TOL}")
+        out[name] = rec
+        del args, k
+        torch.cuda.empty_cache()
+    detail["scan"] = list(out.values())
+    return out
+
+
+LM_BATCH, LM_SEQ, LM_WARMUP, LM_ITERS = 4, 2048, 1, 5
+LM_CMP_SEQ, LM_DECODE_SEQ, LM_F32_LAYERS = 256, 64, 4
+BF16_TOL, F32_DECODE_TOL = 2e-2, 1e-4
+SERVE_ARGV = ["--arch", "falcon-mamba-7b", "--full", "--batch", "4",
+              "--prompt-len", "16", "--gen-len", "32"]
+
+
+def _all_counts() -> dict:
+    from repro_torch.kernels import group_aggregate as ga
+    from repro_torch.kernels import selective_scan as ss
+    return {**ga.launches, **ss.launches}
+
+
+def _reset_counts() -> None:
+    from repro_torch.kernels import group_aggregate as ga
+    from repro_torch.kernels import selective_scan as ss
+    ga.reset_launches()
+    ss.reset_launches()
+
+
+def _profile(fn) -> dict:
+    """One call of ``fn`` under `torch.profiler`: device time by kernel
+    name (top 12) and the device-busy share of the host-clock wall time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    rows, queue_full = [], 0.0
+    for ev in prof.key_averages():
+        if ev.device_type != torch.autograd.DeviceType.CUDA:
+            continue                    # host ops; their kernels are below
+        ms = ev.self_device_time_total / 1e3
+        if ev.key.startswith("Command Buffer Full"):
+            queue_full += ms            # the host waited on a full queue
+        elif ms > 0:
+            rows.append((ev.key, ms, ev.count))
+    rows.sort(key=lambda r: -r[1])
+    busy = sum(r[1] for r in rows)
+    return {"wall_ms": wall_ms, "device_ms": busy,
+            "idle_share": (1.0 - busy / wall_ms) if rows else None,
+            "queue_full_ms": queue_full,
+            "top": [{"name": n[:80], "ms": ms, "count": c}
+                    for n, ms, c in rows[:12]]}
+
+
+def lm_serving(detail: dict) -> dict:
+    """Phase 7: Falcon-Mamba-7B at full width and depth (64 layers, bf16,
+    random weights): prefill through the scan kernel, the cuda vs torch
+    backends, prefill vs decode in float32 at 4 layers, the serve CLI."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs.falcon_mamba_7b import full
+    from repro_torch.kernels import selective_scan as ss
+    from repro_torch.launch import serve
+    from repro_torch.models.lm import (LMModel, make_decode_step,
+                                       make_prefill_step)
+    from repro_torch.nn.layers import apply_rmsnorm
+    from repro_torch.nn.mamba import mamba_forward
+    from repro_torch.nn.transformer import _embed_in, init_lm_cache
+
+    rec = {}
+    cfg = full()
+    t0 = time.time()
+    model = LMModel.create(cfg, seed=0, device=DEVICE)
+    torch.cuda.synchronize()
+    rec["n_params"] = model.n_params
+    rec["init_s"] = time.time() - t0
+    log(f"lm: {cfg.name} {cfg.n_layers} layers, {model.n_params:,} params "
+        f"in {cfg.dtype}, init {rec['init_s']:.1f}s, "
+        f"{torch.cuda.memory_allocated() / 1e9:.2f} GB allocated")
+    check(model.n_params == 7_272_665_088,
+          f"full() holds {model.n_params} parameters, not 7,272,665,088")
+
+    # (a) prefill, the main path
+    rng = np.random.default_rng(0)
+    tokens = torch.as_tensor(rng.integers(0, cfg.vocab, (LM_BATCH, LM_SEQ)),
+                             device=DEVICE)
+    prefill = make_prefill_step(cfg, backend="cuda")
+    torch.cuda.reset_peak_memory_stats()
+    times = []
+    _reset_counts()
+    for i in range(LM_WARMUP + LM_ITERS):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        logits, _ = prefill(model.params, tokens)
+        torch.cuda.synchronize()
+        if i >= LM_WARMUP:
+            times.append((time.perf_counter() - t1) * 1e3)
+    counts = _all_counts()
+    runs = LM_WARMUP + LM_ITERS
+    want = {k: 0 for k in counts}
+    want[ss.KERNEL] = runs * cfg.n_layers
+    check(counts == want, f"prefill launch counts {counts} != {want}")
+    check(bool(torch.isfinite(logits).all())
+          and logits.shape == (LM_BATCH, cfg.vocab),
+          f"prefill logits bad: shape {tuple(logits.shape)}")
+    ms = statistics.median(times)
+    rec.update(prefill_ms=ms, prefill_ms_all=times,
+               prompt_tok_per_s=LM_BATCH * LM_SEQ / (ms / 1e3),
+               peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+               launches=counts[ss.KERNEL], prefills=runs,
+               launches_per_prefill=counts[ss.KERNEL] / runs,
+               plain_calls=counts[ss.PLAIN])
+    log(f"lm prefill B={LM_BATCH} S={LM_SEQ}: {ms:.1f} ms (median of "
+        f"{LM_ITERS}; {', '.join(f'{t:.1f}' for t in times)}), "
+        f"{rec['prompt_tok_per_s']:.0f} prompt tok/s, peak "
+        f"{rec['peak_gb']:.2f} GB, selective_scan launches "
+        f"{counts[ss.KERNEL]} over {runs} prefills, plain {counts[ss.PLAIN]}")
+    # one prefill and one decode step (B 4, bf16) under the profiler
+    cache = init_lm_cache(cfg, LM_BATCH, device=DEVICE)
+    decode = make_decode_step(cfg)
+    decode(model.params, cache, tokens[:, 0])
+    for what, fn in (
+            ("prefill", lambda: prefill(model.params, tokens)),
+            ("decode step", lambda: decode(model.params, cache,
+                                           tokens[:, 1]))):
+        prof = _profile(fn)
+        rec[f"profile_{what.split()[0]}"] = prof
+        log(f"lm {what} profile: wall {prof['wall_ms']:.2f} ms, device "
+            f"{prof['device_ms']:.2f} ms, idle share "
+            f"{prof['idle_share']}, launch queue full "
+            f"{prof['queue_full_ms']:.1f} ms; top: "
+            + "; ".join(f"{r['name'][:40]} {r['ms']:.2f}ms x{r['count']}"
+                        for r in prof["top"][:6]))
+    del logits, tokens, cache
+
+    # (b) cuda vs torch backends at full depth.  The check holds each
+    # layer's Mamba block on both backends to the same input (the cuda
+    # run's residual stream); the free-running last-token logits are read
+    # beside a control that runs no kernel (the plain fused path vs the
+    # chunked path): the random-weight model amplifies float32 rounding
+    # through its 64 layers, so the control diverges as far.
+    t0 = time.time()
+    tokens = torch.as_tensor(rng.integers(0, cfg.vocab,
+                                          (LM_BATCH, LM_CMP_SEQ)),
+                             device=DEVICE)
+    _reset_counts()
+    layer_errs = []
+    with torch.no_grad():
+        x = _embed_in(cfg, model.params, tokens)
+        for slots in model.params["blocks"]:
+            for bp in slots:
+                h = apply_rmsnorm(bp["norm1"], x)
+                ya = mamba_forward(bp["mamba"], h, cfg.mamba, backend="cuda")
+                yb = mamba_forward(bp["mamba"], h, cfg.mamba,
+                                   backend="torch")
+                layer_errs.append(_nerr(ya, yb))
+                x = x + ya
+    counts = _all_counts()
+    n = len(layer_errs)
+    rec["layer_errs"] = layer_errs
+    check(counts[ss.KERNEL] == cfg.n_layers
+          and counts[ss.PLAIN] == cfg.n_layers,
+          f"backend comparison counts {counts}")
+    a, _ = make_prefill_step(cfg, backend="cuda")(model.params, tokens)
+    b, _ = make_prefill_step(cfg, backend="torch")(model.params, tokens)
+    chunked = dataclasses.replace(cfg, mamba=dataclasses.replace(
+        cfg.mamba, fused_scan="off"))
+    c, _ = make_prefill_step(chunked, backend="torch")(model.params, tokens)
+    rec.update(backend_err=max(layer_errs), logits_err=_nerr(a, b),
+               control_err=_nerr(c, b))
+    log(f"lm cuda vs torch, B={LM_BATCH} S={LM_CMP_SEQ}: per-layer Mamba "
+        f"output max {max(layer_errs):.3e} (first, quartiles, last: "
+        + " ".join(f"{layer_errs[i]:.1e}" for i in sorted(
+            {0, n // 4, n // 2, 3 * n // 4, n - 1})) + "); "
+        f"free-running last-token logits "
+        f"{rec['logits_err']:.3e} (max|b| {float(b.abs().max()):.3f}), "
+        f"control without the kernel (fused plain vs chunked) "
+        f"{rec['control_err']:.3e} ({time.time() - t0:.1f}s)")
+    check(max(layer_errs) <= BF16_TOL, f"cuda vs torch per-layer Mamba "
+          f"output {max(layer_errs):.3e} > {BF16_TOL}")
+    del model, a, b, c, x, h, ya, yb, tokens, prefill
+    torch.cuda.empty_cache()
+
+    # (c) prefill (kernel) vs decode (recurrence), float32, 4 layers
+    t0 = time.time()
+    cfg32 = dataclasses.replace(cfg, dtype=torch.float32,
+                                n_layers=LM_F32_LAYERS)
+    m32 = LMModel.create(cfg32, seed=1, device=DEVICE)
+    tokens = torch.as_tensor(rng.integers(0, cfg.vocab,
+                                          (LM_BATCH, LM_DECODE_SEQ)),
+                             device=DEVICE)
+    want_logits, _ = make_prefill_step(cfg32)(m32.params, tokens)
+    cache = init_lm_cache(cfg32, LM_BATCH, dtype=torch.float32,
+                          device=DEVICE)
+    decode = make_decode_step(cfg32)
+    for t in range(LM_DECODE_SEQ):
+        got, cache = decode(m32.params, cache, tokens[:, t])
+    err = _nerr(got, want_logits)
+    # the same against the plain version's prefill (a reading)
+    plain_logits, _ = make_prefill_step(cfg32, backend="torch")(m32.params,
+                                                                tokens)
+    rec.update(prefill_vs_decode_err=err, f32_params=m32.n_params,
+               plain_prefill_vs_decode_err=_nerr(got, plain_logits))
+    log(f"lm prefill vs decode, float32, {LM_F32_LAYERS} layers "
+        f"({m32.n_params:,} params), {LM_DECODE_SEQ} tokens: {err:.3e} "
+        f"(plain-version prefill vs decode "
+        f"{rec['plain_prefill_vs_decode_err']:.3e}) "
+        f"({time.time() - t0:.1f}s)")
+    check(err <= F32_DECODE_TOL, f"prefill vs decode {err:.3e} > "
+          f"{F32_DECODE_TOL}")
+    del m32, cache, got, want_logits, plain_logits, tokens
+    torch.cuda.empty_cache()
+
+    # (d) the serve CLI, decoding from step 0 at full depth
+    t0 = time.time()
+    res = serve.run(SERVE_ARGV)
+    toks = res["tokens"]
+    check(toks.shape == (4, 32) and bool((toks >= 0).all())
+          and bool((toks < cfg.vocab).all()), f"serve tokens {toks.shape}")
+    rec.update(decode_tok_per_s=res["tok_per_s"],
+               decode_s=res["seconds"], serve_s=time.time() - t0)
+    log(f"lm serve CLI: {res['tok_per_s']:.1f} tok/s ({res['seconds']:.2f}s "
+        f"for {res['steps']} steps; {rec['serve_s']:.1f}s with init)")
+    torch.cuda.empty_cache()
+    detail["lm"] = rec
+    return rec
+
+
+PHASES = {"kernels": kernel_sweeps, "serving": serving,
+          "edge-grad": edge_grad_checks, "training": training,
+          "scan": scan_checks, "lm": lm_serving}
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--phases", default=",".join(PHASES),
+                    help="comma-separated subset of phases 2-7 to run "
+                         f"({', '.join(PHASES)}; default all); the device "
+                         "phase always runs")
+    phases = ap.parse_args(argv).phases.split(",")
+    unknown = set(phases) - set(PHASES)
+    if unknown:
+        ap.error(f"unknown phases {sorted(unknown)}")
     t_start = time.time()
     try:
         import torch
@@ -834,22 +1198,12 @@ def main() -> int:
         log(f"phase device: built {sorted(reports)} in {time.time() - t0:.1f}s")
         detail.update(card=card, ptxas=ptxas)
 
-        t0 = time.time()
-        sweeps = kernel_sweeps(detail)
-        log(f"phase kernels: {len(sweeps)} checks in {time.time() - t0:.1f}s")
-
-        t0 = time.time()
-        at_serving = serving(detail)
-        log(f"phase serving: {time.time() - t0:.1f}s")
-
-        t0 = time.time()
-        edge_sweeps = edge_grad_checks(detail)
-        log(f"phase edge-gradient kernels: {len(edge_sweeps)} checks in "
-            f"{time.time() - t0:.1f}s")
-
-        t0 = time.time()
-        at_training = training(detail)
-        log(f"phase training: {time.time() - t0:.1f}s")
+        done = {}
+        for name, fn in PHASES.items():
+            if name in phases:
+                t0 = time.time()
+                done[name] = fn(detail)
+                log(f"phase {name}: {time.time() - t0:.1f}s")
     except SmokeFailure as e:
         log(f"FAIL: {e}")
         return 1
@@ -857,7 +1211,12 @@ def main() -> int:
     from repro_torch.kernels.group_aggregate import (
         EDGE_GRAD_KERNEL_OF_VARIANT, KERNEL_OF_VARIANT)
     kernels = []
+    sweeps, at_serving = done.get("kernels", []), done.get("serving", {})
+    edge_sweeps, at_training = (done.get("edge-grad", []),
+                                done.get("training", {}))
     for variant, kname in KERNEL_OF_VARIANT.items():
+        if kname not in at_serving:
+            continue
         rec = at_serving[kname]
         checks = [r for r in sweeps if r["variant"] == variant] + [rec]
         source, replaces = SOURCES[kname]
@@ -880,6 +1239,8 @@ def main() -> int:
             "launches_per_batch": rec["launches_per_batch"],
             "batches_served": rec["batches_served"]})
     for kname in dict.fromkeys(EDGE_GRAD_KERNEL_OF_VARIANT.values()):
+        if kname not in at_training:
+            continue
         rec = at_training[kname]
         checks = [r for r in edge_sweeps if r["kernel"] == kname] + [rec]
         source, replaces = SOURCES[kname]
@@ -900,6 +1261,25 @@ def main() -> int:
                                           "src_win", "nodes", "edges", "D",
                                           "dt", "dtype")},
             "launches_per_step": rec["launches_per_step"]})
+    if "scan" in done:
+        checks = list(done["scan"].values())
+        rec = done["scan"][SCAN_TIMED]
+        lm = done.get("lm", {})
+        source, replaces = SOURCES["selective_scan"]
+        kernels.append({
+            "name": "selective_scan", "route": "cuda", "source": source,
+            "replaces": replaces, "launches": lm.get("launches", 0),
+            "max_abs_err": max(r["max_abs_err"] for r in checks),
+            "err_plain": max(r["err_plain"] for r in checks),
+            "err_f64": max(r["err_f64"] for r in checks),
+            "plain_err_f64": max(r["plain_err_f64"] for r in checks),
+            "ms": rec["ms"], "plain_ms": rec["plain_ms"],
+            "bound_ms": rec["bound_ms"], "bound_by": rec["bound_by"],
+            "bound_term": rec["bound_term"], "library_ms": None,
+            "phase": "scan (timed shape); lm prefill (launches)",
+            "shape": {k: rec[k] for k in ("B", "S", "d_inner", "N")},
+            "launches_per_prefill": lm.get("launches_per_prefill"),
+            "prefill_ms": lm.get("prefill_ms")})
     detail["kernels"] = kernels
     out_dir = os.path.join(ROOT, "chiprun_out")
     if os.path.isdir(out_dir):

@@ -1,1 +1,2 @@
-"""Group-aggregation kernels (CUDA), their plain versions and wrappers."""
+"""The port's kernels (CUDA), their plain versions and wrappers: group
+aggregation and its edge gradient, and the Mamba-1 selective scan."""

@@ -29,7 +29,7 @@ CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 # src/repro_torch/kernels/build.py -> repository root
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 SOURCES = ("group_aggregate_gather", "group_aggregate_onehot",
-           "group_edge_grad")
+           "group_edge_grad", "selective_scan")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

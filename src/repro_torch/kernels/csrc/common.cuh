@@ -1,4 +1,6 @@
-// Shared pieces of the group-aggregation kernels (sm_90a, plain C ABI).
+// Shared pieces of the port's kernels (sm_90a, plain C ABI): the dtype
+// helpers and the error string of every kernel library, and the group-
+// aggregation kernels' schedule contract.
 //
 // Schedule contract (built by repro_torch.core.partition and
 // repro_torch.kernels.ops.DeviceSchedule):

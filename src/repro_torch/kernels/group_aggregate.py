@@ -132,7 +132,7 @@ def group_aggregate_plain(feat_padded: torch.Tensor, nbrs: torch.Tensor,
 
 def _check(name: str, x: torch.Tensor, dtype, shape, device) -> None:
     if x.device != device:
-        raise ValueError(f"{name} is on {x.device}, feat on {device}")
+        raise ValueError(f"{name} is on {x.device}, expected {device}")
     if x.dtype != dtype:
         raise TypeError(f"{name} must be {dtype}, got {x.dtype}")
     if tuple(x.shape) != tuple(shape):

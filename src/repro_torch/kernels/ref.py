@@ -1,15 +1,15 @@
-"""Plain PyTorch versions of the group-aggregation kernels.
+"""Plain PyTorch versions of the port's kernels.
 
-Port of `src/repro/kernels/ref.py` (the aggregation oracles).  These are
+Port of `src/repro/kernels/ref.py` (the aggregation oracles and
+`selective_scan_ref` :24).  These are
 the semantic ground truth of the port: small, obviously right, runnable on
 any device.  They are what a CPU tensor runs (the CUDA kernels' wrappers
 route CPU tensors here) and what `chip_smoke.py` holds each kernel against
 on the card.  `group_edge_grad_ref` is the oracle of the edge-value
-cotangent (training's backward); the baseline oracles of the benchmarks
-wait for their slice.
+cotangent (training's backward); `selective_scan_ref` is the Mamba-1
+scan's.  The baseline oracles of the benchmarks wait for their slice.
 
-All accumulate in float32 whatever the feature dtype; the schedule
-oracles take ``acc_dtype=torch.float64`` for a near-exact sum, the witness
+All accumulate in float32 whatever the feature dtype; every oracle takes ``acc_dtype=torch.float64`` for a near-exact sum, the witness
 `chip_smoke.py` holds every float32 sum against.
 """
 from __future__ import annotations
@@ -17,7 +17,44 @@ from __future__ import annotations
 import torch
 
 __all__ = ["segment_aggregate_ref", "group_aggregate_ref",
-           "group_edge_grad_ref"]
+           "group_edge_grad_ref", "selective_scan_ref", "softplus"]
+
+
+def softplus(x: torch.Tensor) -> torch.Tensor:
+    """JAX's softplus, ``logaddexp(x, 0) = max(x, 0) + log1p(exp(-|x|))``.
+
+    Not `torch.nn.functional.softplus`, whose ``threshold=20`` returns
+    ``x`` unchanged above 20."""
+    return torch.clamp_min(x, 0) + torch.log1p(torch.exp(-x.abs()))
+
+
+def selective_scan_ref(xc: torch.Tensor, dt_raw: torch.Tensor,
+                       b: torch.Tensor, c: torch.Tensor, a_log: torch.Tensor,
+                       dt_bias: torch.Tensor, d_skip: torch.Tensor, *,
+                       acc_dtype: torch.dtype = torch.float32
+                       ) -> torch.Tensor:
+    """Oracle of the fused selective scan: the literal per-token Mamba-1
+    recurrence ``h_t = exp(dt_t A) h_{t-1} + dt_t xc_t B_t``, ``y_t =
+    C_t . h_t + D xc_t`` with ``A = -exp(a_log)`` and ``dt =
+    softplus(dt_raw + dt_bias)``.
+
+    xc, dt_raw: (B, S, d_inner); b, c: (B, S, N); a_log: (d_inner, N);
+    dt_bias, d_skip: (d_inner,).  Returns y (B, S, d_inner) in
+    ``acc_dtype``.  The loop carries only the state (B, d_inner, N); the
+    reference's (B, S, d_inner, N) discretized tensors never exist."""
+    bsz, seq, di = xc.shape
+    n = b.shape[-1]
+    xc, dt_raw, b, c = (t.to(acc_dtype) for t in (xc, dt_raw, b, c))
+    a = -torch.exp(a_log.to(acc_dtype))                        # (di, N)
+    dt = softplus(dt_raw + dt_bias.to(acc_dtype))              # (B, S, di)
+    dtx = dt * xc
+    h = torch.zeros((bsz, di, n), dtype=acc_dtype, device=xc.device)
+    y = torch.empty((bsz, seq, di), dtype=acc_dtype, device=xc.device)
+    for t in range(seq):
+        h = (torch.exp(dt[:, t, :, None] * a) * h
+             + dtx[:, t, :, None] * b[:, t, None, :])
+        y[:, t] = (h * c[:, t, None, :]).sum(-1)
+    return y + d_skip.to(acc_dtype) * xc
 
 
 def segment_aggregate_ref(feat: torch.Tensor, src: torch.Tensor,

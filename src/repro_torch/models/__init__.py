@@ -1,1 +1,2 @@
-"""GNN models (GCN, GIN, GAT) on the aggregation engine."""
+"""Models: GNNs (GCN, GIN, GAT) on the aggregation engine, and the
+Mamba language model (`lm.py`)."""
