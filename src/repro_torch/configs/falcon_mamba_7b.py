@@ -2,8 +2,11 @@
 ssm_state=16.  [arXiv:2410.05355; unverified]
 
 Port of `src/repro/configs/falcon_mamba_7b.py` (`full()` :18, `reduced()`
-:31), the same widths.  Pure Mamba-1 stack: every block is norm -> mamba
--> residual (no separate FFN).  d_inner = 2*d_model = 8192, dt_rank =
+:31), the same widths and dtypes; the reference's ``d_ff=0``,
+``rope="none"``, ``act``, ``loss_chunk`` and ``max_seq`` are left out,
+because no Mamba code reads them (`repro_torch.nn.transformer`).  Pure
+Mamba-1 stack: every block is norm -> mamba -> residual (no separate
+FFN).  d_inner = 2*d_model = 8192, dt_rank =
 d_model/16 = 256, conv 4.  The full model holds 7,272,665,088 parameters
 (14.5 GB in bf16), so all 64 layers fit one 80 GB card.  The port's
 `MambaParams` defaults to ``fused_scan="on"``: both configs prefill
@@ -21,26 +24,20 @@ from repro_torch.nn.transformer import LayerSpec, LMConfig
 def full() -> LMConfig:
     return LMConfig(
         name="falcon-mamba-7b", n_layers=64, d_model=4096, vocab=65_024,
-        d_ff=0,
         period=(LayerSpec(kind="mamba", mlp="none"),),
-        rope="none",
         mamba=MambaParams(d_inner=8192, d_state=16, dt_rank=256, d_conv=4,
                           chunk=256),
-        norm="rms", act="silu", tie_embeddings=False,
-        max_seq=32768,
+        norm="rms", tie_embeddings=False,
     )
 
 
 def reduced() -> LMConfig:
     return LMConfig(
         name="falcon-mamba-reduced", n_layers=2, d_model=64, vocab=256,
-        d_ff=0,
         period=(LayerSpec(kind="mamba", mlp="none"),),
-        rope="none",
         mamba=MambaParams(d_inner=128, d_state=8, dt_rank=8, d_conv=4,
                           chunk=32),
-        norm="rms", act="silu",
-        dtype=torch.float32, loss_chunk=64, max_seq=64,
+        norm="rms", dtype=torch.float32,
     )
 
 

@@ -11,6 +11,11 @@ source rebuilds and an unchanged one loads the library already built.
 `build_all` starts one `nvcc` per source at once and waits for all of
 them; a missing `nvcc` or a failed build raises.  Nothing is built when
 this module is imported.
+
+Every wrapper shares the binding helpers below: `check_arg` (device,
+dtype, shape and contiguity of one operand), `bind` (a C entry point with
+its return type) and `raise_on` (a nonzero `cudaGetLastError()` code
+becomes a `RuntimeError`).
 """
 from __future__ import annotations
 
@@ -23,7 +28,8 @@ import subprocess
 import threading
 from typing import Dict, Sequence
 
-__all__ = ["SOURCES", "BUILD_DIR", "build_all", "load"]
+__all__ = ["SOURCES", "BUILD_DIR", "bind", "build_all", "check_arg",
+           "load", "raise_on"]
 
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 # src/repro_torch/kernels/build.py -> repository root
@@ -93,3 +99,33 @@ def load(name: str) -> ctypes.CDLL:
             build_all([name])
             lib = _libs[name] = ctypes.CDLL(str(_lib_path(name)))
         return lib
+
+
+def check_arg(name: str, x, dtype, shape, device) -> None:
+    """Raise unless tensor ``x`` is on ``device``, of ``dtype`` and
+    ``shape``, and contiguous: the kernels take raw pointers."""
+    if x.device != device:
+        raise ValueError(f"{name} is on {x.device}, expected {device}")
+    if x.dtype != dtype:
+        raise TypeError(f"{name} must be {dtype}, got {x.dtype}")
+    if tuple(x.shape) != tuple(shape):
+        raise ValueError(f"{name} must have shape {tuple(shape)}, "
+                         f"got {tuple(x.shape)}")
+    if not x.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+
+
+def bind(lib: ctypes.CDLL, fn_name: str):
+    """The C entry point with its return type declared; every argument is
+    passed as an explicit ctypes value (c_void_p pointers, c_int ints)."""
+    fn = getattr(lib, fn_name)
+    fn.restype = ctypes.c_int
+    lib.repro_cuda_error_string.restype = ctypes.c_char_p
+    lib.repro_cuda_error_string.argtypes = [ctypes.c_int]
+    return fn
+
+
+def raise_on(lib: ctypes.CDLL, code: int, what: str) -> None:
+    if code != 0:
+        msg = lib.repro_cuda_error_string(code).decode()
+        raise RuntimeError(f"{what} launch failed: CUDA error {code} ({msg})")

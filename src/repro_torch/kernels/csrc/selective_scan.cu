@@ -34,16 +34,19 @@
 // channel's L lanes sum h C[t,n] by __shfl_xor_sync (log2 L steps); lane 0
 // puts y in shared memory and the block writes the chunk's y rows out.
 //
-// What bounds it on the card: exp.  Per (b, t, d) the function reads xc
-// and dt_raw and writes y (12 B, plus 8 N B per (b, t) for B and C), does
-// about 7 N FLOP, and needs N exps for the discretization plus softplus's
-// exp and log1p: N + 2 special-function results.  At (B 4, S 2048,
-// d_inner 8192, N 16) that is 0.24 ms of bytes at 3.35 TB/s, 0.11 ms of
-// FLOP at 67 TFLOP/s and 0.29 ms of exp/log at the special-function rate
-// (16 per clock per SM, `repro_torch.hw.H100_SXM.peak_sfu`): the exp/log
-// rate bounds it.  This design evaluates each exp once and reads each
-// input once; the per-step shuffle reduction (4 shuffles per lane at
-// N = 16) is what it spends above the bound.
+// What bounds it on the card: bytes.  Per (b, t, d) the function reads
+// xc and dt_raw and writes y (12 B, plus 8 N B per (b, t) for B and C),
+// does about 7 N FLOP, and needs N exps for the discretization plus
+// softplus's exp and log1p: N + 2 special-function results.  At (B 4,
+// S 2048, d_inner 8192, N 16) that is 0.24 ms of bytes at 3.35 TB/s,
+// 0.11 ms of FLOP at 67 TFLOP/s and 0.29 ms of exp/log at the
+// special-function rate (16 per clock per SM,
+// `repro_torch.hw.H100_SXM.peak_sfu`).  The bytes bound the card: an exp
+// can also run as a polynomial on the FMA pipes, and with the exps split
+// between both the compute fits under 0.24 ms.  This design runs every
+// exp/log on the SFUs, so 0.29 ms is its own floor; it evaluates each exp
+// once and reads each input once, and the per-step shuffle reduction (4
+// shuffles per lane at N = 16) is what it spends above that floor.
 #include "common.cuh"
 
 namespace repro_torch {

@@ -43,6 +43,7 @@ import torch
 
 from repro_torch.hw import H100_SXM
 from repro_torch.kernels import build
+from repro_torch.kernels.build import bind, check_arg, raise_on
 from repro_torch.kernels.ref import group_aggregate_ref, group_edge_grad_ref
 
 __all__ = ["VARIANTS", "KERNEL_OF_VARIANT", "EDGE_GRAD_KERNEL_OF_VARIANT",
@@ -130,34 +131,6 @@ def group_aggregate_plain(feat_padded: torch.Tensor, nbrs: torch.Tensor,
                                tile_node_block, ont, out_rows)
 
 
-def _check(name: str, x: torch.Tensor, dtype, shape, device) -> None:
-    if x.device != device:
-        raise ValueError(f"{name} is on {x.device}, expected {device}")
-    if x.dtype != dtype:
-        raise TypeError(f"{name} must be {dtype}, got {x.dtype}")
-    if tuple(x.shape) != tuple(shape):
-        raise ValueError(f"{name} must have shape {tuple(shape)}, "
-                         f"got {tuple(x.shape)}")
-    if not x.is_contiguous():
-        raise ValueError(f"{name} must be contiguous")
-
-
-def _bind(lib: ctypes.CDLL, fn_name: str):
-    """The C entry point with its return type declared; every argument is
-    passed as an explicit ctypes value (c_void_p pointers, c_int ints)."""
-    fn = getattr(lib, fn_name)
-    fn.restype = ctypes.c_int
-    lib.repro_cuda_error_string.restype = ctypes.c_char_p
-    lib.repro_cuda_error_string.argtypes = [ctypes.c_int]
-    return fn
-
-
-def _raise_on(lib: ctypes.CDLL, code: int, what: str) -> None:
-    if code != 0:
-        msg = lib.repro_cuda_error_string(code).decode()
-        raise RuntimeError(f"{what} launch failed: CUDA error {code} ({msg})")
-
-
 def group_aggregate(feat_padded: torch.Tensor, nbrs: torch.Tensor,
                     edge_val: torch.Tensor, local_node: torch.Tensor,
                     tile_node_block: torch.Tensor, tile_window: torch.Tensor,
@@ -199,14 +172,14 @@ def group_aggregate(feat_padded: torch.Tensor, nbrs: torch.Tensor,
     T = nbrs.shape[0]
     if edge_val.dtype != torch.float32:
         edge_val = edge_val.float()
-    _check("nbrs", nbrs, torch.int32, (T, gpt, gs), dev)
-    _check("edge_val", edge_val, torch.float32, (T, gpt, gs), dev)
-    _check("local_node", local_node, torch.int32, (T, gpt), dev)
-    _check("tile_node_block", tile_node_block, torch.int32, (T,), dev)
-    _check("tile_window", tile_window, torch.int32, (T,), dev)
+    check_arg("nbrs", nbrs, torch.int32, (T, gpt, gs), dev)
+    check_arg("edge_val", edge_val, torch.float32, (T, gpt, gs), dev)
+    check_arg("local_node", local_node, torch.int32, (T, gpt), dev)
+    check_arg("tile_node_block", tile_node_block, torch.int32, (T,), dev)
+    check_arg("tile_window", tile_window, torch.int32, (T,), dev)
     if run_start.dim() != 1 or run_start.numel() < 2:
         raise ValueError("run_start must be (R+1,) with R >= 1")
-    _check("run_start", run_start, torch.int32, run_start.shape, dev)
+    check_arg("run_start", run_start, torch.int32, run_start.shape, dev)
     num_runs = run_start.numel() - 1
 
     geo = launch_geometry(variant, gs=gs, gpt=gpt, ont=ont, dt=dt)
@@ -222,21 +195,21 @@ def group_aggregate(feat_padded: torch.Tensor, nbrs: torch.Tensor,
     with torch.cuda.device(dev):
         if variant == "direct":
             lib = build.load("group_aggregate_gather")
-            fn = _bind(lib, "repro_group_aggregate_gather")
+            fn = bind(lib, "repro_group_aggregate_gather")
             code = fn(i(dcode), ptr(feat_padded), ptr(nbrs), ptr(edge_val),
                       ptr(local_node), ptr(tile_node_block), ptr(run_start),
                       ptr(out), i(num_runs), i(gs), i(gpt), i(ont), i(d_pad),
                       i(dt), i(geo.smem_bytes), stream)
         else:
             lib = build.load("group_aggregate_onehot")
-            fn = _bind(lib, "repro_group_aggregate_onehot")
+            fn = bind(lib, "repro_group_aggregate_onehot")
             code = fn(i(int(variant == "folded")), i(dcode), ptr(feat_padded),
                       ptr(nbrs), ptr(edge_val), ptr(local_node),
                       ptr(tile_node_block), ptr(tile_window), ptr(run_start),
                       ptr(out), i(num_runs), i(gs), i(gpt), i(ont),
                       i(src_win), i(d_pad), i(geo.gc), i(geo.ch), i(geo.dc),
                       i(geo.smem_bytes), stream)
-    _raise_on(lib, code, KERNEL_OF_VARIANT[variant])
+    raise_on(lib, code, KERNEL_OF_VARIANT[variant])
     launches[KERNEL_OF_VARIANT[variant]] += 1
     return out
 
@@ -289,19 +262,19 @@ def group_edge_grad(grad_padded: torch.Tensor, feat_padded: torch.Tensor,
                         f"one of {list(_DTYPE_CODE)}")
     if not feat_padded.is_contiguous():
         raise ValueError("feat_padded must be contiguous")
-    _check("grad_padded", grad_padded, feat_padded.dtype, (out_rows, d_pad),
-           dev)
+    check_arg("grad_padded", grad_padded, feat_padded.dtype,
+              (out_rows, d_pad), dev)
     if n_src % src_win or d_pad % dt or out_rows % ont:
         raise ValueError(f"padding mismatch: n_src={n_src} src_win={src_win} "
                          f"d_pad={d_pad} dt={dt} out_rows={out_rows} ont={ont}")
     T = nbrs.shape[0]
-    _check("nbrs", nbrs, torch.int32, (T, gpt, gs), dev)
-    _check("local_node", local_node, torch.int32, (T, gpt), dev)
-    _check("tile_node_block", tile_node_block, torch.int32, (T,), dev)
-    _check("tile_window", tile_window, torch.int32, (T,), dev)
+    check_arg("nbrs", nbrs, torch.int32, (T, gpt, gs), dev)
+    check_arg("local_node", local_node, torch.int32, (T, gpt), dev)
+    check_arg("tile_node_block", tile_node_block, torch.int32, (T,), dev)
+    check_arg("tile_window", tile_window, torch.int32, (T,), dev)
     if run_start.dim() != 1 or run_start.numel() < 2:
         raise ValueError("run_start must be (R+1,) with R >= 1")
-    _check("run_start", run_start, torch.int32, run_start.shape, dev)
+    check_arg("run_start", run_start, torch.int32, run_start.shape, dev)
     num_runs = run_start.numel() - 1
 
     kname = EDGE_GRAD_KERNEL_OF_VARIANT[variant]
@@ -322,17 +295,17 @@ def group_edge_grad(grad_padded: torch.Tensor, feat_padded: torch.Tensor,
     lib = build.load("group_edge_grad")
     with torch.cuda.device(dev):
         if variant == "direct":
-            fn = _bind(lib, "repro_group_edge_grad_gather")
+            fn = bind(lib, "repro_group_edge_grad_gather")
             code = fn(i(dcode), ptr(grad_padded), ptr(feat_padded), ptr(nbrs),
                       ptr(local_node), ptr(tile_node_block), ptr(run_start),
                       ptr(out), i(num_runs), i(T), i(gs), i(gpt), i(ont),
                       i(d_pad), stream)
         else:
-            fn = _bind(lib, "repro_group_edge_grad_block")
+            fn = bind(lib, "repro_group_edge_grad_block")
             code = fn(i(dcode), ptr(grad_padded), ptr(feat_padded), ptr(nbrs),
                       ptr(local_node), ptr(tile_node_block), ptr(run_start),
                       ptr(out), i(num_runs), i(gs), i(gpt), i(ont), i(d_pad),
                       i(dc), i(smem), stream)
-    _raise_on(lib, code, kname)
+    raise_on(lib, code, kname)
     launches[kname] += 1
     return out

@@ -22,7 +22,7 @@ from typing import Dict
 import torch
 
 from repro_torch.kernels import build
-from repro_torch.kernels.group_aggregate import _bind, _check, _raise_on
+from repro_torch.kernels.build import bind, check_arg, raise_on
 from repro_torch.kernels.ref import selective_scan_ref
 
 __all__ = ["KERNEL", "PLAIN", "launches", "reset_launches", "selective_scan",
@@ -65,13 +65,13 @@ def selective_scan(xc: torch.Tensor, dt_raw: torch.Tensor, b: torch.Tensor,
     bsz, seq, di = xc.shape
     n = b.shape[-1]
     dev, f32 = xc.device, torch.float32
-    _check("xc", xc, f32, (bsz, seq, di), dev)
-    _check("dt_raw", dt_raw, f32, (bsz, seq, di), dev)
-    _check("b", b, f32, (bsz, seq, n), dev)
-    _check("c", c, f32, (bsz, seq, n), dev)
-    _check("a_log", a_log, f32, (di, n), dev)
-    _check("dt_bias", dt_bias, f32, (di,), dev)
-    _check("d_skip", d_skip, f32, (di,), dev)
+    check_arg("xc", xc, f32, (bsz, seq, di), dev)
+    check_arg("dt_raw", dt_raw, f32, (bsz, seq, di), dev)
+    check_arg("b", b, f32, (bsz, seq, n), dev)
+    check_arg("c", c, f32, (bsz, seq, n), dev)
+    check_arg("a_log", a_log, f32, (di, n), dev)
+    check_arg("dt_bias", dt_bias, f32, (di,), dev)
+    check_arg("d_skip", d_skip, f32, (di,), dev)
     if not 1 <= n <= MAX_STATE:
         raise ValueError(f"{KERNEL} holds 1..{MAX_STATE} states per channel, "
                          f"got N={n}")
@@ -82,7 +82,7 @@ def selective_scan(xc: torch.Tensor, dt_raw: torch.Tensor, b: torch.Tensor,
     if y.numel() == 0:
         return y
     lib = build.load(KERNEL)
-    fn = _bind(lib, "repro_selective_scan")
+    fn = bind(lib, "repro_selective_scan")
     ptr = lambda x: ctypes.c_void_p(x.data_ptr())
     i = ctypes.c_int
     with torch.cuda.device(dev):
@@ -90,6 +90,6 @@ def selective_scan(xc: torch.Tensor, dt_raw: torch.Tensor, b: torch.Tensor,
         code = fn(ptr(xc), ptr(dt_raw), ptr(b), ptr(c), ptr(a_log),
                   ptr(dt_bias), ptr(d_skip), ptr(y), i(bsz), i(seq), i(di),
                   i(n), stream)
-    _raise_on(lib, code, KERNEL)
+    raise_on(lib, code, KERNEL)
     launches[KERNEL] += 1
     return y

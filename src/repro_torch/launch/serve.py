@@ -7,7 +7,7 @@ Port of `src/repro/launch/serve.py`:
 
     # on a machine without a card
     PYTHONPATH=src python -m repro_torch.launch.serve \
-        --arch falcon-mamba-7b --reduced --device cpu --backend torch
+        --arch falcon-mamba-7b --reduced --device cpu
 
 Decodes from step 0, as the reference does: the prompt tokens go through
 the same decode step (prefill-by-decode), so the cache is built by the
@@ -18,10 +18,11 @@ recurrence and no prefill hand-off exists.  Random weights from a
 reference's ``[serve] ... tok/s=`` line (batch x steps over the host
 clock around the loop, which ends on the last step's tokens on the host).
 
-Port flags beside the reference's: ``--device cuda|cpu`` (default cuda;
-raises without CUDA) and ``--backend cuda|torch``, taken as `serve_gnn`
-takes it; decode runs no kernel, so the two backends run the same ops.
-Only the ported architectures are accepted (`repro_torch.configs`).
+The port's one flag beside the reference's: ``--device cuda|cpu``
+(default cuda; raises without CUDA).  There is no ``--backend``: decode
+runs no kernel, so there is nothing to choose; prefill's choice is
+`repro_torch.models.lm.make_prefill_step(backend=)`.  Only the ported
+architectures are accepted (`repro_torch.configs`).
 """
 from __future__ import annotations
 
@@ -40,7 +41,6 @@ def parse_args(argv=None) -> argparse.Namespace:
     p.add_argument("--temperature", type=float, default=0.0)
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--device", default="cuda")
-    p.add_argument("--backend", default="cuda", choices=("cuda", "torch"))
     return p.parse_args(argv)
 
 

@@ -1,7 +1,9 @@
 """LM assembly, the pure-Mamba subset (falcon-mamba).
 
 Port of `src/repro/nn/transformer.py` (:192-490): `LayerSpec`, `LMConfig`
-(the fields the Mamba configs set), `lm_init`, `param_count`,
+(the fields a pure-Mamba stack reads; the reference's ``d_ff``, ``rope``,
+``act``, ``loss_chunk`` and ``max_seq`` feed only its FFN, attention and
+training-loss code and have no counterpart), `lm_init`, `param_count`,
 `_embed_in`, `lm_forward`, `lm_prefill`, `init_lm_cache`, `_slot_decode`
 and `lm_decode_step`.  Attention, FFN and MoE slots, other norms and
 tied embeddings wait for ROADMAP Queue 1 item 9; a config that asks for
@@ -49,16 +51,11 @@ class LMConfig:
     n_layers: int
     d_model: int
     vocab: int
-    d_ff: int = 0
     period: tuple = (LayerSpec(),)
-    rope: str = "rope"            # read by attention slots only
     norm: str = "rms"
-    act: str = "silu"             # Mamba blocks gate with silu whatever it says
     mamba: Optional[MambaParams] = None
     tie_embeddings: bool = False
     dtype: torch.dtype = torch.bfloat16
-    loss_chunk: int = 512         # read by the training loss only
-    max_seq: int = 4096
 
     def __post_init__(self):
         for spec in self.period:

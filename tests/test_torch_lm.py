@@ -147,8 +147,8 @@ def test_serve_driver_matches_reference_decode_loop(capsys):
     j_cfg, t_cfg = _configs("float32")
     # the reference CLI's own weights: lm_init at PRNGKey(seed)
     jp, tp = _carried(j_cfg, t_cfg, seed=0)
-    res = t_serve.run(argv + ["--device", "cpu", "--backend", "torch"],
-                      params=tp, keep_logits=True)
+    res = t_serve.run(argv + ["--device", "cpu"], params=tp,
+                      keep_logits=True)
     out = capsys.readouterr().out
     assert re.search(r"\[serve\] arch=falcon-mamba-reduced batch=3 steps=20 "
                      r"tok/s=[0-9.]+", out)
