@@ -11,11 +11,15 @@ Phases, each timed, any failure exits non-zero before the result line:
   2. kernels vs plain — schedules from the port's planner on the pubmed
      replica (`random_power_law(19717, 4.5)` with GCN A-hat weights) at
      D in {3, 16, 500}, every variant, plus one schedule with unvisited
-     node blocks and pow2-padded tiles; the full reddit replica at D in
-     {16, 64} on the gather kernel (the analytic tuner's one-hot schedule
-     of full reddit pads to 11.7M tiles, where one call takes 0.2-1.7 s);
-     float32 and bfloat16, each against its plain PyTorch version on the
-     card.  Tolerance: ``max|k-p| / (1 + A) <= 1e-5`` where
+     node blocks and pow2-padded tiles; the community graph
+     `random_community_graph(600, 32)` (7-9 live slots a tile) at D in
+     {16, 64} and pinned corners of the tuner's search space on cora
+     (`CORNERS`: gs 64, gpt 128, ...) on both one-hot kernels; the full
+     reddit replica at D in {16, 64} on the gather kernel (the analytic
+     tuner's one-hot schedule of full reddit pads to 11.7M tiles); float32
+     and bfloat16, each against its plain PyTorch version on the card, and
+     each one-hot call run twice, which must give bit-identical output.
+     Tolerance: ``max|k-p| / (1 + A) <= 1e-5`` where
      ``A = sum|ev * feat|`` (the plain version on absolute values): a
      float32 sum taken in another order can differ by rounding that scales
      with the summed magnitudes, which cancellation hides from ``|p|``.
@@ -24,6 +28,9 @@ Phases, each timed, any failure exits non-zero before the result line:
      of ``n`` terms the kernel's error must stay within the summation
      bound ``gamma_n * A`` (``gamma_n = n u / (1 - n u)``, ``u = 2^-24``),
      the bound any order of float32 products and sums meets.
+     2b (``hub``): on the pubmed folded schedule at D 16, the one-hot
+     kernel's device time over all runs, over the longest run alone and
+     over every other run, at 8 and 16 warps a block (`hub_probe`).
   3. serving — `repro_torch.launch.serve_gnn` at pubmed's widths (500
      input features, 3 classes, 19,717 nodes, avg degree 4.5, Zipf-1.1
      requests, batch window 16, 2 hops): the paper's GCN (2 layers, hidden
@@ -96,9 +103,11 @@ Phases, each timed, any failure exits non-zero before the result line:
 arguments every phase runs.  The line before the last is the
 ``{"kernels": [...]}`` record (times are
 medians of 20 CUDA-event-timed calls after 3 warm-up calls, on warm
-caches; ``bound_ms`` counts what the function needs on the run's data:
-each real edge's id and value, each group holding an edge, each source row
-an edge reads and each row an edge writes, 2 FLOP per edge and column,
+caches; ``ms`` holds the wrapper's host work, ``device_ms`` the device's
+alone (`time_ms`); ``bound_ms`` counts what the function needs on the
+run's data: each real edge's id and value, each group holding an edge,
+each source row an edge reads and each row an edge writes, 2 FLOP per
+edge and column,
 against `repro_torch.hw.H100_SXM`; for the edge-gradient kernels each real
 edge's id and result, each group holding an edge, the source and
 cotangent rows edges read, 2 FLOP per edge and column; ``library_ms`` is
@@ -124,6 +133,7 @@ import warnings
 ROOT = os.path.dirname(os.path.abspath(__file__))
 SRC = os.path.join(ROOT, "src")
 TOL = 1e-5
+SLEEP_CYCLES = 2_000_000  # about 1 ms at the H100's 1.98 GHz boost clock
 U32 = 2.0 ** -24          # unit roundoff of float32
 SOURCES = {"group_aggregate_onehot[folded]": (
                "src/repro_torch/kernels/csrc/group_aggregate_onehot.cu",
@@ -158,8 +168,14 @@ def check(cond: bool, msg: str) -> None:
         raise SmokeFailure(msg)
 
 
-def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
-    """Median of ``iters`` CUDA-event-timed calls after ``warmup`` calls."""
+def time_ms(fn, iters: int = 20, warmup: int = 3,
+            device_only: bool = False) -> float:
+    """Median of ``iters`` CUDA-event-timed calls after ``warmup`` calls.
+
+    By default the time between the events holds the host's work inside
+    the call (the wrapper's checks, the launch).  ``device_only`` first
+    enqueues a spin of about 1 ms (``torch.cuda._sleep``), so the call is
+    queued before the start event runs: the time is the device's alone."""
     import torch
     for _ in range(warmup):
         fn()
@@ -168,6 +184,8 @@ def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     for _ in range(iters):
         s = torch.cuda.Event(enable_timing=True)
         e = torch.cuda.Event(enable_timing=True)
+        if device_only:
+            torch.cuda._sleep(SLEEP_CYCLES)
         s.record()
         fn()
         e.record()
@@ -281,13 +299,19 @@ class KernelCase:
         witness within the float32 summation bound (see the module doc)."""
         import torch
         s, n, d = self.s, self.s.num_nodes, self.d
-        k = self.kernel().double()
+        k = self.kernel()
+        visited = torch.repeat_interleave(s.block_visited, s.ont)[:n]
+        if self.variant != "direct":
+            # no atomics and a fixed summation order: bit-identical reruns
+            # (rows of unvisited blocks are never written)
+            check(torch.equal(k[:n][visited], self.kernel()[:n][visited]),
+                  f"{self.variant}: two calls differ at {self.shape}")
+        k = k.double()
         p = self.plain().double()
         feat, ev = self.feat_p.double(), s.edge_val.double()
         exact = self.oracle(feat, ev)
         mag = self.oracle(feat.abs(), ev.abs())
         terms = self.oracle(torch.ones_like(feat[:, :1]), (ev != 0).double())
-        visited = torch.repeat_interleave(s.block_visited, s.ont)[:n]
         k, p, exact, mag = (t[:n, :d][visited] for t in (k, p, exact, mag))
         terms = terms[:n][visited]
         check(bool(torch.isfinite(k).all()),
@@ -321,12 +345,15 @@ class KernelCase:
         rec = self.check()
         torch.cuda.empty_cache()
         rec["ms"] = time_ms(self.kernel)
+        rec["device_ms"] = time_ms(self.kernel, device_only=True)
         rec["plain_ms"] = time_ms(self.plain)
         try:
             rec["library_ms"] = time_ms(self.library)
+            rec["library_device_ms"] = time_ms(self.library,
+                                               device_only=True)
         except RuntimeError as e:
             log(f"  library call unavailable: {e}")
-            rec["library_ms"] = None
+            rec["library_ms"] = rec["library_device_ms"] = None
         return rec
 
     @staticmethod
@@ -346,8 +373,8 @@ class KernelCase:
                 f"plain={rec['plain_err_f64']:.2e} "
                 f"bound-share={rec['over_bound']:.3f}/"
                 f"{rec['plain_over_bound']:.3f} "
-                f"ms={rec['ms']:.3f} plain={rec['plain_ms']:.3f} "
-                f"lib={_lib(rec)} "
+                f"ms={rec['ms']:.4f} (device {rec['device_ms']:.4f}) "
+                f"plain={rec['plain_ms']:.3f} lib={_lib(rec)} "
                 f"bound={rec['bound_ms']:.5f} ({rec['bound_by']})")
 
 
@@ -356,8 +383,9 @@ def kernel_sweeps(detail: dict) -> list:
     import torch
 
     from repro_torch.core.advisor import plan_for
+    from repro_torch.core.model import AggConfig
     from repro_torch.core.partition import pad_partition_tiles
-    from repro_torch.graphs.csr import random_power_law
+    from repro_torch.graphs.csr import random_community_graph, random_power_law
     from repro_torch.graphs.datasets import make_dataset
     from repro_torch.graphs.subgraph import pad_to_nodes
     from repro_torch.kernels.group_aggregate import VARIANTS
@@ -366,26 +394,46 @@ def kernel_sweeps(detail: dict) -> list:
 
     t0 = time.time()
     pubmed, vals_p = gcn_edge_values(random_power_law(19717, 4.5, seed=0))
+    community, vals_c = gcn_edge_values(random_community_graph(600, 32,
+                                                               seed=0))
+    cora, vals_k = gcn_edge_values(make_dataset("cora", max_dim=1)[0])
     reddit_g, _, _ = make_dataset("reddit", max_dim=1)
     reddit, vals_r = gcn_edge_values(reddit_g)
     log(f"graphs: pubmed n={pubmed.num_nodes} e={pubmed.num_edges}, "
+        f"community n={community.num_nodes} e={community.num_edges}, "
+        f"cora n={cora.num_nodes} e={cora.num_edges}, "
         f"reddit n={reddit.num_nodes} e={reddit.num_edges} "
         f"({time.time() - t0:.1f}s)")
     padded = pad_to_nodes(pubmed, 32768)     # edge-less tail: unvisited blocks
+    onehot = ("folded", "slot_onehot")
     records = []
-    cases = [("pubmed", pubmed, vals_p, 16, (3, 16, 500), False, VARIANTS),
-             ("pubmed-padded", padded, vals_p, 16, (16,), True, VARIANTS),
-             ("reddit", reddit, vals_r, 64, (16, 64), False, ("direct",))]
-    for name, g, vals, dim, widths, pad, variants in cases:
+    # (name, graph, edge values, planning width, widths, pow2-pad tiles,
+    #  variants, pinned config, slot shares the folded schedule)
+    cases = [("pubmed", pubmed, vals_p, 16, (3, 16, 500), False, VARIANTS,
+              None, True),
+             ("pubmed-padded", padded, vals_p, 16, (16,), True, VARIANTS,
+              None, True),
+             # 7-9 live slots per tile; 11-22% of tiles touch >= 16 rows
+             ("community", community, vals_c, 16, (16, 64), False, onehot,
+              None, False)]
+    # corners of the tuner's search space, pinned (cora: the pubmed
+    # replica's padded schedules pass 1 GB there)
+    for (gs, gpt, dt, win), d in CORNERS:
+        cases.append((f"cora-{gs}x{gpt}", cora, vals_k, d, (d,), False,
+                      onehot, AggConfig(gs=gs, gpt=gpt, dt=dt, src_win=win),
+                      True))
+    cases.append(("reddit", reddit, vals_r, 64, (16, 64), False, ("direct",),
+                  None, True))
+    for name, g, vals, dim, widths, pad, variants, config, share in cases:
         plan = None
         for variant in variants:
             t1 = time.time()
-            # one schedule per kernel: the slot variant runs the one-hot
-            # kernel on the schedule tuned for folded
-            if plan is None or variant == "direct":
+            # one schedule per kernel: unless ``share`` is off, the slot
+            # variant runs the one-hot kernel on folded's schedule
+            if plan is None or variant == "direct" or not share:
                 plan = plan_for(g, arch="gcn", in_dim=dim, hidden_dim=dim,
                                 edge_vals=vals, tune_iters=4,
-                                variant=variant)
+                                variant=variant, config=config)
             part = plan.partition
             if pad:
                 part = pad_partition_tiles(part, 1 << part.num_tiles.bit_length())
@@ -419,6 +467,80 @@ def kernel_sweeps(detail: dict) -> list:
             torch.cuda.empty_cache()
     detail["sweeps"] = records
     return records
+
+
+# pinned search-space corners on cora: ((gs, gpt, dt, src_win), D)
+CORNERS = [((64, 8, 64, 2048), 16), ((4, 128, 512, 128), 500),
+           ((32, 64, 128, 512), 64), ((64, 128, 256, 1024), 130)]
+# launch knobs the hub probe compares: {label: {module constant: value}}
+HUB_KNOBS = {"warps 8": {"_ONEHOT_WARPS": 8},
+             "warps 16": {"_ONEHOT_WARPS": 16}}
+
+
+def hub_probe(detail: dict) -> dict:
+    """Phase 2b: does the longest run set the one-hot kernel's time?  On
+    phase 2's pubmed folded schedule at D 16, float32: device time of the
+    kernel over all runs, over the longest (hub) run alone, and over every
+    other run (one launch on a copy of the schedule without the hub's
+    tiles); then the same at each launch setting of ``HUB_KNOBS``,
+    each checked first."""
+    from unittest import mock
+
+    import torch
+
+    from repro_torch.core.advisor import plan_for
+    from repro_torch.graphs.csr import random_power_law
+    from repro_torch.kernels import group_aggregate as ga
+    from repro_torch.kernels.ops import DeviceSchedule
+    from repro_torch.models.gnn import gcn_edge_values
+
+    g, vals = gcn_edge_values(random_power_law(19717, 4.5, seed=0))
+    plan = plan_for(g, arch="gcn", in_dim=16, hidden_dim=16, edge_vals=vals,
+                    tune_iters=4, variant="folded")
+    case = KernelCase(DeviceSchedule(plan.partition, "cuda"), g, vals, 16,
+                      torch.float32, "folded", plan.config.dt, seed=16)
+    KernelCase.holds(case.check(), "hub probe")
+    s = case.s
+    rs = s.run_start
+    lens = rs[1:] - rs[:-1]
+    h = int(torch.argmax(lens))
+    t0, t1 = int(rs[h]), int(rs[h + 1])
+    arrays = [s.nbrs, s.edge_val, s.local_node, s.tile_node_block,
+              s.tile_window]
+    keep = torch.ones(s.num_tiles, dtype=torch.bool, device=rs.device)
+    keep[t0:t1] = False
+    parts = {"all": (arrays, rs), "hub": (arrays, rs[h:h + 2]),
+             "others": ([a[keep] for a in arrays],
+                        torch.cat([rs[:h + 1], rs[h + 2:] - (t1 - t0)]))}
+
+    def call(arrays, bounds):
+        return ga.group_aggregate(
+            case.feat_p, *arrays, bounds, gs=s.gs, gpt=s.gpt, ont=s.ont,
+            src_win=s.src_win, dt=case.dt, out_rows=s.padded_out_rows,
+            variant=case.variant)
+
+    def timed() -> dict:
+        return {k: time_ms(lambda: call(*part), device_only=True)
+                for k, part in parts.items()}
+
+    rec = {"variant": case.variant, "D": case.d, "tiles": s.num_tiles,
+           "runs": s.num_runs, "hub_tiles": t1 - t0,
+           "median_run_tiles": float(lens.float().median()),
+           "hub_live_slots": int((s.edge_val[t0:t1] != 0).sum()),
+           "ms": timed()}
+    log(f"  hub probe: {rec['runs']} runs, hub {rec['hub_tiles']} tiles "
+        f"({rec['hub_live_slots']} live slots), median run "
+        f"{rec['median_run_tiles']:.0f}; device ms " + ", ".join(
+            f"{k} {v:.4f}" for k, v in rec["ms"].items()))
+    for label, knobs in HUB_KNOBS.items():
+        with mock.patch.multiple(ga, **knobs):
+            chk = case.check()
+            KernelCase.holds(chk, f"hub probe at {label}")
+            rec[label] = dict(timed(), err=chk["max_err_scaled"])
+        log(f"  hub probe at {label}: " + ", ".join(
+            f"{k} {v:.4g}" for k, v in rec[label].items()))
+    detail["hub_probe"] = rec
+    return rec
 
 
 SERVE_COMMON = ["--num-nodes", "19717", "--avg-degree", "4.5",
@@ -628,7 +750,8 @@ class EdgeGradCase(KernelCase):
 
 def _lib(rec: dict) -> str:
     v = rec["library_ms"]
-    return "n/a" if v is None else f"{v:.3f}"
+    return ("n/a" if v is None else
+            f"{v:.4f} (device {rec['library_device_ms']:.4f})")
 
 
 def edge_grad_checks(detail: dict) -> list:
@@ -1192,7 +1315,7 @@ def lm_serving(detail: dict) -> dict:
     return rec
 
 
-PHASES = {"kernels": kernel_sweeps, "serving": serving,
+PHASES = {"kernels": kernel_sweeps, "hub": hub_probe, "serving": serving,
           "edge-grad": edge_grad_checks, "training": training,
           "scan": scan_checks, "lm": lm_serving}
 
@@ -1238,6 +1361,8 @@ def main(argv=None) -> int:
         ptxas = {k: [l.strip() for l in v.splitlines() if "Used" in l]
                  for k, v in reports.items()}
         log(f"phase device: built {sorted(reports)} in {time.time() - t0:.1f}s")
+        for name, lines in sorted(ptxas.items()):
+            log(f"  ptxas {name}: " + " | ".join(lines))
         detail.update(card=card, ptxas=ptxas)
 
         done = {}
@@ -1272,9 +1397,12 @@ def main(argv=None) -> int:
             "plain_err_f64": max(r["plain_err_f64"] for r in checks),
             "over_bound": max(r["over_bound"] for r in checks),
             "plain_over_bound": max(r["plain_over_bound"] for r in checks),
-            "ms": rec["ms"], "plain_ms": rec["plain_ms"],
+            "ms": rec["ms"], "device_ms": rec["device_ms"],
+            "plain_ms": rec["plain_ms"],
             "bound_ms": rec["bound_ms"], "bound_by": rec["bound_by"],
-            "library_ms": rec["library_ms"], "phase": rec["phase"],
+            "library_ms": rec["library_ms"],
+            "library_device_ms": rec["library_device_ms"],
+            "phase": rec["phase"],
             "shape": {k: rec[k] for k in ("tiles", "live_tiles", "gpt", "gs",
                                           "src_win", "nodes", "edges", "D",
                                           "dt", "dtype")},
@@ -1296,9 +1424,12 @@ def main(argv=None) -> int:
             "plain_err_f64": max(r["plain_err_f64"] for r in checks),
             "over_bound": max(r["over_bound"] for r in checks),
             "plain_over_bound": max(r["plain_over_bound"] for r in checks),
-            "ms": rec["ms"], "plain_ms": rec["plain_ms"],
+            "ms": rec["ms"], "device_ms": rec["device_ms"],
+            "plain_ms": rec["plain_ms"],
             "bound_ms": rec["bound_ms"], "bound_by": rec["bound_by"],
-            "library_ms": rec["library_ms"], "phase": rec["phase"],
+            "library_ms": rec["library_ms"],
+            "library_device_ms": rec["library_device_ms"],
+            "phase": rec["phase"],
             "shape": {k: rec[k] for k in ("tiles", "live_tiles", "gpt", "gs",
                                           "src_win", "nodes", "edges", "D",
                                           "dt", "dtype")},

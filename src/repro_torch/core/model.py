@@ -122,10 +122,10 @@ def smem_working_set(cfg: AggConfig) -> int:
     launch asks for (a narrower feature width only shrinks the tile):
 
       * ``direct``: the ont x dt f32 node-block accumulator;
-      * ``folded`` / ``slot_onehot``: node-block accumulator, per-group
-        accumulator, staged feature chunk and gather-matrix chunk, all f32
-        (features are converted when staged, so the bound does not depend
-        on ``feat_dtype``).
+      * ``folded`` / ``slot_onehot``: the slot-metadata ring, one ont x dc
+        f32 partial per warp (and slot lane group) and each warp's
+        live-slot list (features are converted in registers, so the bound
+        does not depend on ``feat_dtype``).
     """
     from repro_torch.kernels.group_aggregate import launch_geometry
     return launch_geometry(cfg.variant, gs=cfg.gs, gpt=cfg.gpt, ont=cfg.ont,
@@ -162,6 +162,11 @@ class KernelModel:
     only changes the bytes.  Blocks = runs (~node blocks) x column slices;
     the per-block overhead is the spec's ASSUMED ``block_overhead_s``,
     charged per wave of ``num_sms`` blocks, until it is measured.
+
+    The one-hot term prices the one-hot kernels' earlier design (a dense
+    walk over each tile's whole window in group chunks ``gc``), not the
+    live-slot walk that replaced it: repricing it would change the tuner's
+    picks, so it waits for the measured tuner stage.
     """
 
     hw: GPUSpec = H100_SXM

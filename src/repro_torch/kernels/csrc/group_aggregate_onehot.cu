@@ -2,183 +2,401 @@
 // group aggregation, one template with a compile-time switch.
 //
 // Replaces the TPU body `_kernel` (src/repro/kernels/group_aggregate.py:67,
-// launched by `group_aggregate_pallas` at :446).  Same function as the
-// gather kernel; the gather is a dense product against the tile's feature
-// window through a one-hot gather matrix:
-//   folded: W[g, r] = sum_s ev[g,s] * 1[local[g,s] == r];  per_group = W @ window
-//   slot:   W[g*gs+s, r] = ev[g,s] * 1[local[g,s] == r];   per_group = sum_s (W @ window)
-// then per_group rows scatter into the node block: acc[local_node[g]] += per_group[g].
+// launched by `group_aggregate_pallas` at :446).  On the TPU the gather is a
+// dense product against the tile's feature window through a one-hot matrix;
+// the function it computes is
+//   out[nb*ont + local_node[t,g], c] = sum_t,g sum_s ev[t,g,s] * feat[nbrs[t,g,s], c]
+// and each variant keeps the TPU body's summation: `folded` first sums a
+// group's slots that name the same source row into one weight (in slot
+// order) and multiplies once per distinct row; `slot` multiplies per slot.
+// Here the product walks only the live slots (ev != 0): the planner's tiles
+// hold 1-2 live slots of 32-64 on the pubmed replica and 7-9 on a community
+// graph, so a walk over the whole window costs work the function does not
+// need.
 //
-// Mapping: one thread block per (run of tiles sharing a node block, column
-// slice of `dc` columns).  Shared memory never holds a whole window: per
-// tile, groups go in chunks of `gc` and window rows in chunks of `ch`; for
-// each (group chunk, row chunk) the block builds the W chunk (gc or gc*gs
-// rows x ch) and stages the feature chunk (ch x dc, converted to f32) in
-// shared memory, multiplies with plain FMA into a gc x dc per-group
-// accumulator, and after the last row chunk scatters the group rows into
-// the ont x dc node-block accumulator.  The node-block accumulator is zeroed
-// at the run's start and flushed once: one writer per output row, no
-// atomics anywhere.  The chunk sizes come from
-// repro_torch.kernels.group_aggregate.launch_geometry, which the tuner's
-// shared-memory bound (core/model.py, Eq. 4) prices, so every config the
-// tuner accepts launches.
+// Mapping.  One thread block per (run of tiles sharing a node block, column
+// slice of `dc` columns), as the schedule contract in common.cuh sets out.
+// A run's slots, ids, values and group rows, are three contiguous spans;
+// the block cuts them into chunks of `stage_units` units of whole groups
+// (32 / gs groups, or one group when gs > 32):
+//   * `warps` warps split the run: warp w takes chunks w, w + warps, ...
+//     Each warp keeps its own ring of kStages chunks in flight with
+//     `cp.async.bulk` (TMA 1-D) copies completed on its own `mbarrier`s,
+//     so no warp waits on another until the run's end (a ring shared by
+//     the block's warps tied every warp to the slowest one's list walks);
+//   * a pass reads 128 slots, four a lane with one 16-byte shared load;
+//     the live slots (folded: the first live slot of each distinct row in
+//     its group, with the folded weight) are found with `__ballot_sync` and
+//     appended, in slot order, to the warp's list (row, weight, output
+//     row) in shared memory;
+//   * when the list is full and at the run's end the warp walks it: lw
+//     lanes a slot, two adjacent columns a lane (so 32 / lw slots at once
+//     and no lane idles at D 16), kUnroll entries per lane with their
+//     feature loads in flight together, converted to f32 in registers and
+//     `fmaf`-ed into the warp's private ont x dc f32 partial (one per slot
+//     lane group);
+//   * at the run's end the block sums the partials in warp order and writes
+//     the node block once.
+// No atomics anywhere and a fixed summation order: two calls give
+// bit-identical output.  TMA 1-D needs 16-byte aligned spans, so the
+// wrapper takes gpt % 4 == 0 and an even dt (every config of the tuner's
+// search space); `launch_geometry` in repro_torch.kernels.group_aggregate
+// is the one source of the shared memory, and the kernel refuses a launch
+// whose `smem_bytes` differs from its own layout.
 //
-// What bounds it: operations.  The dense product costs 2*rows*src_win*dc
-// FLOP per tile and column slice (rows = gc or gc*gs per chunk) where the
-// function needs 2*gs*dc per group; the W build is a compare per slot and
-// window row.  Row chunks that no slot of the group chunk hits are skipped
-// after the W build (one block-wide vote), which removes most of the dense
-// work on sparse windows without changing the result.  A tensor-core
-// (wgmma) product is a later step.
+// What bounds it: latency.  Each block is a chain of dependent memory round
+// trips (run bounds, metadata, feature rows, output) and the launch ends
+// with its longest run, whose live slots its warps walk in kUnroll-deep
+// rounds of feature loads; the bytes floor is the padded slot metadata
+// (8 B per slot, 4 B per group) read once.  PERF.md has the times, the
+// longest-run probe and the launch knobs measured against each other.
+//
+// No tensor cores.  An `mma` k-step needs 16 window rows per tile; the
+// planner's tiles touch 1.7 distinct window rows on average on the pubmed
+// replica and 4.3 (folded) to 5.8 (slot) on random_community_graph(600,
+// 32), where only 11-22% of tiles reach 16.  That changes for schedules
+// whose tiles mostly touch 16 or more distinct rows; a float32 product
+// there needs a 3xTF32 split (or a bf16 product with ev split three ways)
+// to stay within the float64 witness's summation bound.
 #include "common.cuh"
 
 namespace repro_torch {
 
-template <typename T, bool kFolded>
-__global__ void __launch_bounds__(kThreads)
+constexpr int kStages = 2;     // metadata ring depth per warp
+constexpr int kListCap = 128;  // live-slot list entries per warp (>= a pass)
+constexpr int kUnroll = 8;     // list entries per lane per round trip
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(smem_u32(bar)),
+               "r"(count));
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(
+                   smem_u32(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+// A wait that never completes is a fault of the kernel: trap after about
+// 2^26 polls (well over a second) so a launch fails instead of hanging.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  uint32_t done = 0;
+  for (uint32_t polls = 0;; ++polls) {
+    if (polls == (1u << 26)) __trap();
+    asm volatile(
+        "{\n\t.reg .pred p;\n\t"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n\t"
+        "selp.u32 %0, 1, 0, p;\n\t}"
+        : "=r"(done)
+        : "r"(smem_u32(bar)), "r"(parity)
+        : "memory");
+    if (done) return;
+  }
+}
+
+// one TMA 1-D copy global -> shared, completed on `bar` (16-byte aligned
+// addresses, size a multiple of 16)
+__device__ __forceinline__ void tma_load_1d(void* dst, const void* src,
+                                            uint32_t bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];" ::"r"(smem_u32(dst)),
+      "l"(src), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
+}
+
+__host__ __device__ __forceinline__ int align16(int bytes) {
+  return (bytes + 15) & ~15;
+}
+
+// slots per unit: whole groups, 32 / gs of them (one group when gs > 32)
+__host__ __device__ __forceinline__ int unit_slots(int gs) {
+  return gs <= 32 ? (32 / gs) * gs : gs;
+}
+
+// lanes per slot over the columns of a slice, two columns a lane (8 to 32
+// lanes); 32 / lanes slots at once
+__host__ __device__ __forceinline__ int slot_lanes(int dc) {
+  return dc > 32 ? 32 : (dc > 16 ? 16 : 8);
+}
+
+// two consecutive feature elements (8 or 4 bytes, aligned) as floats
+__device__ __forceinline__ void load2(const float* p, float& a, float& b) {
+  const float2 v = *reinterpret_cast<const float2*>(p);
+  a = v.x, b = v.y;
+}
+__device__ __forceinline__ void load2(const __nv_bfloat16* p, float& a,
+                                      float& b) {
+  const __nv_bfloat162 v = *reinterpret_cast<const __nv_bfloat162*>(p);
+  a = __low2float(v), b = __high2float(v);
+}
+__device__ __forceinline__ void load2(const __half* p, float& a, float& b) {
+  const __half2 v = *reinterpret_cast<const __half2*>(p);
+  a = __low2float(v), b = __high2float(v);
+}
+
+// The block's shared memory, in order: kStages mbarriers per warp, each
+// warp's kStages metadata stages (ids | values | group rows), the partials,
+// the lists.  Mirrored by repro_torch.kernels.group_aggregate.launch_geometry.
+struct Layout {
+  int stage_slots, ids_bytes, stage_bytes, bar_bytes, parts_floats, total;
+  __host__ __device__ Layout(int gs, int ont, int dc, int warps,
+                             int stage_units) {
+    stage_slots = stage_units * unit_slots(gs);
+    ids_bytes = 4 * stage_slots;
+    stage_bytes = 2 * ids_bytes + align16(4 * (stage_slots / gs));
+    bar_bytes = align16(8 * kStages * warps);
+    parts_floats = warps * (32 / slot_lanes(dc)) * ont * dc;
+    total = bar_bytes + warps * kStages * stage_bytes + 4 * parts_floats +
+            12 * warps * kListCap;
+  }
+};
+
+// 64 registers a thread: 4 blocks of 8 warps (2 of 16) per SM, and room
+// for kUnroll feature loads in flight per lane without spilling.
+template <typename T, bool kFolded, int kWarps>
+__global__ void __launch_bounds__(32 * kWarps, kWarps == 8 ? 4 : 2)
 onehot_kernel(const T* __restrict__ feat, const int* __restrict__ nbrs,
               const float* __restrict__ ev, const int* __restrict__ local_node,
               const int* __restrict__ tile_node_block,
-              const int* __restrict__ tile_window,
               const int* __restrict__ run_start, float* __restrict__ out,
-              int gs, int gpt, int ont, int src_win, int d_pad, int gc, int ch,
-              int dc) {
-  extern __shared__ float smem[];
-  const int wrows = kFolded ? gc : gc * gs;
-  float* acc = smem;            // ont * dc   node-block accumulator
-  float* pg = acc + ont * dc;   // gc * dc    per-group accumulator
-  float* fch = pg + gc * dc;    // ch * dc    staged feature chunk (f32)
-  float* w = fch + ch * dc;     // wrows * ch gather-matrix chunk
+              int gs, int gpt, int ont, int d_pad, int dc, int stage_units) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const Layout lay(gs, ont, dc, kWarps, stage_units);
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem) + warp * kStages;
+  unsigned char* ring = smem + lay.bar_bytes + warp * kStages * lay.stage_bytes;
+  float* parts = reinterpret_cast<float*>(smem + lay.bar_bytes +
+                                          kWarps * kStages * lay.stage_bytes);
+  int* lists = reinterpret_cast<int*>(parts + lay.parts_floats);
 
   const int t0 = run_start[blockIdx.x];
   const int t1 = run_start[blockIdx.x + 1];
   const int col0 = blockIdx.y * dc;
   const int width = min(dc, d_pad - col0);
+  const int64_t q0 = (int64_t)t0 * gpt * gs;  // the run's first slot
+  const int nslots = (t1 - t0) * gpt * gs;
+  // the run's chunks of stage_slots slots; warp w takes w, w + kWarps, ...
+  const int nchunks = (nslots + lay.stage_slots - 1) / lay.stage_slots;
+  const int mine = warp < nchunks ? (nchunks - 1 - warp) / kWarps + 1 : 0;
 
-  for (int i = threadIdx.x; i < ont * dc; i += blockDim.x) acc[i] = 0.f;
-
-  for (int t = t0; t < t1; ++t) {
-    const int base = tile_window[t] * src_win;
-    const int64_t slot0 = (int64_t)t * gpt * gs;
-    for (int g0 = 0; g0 < gpt; g0 += gc) {
-      const int ng = min(gc, gpt - g0);
-      for (int i = threadIdx.x; i < gc * dc; i += blockDim.x) pg[i] = 0.f;
-      for (int r0 = 0; r0 < src_win; r0 += ch) {
-        const int nr = min(ch, src_win - r0);
-        for (int i = threadIdx.x; i < wrows * ch; i += blockDim.x) w[i] = 0.f;
-        __syncthreads();  // W zeroed (and pg zeroed, previous reads done)
-
-        int hit = 0;
-        if (kFolded) {
-          // one thread owns one group's W row: the intra-group sum of
-          // duplicate neighbors needs no atomics
-          for (int g = threadIdx.x; g < ng; g += blockDim.x) {
-            const int64_t s0 = slot0 + (int64_t)(g0 + g) * gs;
-            for (int s = 0; s < gs; ++s) {
-              const int loc = __ldg(nbrs + s0 + s) - base - r0;
-              if (loc >= 0 && loc < nr) {
-                w[g * ch + loc] += __ldg(ev + s0 + s);
-                hit = 1;
-              }
-            }
-          }
-        } else {
-          const int64_t s0 = slot0 + (int64_t)g0 * gs;
-          for (int q = threadIdx.x; q < ng * gs; q += blockDim.x) {
-            const int loc = __ldg(nbrs + s0 + q) - base - r0;
-            if (loc >= 0 && loc < nr) {
-              w[q * ch + loc] = __ldg(ev + s0 + q);
-              hit = 1;
-            }
-          }
-        }
-        if (!__syncthreads_or(hit)) continue;  // no slot in this row chunk
-
-        for (int i = threadIdx.x; i < nr * width; i += blockDim.x) {
-          const int r = i / width;
-          const int c = i - r * width;
-          fch[r * dc + c] =
-              to_f32(feat[(int64_t)(base + r0 + r) * d_pad + col0 + c]);
-        }
-        __syncthreads();  // feature chunk staged
-
-        for (int i = threadIdx.x; i < ng * width; i += blockDim.x) {
-          const int g = i / width;
-          const int c = i - g * width;
-          float sum = 0.f;
-          if (kFolded) {
-            const float* wr = w + g * ch;
-            for (int r = 0; r < nr; ++r) sum = fmaf(wr[r], fch[r * dc + c], sum);
-          } else {
-            for (int s = 0; s < gs; ++s) {
-              const float* wr = w + (g * gs + s) * ch;
-              for (int r = 0; r < nr; ++r)
-                sum = fmaf(wr[r], fch[r * dc + c], sum);
-            }
-          }
-          pg[g * dc + c] += sum;
-        }
-        __syncthreads();  // product done before W / fch are overwritten
-      }
-      // scatter the group rows into the node block: one thread per column
-      // walks the groups in order, so rows shared by groups need no atomics
-      for (int c = threadIdx.x; c < width; c += blockDim.x) {
-        const int* ln = local_node + (int64_t)t * gpt + g0;
-        for (int g = 0; g < ng; ++g) acc[__ldg(ln + g) * dc + c] += pg[g * dc + c];
-      }
-      __syncthreads();  // pg read before the next group chunk zeroes it
-    }
+  for (int i = threadIdx.x; i < lay.parts_floats; i += blockDim.x)
+    parts[i] = 0.f;
+  if (lane == 0) {
+    for (int s = 0; s < kStages; ++s) mbar_init(full + s, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
   }
   __syncthreads();
 
+  // lane 0 loads the warp's j-th chunk into stage j % kStages
+  auto issue = [=](int j) {
+    const int s = j % kStages;
+    const int off = (warp + j * kWarps) * lay.stage_slots;
+    const int cnt = min(lay.stage_slots, nslots - off);
+    unsigned char* st = ring + s * lay.stage_bytes;
+    mbar_expect_tx(full + s, 8 * cnt + 4 * (cnt / gs));
+    tma_load_1d(st, nbrs + q0 + off, 4 * cnt, full + s);
+    tma_load_1d(st + lay.ids_bytes, ev + q0 + off, 4 * cnt, full + s);
+    tma_load_1d(st + 2 * lay.ids_bytes, local_node + (q0 + off) / gs,
+                4 * (cnt / gs), full + s);
+  };
+  if (lane == 0)
+    for (int j = 0; j < min(kStages, mine); ++j) issue(j);
+
+  const int lw = slot_lanes(dc);
+  const int nsub = 32 / lw;
+  const int sub = lane / lw;
+  const int cl = lane - sub * lw;
+  float* part = parts + (warp * nsub + sub) * ont * dc;
+  int* lrow = lists + warp * 3 * kListCap;
+  float* lwt = reinterpret_cast<float*>(lrow + kListCap);
+  int* lln = lrow + 2 * kListCap;
+  int cnt = 0;  // entries in the list (warp-uniform)
+  // a slot's group: a shift when gs is a power of two
+  const bool gpow2 = (gs & (gs - 1)) == 0;
+  const int gshift = __ffs(gs) - 1;
+
+  // walk the list's first `len` entries: each sub-warp of lw lanes takes
+  // every nsub-th entry, kUnroll at a time, in list order (so in slot order
+  // per partial)
+  auto flush = [=](int len) {
+    __syncwarp();
+    for (int b = sub; b < len; b += nsub * kUnroll) {
+      int er[kUnroll];
+#pragma unroll
+      for (int u = 0; u < kUnroll; ++u) {
+        const int e = b + u * nsub;
+        er[u] = e < len ? lrow[e] : -1;
+      }
+      for (int c = 2 * cl; c < width; c += 2 * lw) {
+        float f0[kUnroll], f1[kUnroll];  // kUnroll row loads in flight
+#pragma unroll
+        for (int u = 0; u < kUnroll; ++u) {
+          f0[u] = f1[u] = 0.f;
+          if (er[u] >= 0)
+            load2(feat + (int64_t)er[u] * d_pad + col0 + c, f0[u], f1[u]);
+        }
+#pragma unroll
+        for (int u = 0; u < kUnroll; ++u)
+          if (er[u] >= 0) {
+            const int e = b + u * nsub;
+            const float wt = lwt[e];
+            float* a = part + lln[e] * dc + c;
+            a[0] = fmaf(wt, f0[u], a[0]);
+            a[1] = fmaf(wt, f1[u], a[1]);
+          }
+      }
+    }
+    __syncwarp();
+  };
+
+  for (int j = 0; j < mine; ++j) {
+    const int s = j % kStages;
+    const int scnt = min(lay.stage_slots,
+                         nslots - (warp + j * kWarps) * lay.stage_slots);
+    const unsigned char* st = ring + s * lay.stage_bytes;
+    const int* snb = reinterpret_cast<const int*>(st);
+    const float* sev = reinterpret_cast<const float*>(st + lay.ids_bytes);
+    const int* sln = reinterpret_cast<const int*>(st + 2 * lay.ids_bytes);
+    mbar_wait(full + s, (j / kStages) & 1);
+    // passes of 128 slots: lane L holds slots 4L .. 4L + 3 of the pass
+    for (int b = 4 * lane; b - 4 * lane < scnt; b += 128) {
+      int n[4] = {0, 0, 0, 0};
+      float e[4] = {0.f, 0.f, 0.f, 0.f};
+      if (b < scnt) {
+        const int4 n4 = *reinterpret_cast<const int4*>(snb + b);
+        const float4 e4 = *reinterpret_cast<const float4*>(sev + b);
+        n[0] = n4.x, n[1] = n4.y, n[2] = n4.z, n[3] = n4.w;
+        e[0] = e4.x, e[1] = e4.y, e[2] = e4.z, e[3] = e4.w;
+      }
+      bool lead[4];
+      float w[4];
+#pragma unroll
+      for (int k = 0; k < 4; ++k) lead[k] = e[k] != 0.f, w[k] = e[k];
+      if (!__any_sync(0xffffffffu, lead[0] || lead[1] || lead[2] || lead[3]))
+        continue;
+      if (kFolded) {
+        // a group's live slots naming the same row fold into its first
+        // one, their values summed in slot order
+        if (gs == 4) {  // the lane's four slots are one group
+#pragma unroll
+          for (int k = 0; k < 4; ++k)
+#pragma unroll
+            for (int i = k + 1; i < 4; ++i)
+              if (lead[k] && lead[i] && n[i] == n[k]) {
+                w[k] += e[i];
+                lead[i] = false;
+              }
+        } else {
+#pragma unroll
+          for (int k = 0; k < 4; ++k) {
+            if (!lead[k]) continue;
+            const int q = b + k;
+            const int gbase = (gpow2 ? q >> gshift : q / gs) * gs;
+            w[k] = 0.f;
+            for (int i = gbase; i < gbase + gs; ++i)
+              if (sev[i] != 0.f && snb[i] == n[k]) {
+                if (i < q) lead[k] = false;
+                else w[k] += sev[i];
+              }
+          }
+        }
+      }
+      unsigned m[4];
+      int total = 0, below = 0;
+      const unsigned lt = (1u << lane) - 1u;
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        m[k] = __ballot_sync(0xffffffffu, lead[k]);
+        total += __popc(m[k]);
+        below += __popc(m[k] & lt);
+      }
+      if (cnt + total > kListCap) {
+        flush(cnt);
+        cnt = 0;
+      }
+      int pos = cnt + below;  // slot order: lane-major, then k
+#pragma unroll
+      for (int k = 0; k < 4; ++k)
+        if (lead[k]) {
+          lrow[pos] = n[k];
+          lwt[pos] = w[k];
+          lln[pos] = sln[gpow2 ? (b + k) >> gshift : (b + k) / gs];
+          ++pos;
+        }
+      cnt += total;
+    }
+    __syncwarp();  // stage s read: refill it with the chunk kStages ahead
+    if (lane == 0 && j + kStages < mine) {
+      asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+      issue(j + kStages);
+    }
+  }
+  flush(cnt);
+  __syncthreads();
+
+  // sum the partials in warp order; one writer per output row
+  const int nparts = kWarps * nsub;
   const int64_t row0 = (int64_t)tile_node_block[t0] * ont;
   for (int i = threadIdx.x; i < ont * width; i += blockDim.x) {
     const int r = i / width;
     const int c = i - r * width;
-    out[(row0 + r) * d_pad + col0 + c] = acc[r * dc + c];
+    float sum = 0.f;
+    for (int j = 0; j < nparts; ++j) sum += parts[(j * ont + r) * dc + c];
+    out[(row0 + r) * d_pad + col0 + c] = sum;
   }
 }
 
 template <typename T, bool kFolded>
 static int launch(const void* feat, const int* nbrs, const float* ev,
                   const int* local_node, const int* tile_node_block,
-                  const int* tile_window, const int* run_start, float* out,
-                  int num_runs, int gs, int gpt, int ont, int src_win,
-                  int d_pad, int gc, int ch, int dc, int smem_bytes,
-                  cudaStream_t stream) {
-  auto kernel = onehot_kernel<T, kFolded>;
+                  const int* run_start, float* out, int num_runs, int gs,
+                  int gpt, int ont, int d_pad, int dc, int warps,
+                  int stage_units, int smem_bytes, cudaStream_t stream) {
+  if ((warps != 8 && warps != 16) || stage_units * (unit_slots(gs) / gs) % 4 ||
+      gpt % 4 || dc % 2 ||
+      Layout(gs, ont, dc, warps, stage_units).total != smem_bytes)
+    return (int)cudaErrorInvalidValue;
+  auto kernel = warps == 8 ? onehot_kernel<T, kFolded, 8>
+                           : onehot_kernel<T, kFolded, 16>;
   cudaError_t err = allow_smem(kernel, smem_bytes);
   if (err != cudaSuccess) return (int)err;
   dim3 grid(num_runs, (d_pad + dc - 1) / dc);
-  kernel<<<grid, kThreads, smem_bytes, stream>>>(
+  kernel<<<grid, 32 * warps, smem_bytes, stream>>>(
       static_cast<const T*>(feat), nbrs, ev, local_node, tile_node_block,
-      tile_window, run_start, out, gs, gpt, ont, src_win, d_pad, gc, ch, dc);
+      run_start, out, gs, gpt, ont, d_pad, dc, stage_units);
   return (int)cudaGetLastError();
 }
 
 template <bool kFolded>
 static int dispatch(int dtype, const void* feat, const int* nbrs,
                     const float* ev, const int* local_node,
-                    const int* tile_node_block, const int* tile_window,
-                    const int* run_start, float* out, int num_runs, int gs,
-                    int gpt, int ont, int src_win, int d_pad, int gc, int ch,
-                    int dc, int smem_bytes, cudaStream_t s) {
+                    const int* tile_node_block, const int* run_start,
+                    float* out, int num_runs, int gs, int gpt, int ont,
+                    int d_pad, int dc, int warps, int stage_units,
+                    int smem_bytes, cudaStream_t s) {
   switch (dtype) {
     case kF32:
       return launch<float, kFolded>(feat, nbrs, ev, local_node,
-                                    tile_node_block, tile_window, run_start,
-                                    out, num_runs, gs, gpt, ont, src_win,
-                                    d_pad, gc, ch, dc, smem_bytes, s);
+                                    tile_node_block, run_start, out, num_runs,
+                                    gs, gpt, ont, d_pad, dc, warps,
+                                    stage_units, smem_bytes, s);
     case kBF16:
       return launch<__nv_bfloat16, kFolded>(
-          feat, nbrs, ev, local_node, tile_node_block, tile_window, run_start,
-          out, num_runs, gs, gpt, ont, src_win, d_pad, gc, ch, dc, smem_bytes,
+          feat, nbrs, ev, local_node, tile_node_block, run_start, out,
+          num_runs, gs, gpt, ont, d_pad, dc, warps, stage_units, smem_bytes,
           s);
     case kF16:
       return launch<__half, kFolded>(feat, nbrs, ev, local_node,
-                                     tile_node_block, tile_window, run_start,
-                                     out, num_runs, gs, gpt, ont, src_win,
-                                     d_pad, gc, ch, dc, smem_bytes, s);
+                                     tile_node_block, run_start, out,
+                                     num_runs, gs, gpt, ont, d_pad, dc, warps,
+                                     stage_units, smem_bytes, s);
     default:
       return (int)cudaErrorInvalidValue;
   }
@@ -186,19 +404,25 @@ static int dispatch(int dtype, const void* feat, const int* nbrs,
 
 }  // namespace repro_torch
 
+// The entry point keeps the schedule contract's full argument list:
+// `tile_window` and `src_win` are not read (`nbrs` holds global ids), and
+// the two launch knobs are the consumer warps per block and the units per
+// metadata stage.
 extern "C" int repro_group_aggregate_onehot(
     int folded, int dtype, const void* feat, const int* nbrs, const float* ev,
     const int* local_node, const int* tile_node_block, const int* tile_window,
     const int* run_start, float* out, int num_runs, int gs, int gpt, int ont,
-    int src_win, int d_pad, int gc, int ch, int dc, int smem_bytes,
-    void* stream) {
+    int src_win, int d_pad, int warps, int stage_units, int dc,
+    int smem_bytes, void* stream) {
   using namespace repro_torch;
+  (void)tile_window;
+  (void)src_win;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (folded)
     return dispatch<true>(dtype, feat, nbrs, ev, local_node, tile_node_block,
-                          tile_window, run_start, out, num_runs, gs, gpt, ont,
-                          src_win, d_pad, gc, ch, dc, smem_bytes, s);
+                          run_start, out, num_runs, gs, gpt, ont, d_pad, dc,
+                          warps, stage_units, smem_bytes, s);
   return dispatch<false>(dtype, feat, nbrs, ev, local_node, tile_node_block,
-                         tile_window, run_start, out, num_runs, gs, gpt, ont,
-                         src_win, d_pad, gc, ch, dc, smem_bytes, s);
+                         run_start, out, num_runs, gs, gpt, ont, d_pad, dc,
+                         warps, stage_units, smem_bytes, s);
 }

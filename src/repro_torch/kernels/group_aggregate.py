@@ -6,18 +6,20 @@ Port of `src/repro/kernels/group_aggregate.py:group_aggregate_pallas`
 ``out[v] = sum over v's groups of sum_s ev * feat[nbr]``:
 
   * ``folded`` / ``slot_onehot`` — `csrc/group_aggregate_onehot.cu`: a
-    dense product against the tile's feature window through a one-hot
-    gather matrix (folded sums a group's slots inside the matrix; slot
-    keeps one row per slot), staged in chunks through shared memory.
+    walk over the live slots only (folded first sums a group's slots that
+    name the same source row; slot multiplies per slot).  The run's tiles
+    are split across the block's warps, each with a private partial in
+    shared memory; each warp streams its share of the run's slot metadata
+    in with TMA 1-D copies.
   * ``direct`` — `csrc/group_aggregate_gather.cu`: per-slot row gathers,
     warps over groups and lanes over the feature dimension (the paper's
     own GPU mapping).
 
 Both kernels take one thread block per run of tiles sharing a node block
-(the leader-node scheme: the block's shared-memory accumulator is zeroed
-at the run's start and written to device memory once) and per column
-slice.  Each source file states what bounds its kernel on the card and
-what its design does about it.
+(the leader-node scheme: the block's shared-memory accumulators are zeroed
+at the run's start and the node block is written to device memory once)
+and per column slice.  Each source file states what bounds its kernel on
+the card and what its design does about it.
 
 The edge-value cotangent, `group_edge_grad` (port of
 `group_edge_grad_pallas` :289, `pl.pallas_call` at :351), computes per
@@ -37,6 +39,7 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
+import math
 from typing import Dict
 
 import torch
@@ -70,9 +73,14 @@ launches: Dict[str, int] = {
                    *EDGE_GRAD_KERNEL_OF_VARIANT.values(), EDGE_GRAD_PLAIN)}
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
-# one-hot kernel chunking (see csrc/group_aggregate_onehot.cu)
-_ONEHOT_ROWS = 32              # window rows per chunk (ch)
+# one-hot kernel launch (see csrc/group_aggregate_onehot.cu, `Layout`)
 _ONEHOT_COLS = 64              # most columns per block (dc)
+_ONEHOT_WARPS = 8              # warps per block (8 or 16)
+_ONEHOT_STAGE_UNITS = 4        # least units of whole groups per metadata stage
+_ONEHOT_STAGES = 2             # metadata ring depth per warp (kStages)
+_ONEHOT_LIST = 128             # live-slot list entries per warp (kListCap)
+# the group chunk KernelModel's one-hot term prices (the earlier
+# dense-window design)
 _FOLDED_GROUPS = 32            # groups per chunk, folded
 _SLOT_ROWS = 128               # W rows per chunk, slot_onehot (gc * gs)
 _EDGE_GRAD_COLS = 64           # cotangent columns staged per chunk, block
@@ -92,13 +100,32 @@ def _check_variant(variant: str) -> None:
 
 @dataclasses.dataclass(frozen=True)
 class Geometry:
-    """Launch geometry of one kernel call: group chunk ``gc``, window-row
-    chunk ``ch``, columns per block ``dc``, dynamic shared memory bytes."""
+    """Launch geometry of one kernel call: columns per block ``dc`` and
+    dynamic shared memory bytes; for the one-hot kernels also ``warps``
+    per block and ``stage_units`` per metadata stage (0 for ``direct``).
+    ``gc`` is the group chunk of the earlier dense-window design, which
+    `core.model.KernelModel` still prices; no kernel reads it."""
 
     gc: int
-    ch: int
     dc: int
+    warps: int
+    stage_units: int
     smem_bytes: int
+
+
+def _onehot_smem(gs: int, ont: int, dc: int, warps: int,
+                 stage_units: int) -> int:
+    """Bytes of the one-hot kernel's `Layout`: each warp's mbarriers and
+    metadata stages (ids, values, group rows), one ont x dc f32 partial
+    per warp and slot lane group, and each warp's live-slot list."""
+    align16 = lambda b: -(-b // 16) * 16
+    unit = (32 // gs) * gs if gs <= 32 else gs
+    slots = stage_units * unit
+    lanes = 32 if dc > 32 else 16 if dc > 16 else 8
+    stage = 8 * slots + align16(4 * (slots // gs))
+    return (align16(8 * _ONEHOT_STAGES * warps)
+            + warps * _ONEHOT_STAGES * stage
+            + 4 * warps * (32 // lanes) * ont * dc + 12 * warps * _ONEHOT_LIST)
 
 
 def launch_geometry(variant: str, *, gs: int, gpt: int, ont: int,
@@ -108,17 +135,21 @@ def launch_geometry(variant: str, *, gs: int, gpt: int, ont: int,
     (`repro_torch.core.model.smem_working_set`)."""
     _check_variant(variant)
     if variant == "direct":
-        return Geometry(gc=0, ch=0, dc=dt, smem_bytes=4 * ont * dt)
+        return Geometry(gc=0, dc=dt, warps=0, stage_units=0,
+                        smem_bytes=4 * ont * dt)
     dc = min(dt, _ONEHOT_COLS)
-    ch = _ONEHOT_ROWS
     if variant == "folded":
         gc = min(gpt, _FOLDED_GROUPS)
-        wrows = gc
     else:
         gc = max(1, min(gpt, _SLOT_ROWS // gs))
-        wrows = gc * gs
-    smem = 4 * (ont * dc + gc * dc + ch * dc + wrows * ch)
-    return Geometry(gc=gc, ch=ch, dc=dc, smem_bytes=smem)
+    # units per metadata stage: at least _ONEHOT_STAGE_UNITS, and a number
+    # whose group rows span a multiple of 16 bytes, as TMA 1-D copies need
+    groups = ((32 // gs) * gs if gs <= 32 else gs) // gs
+    step = 4 // math.gcd(4, groups)
+    warps = _ONEHOT_WARPS
+    units = -(-_ONEHOT_STAGE_UNITS // step) * step
+    return Geometry(gc=gc, dc=dc, warps=warps, stage_units=units,
+                    smem_bytes=_onehot_smem(gs, ont, dc, warps, units))
 
 
 def group_aggregate_plain(feat_padded: torch.Tensor, nbrs: torch.Tensor,
@@ -187,6 +218,16 @@ def group_aggregate(feat_padded: torch.Tensor, nbrs: torch.Tensor,
         raise ValueError(f"{variant} at gs={gs} gpt={gpt} ont={ont} dt={dt} "
                          f"needs {geo.smem_bytes} B of shared memory per "
                          f"block (> {H100_SXM.smem_per_block} B)")
+    if variant != "direct":
+        # TMA 1-D copies take 16-byte aligned spans of a run's metadata;
+        # a lane loads two adjacent feature columns at once
+        if gpt % 4 or dt % 2:
+            raise ValueError(f"{variant} needs gpt % 4 == 0 and an even dt, "
+                             f"got gpt={gpt} dt={dt}")
+        for name, x in (("feat_padded", feat_padded), ("nbrs", nbrs),
+                        ("edge_val", edge_val), ("local_node", local_node)):
+            if x.data_ptr() % 16:
+                raise ValueError(f"{name} must be 16-byte aligned")
     out = torch.empty((out_rows, d_pad), dtype=torch.float32, device=dev)
     stream = ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
     ptr = lambda x: ctypes.c_void_p(x.data_ptr())
@@ -207,8 +248,9 @@ def group_aggregate(feat_padded: torch.Tensor, nbrs: torch.Tensor,
                       ptr(nbrs), ptr(edge_val), ptr(local_node),
                       ptr(tile_node_block), ptr(tile_window), ptr(run_start),
                       ptr(out), i(num_runs), i(gs), i(gpt), i(ont),
-                      i(src_win), i(d_pad), i(geo.gc), i(geo.ch), i(geo.dc),
-                      i(geo.smem_bytes), stream)
+                      i(src_win), i(d_pad), i(geo.warps),
+                      i(geo.stage_units), i(geo.dc), i(geo.smem_bytes),
+                      stream)
     raise_on(lib, code, KERNEL_OF_VARIANT[variant])
     launches[KERNEL_OF_VARIANT[variant]] += 1
     return out

@@ -169,3 +169,54 @@ def test_wrapper_routes_cpu_tensors_to_plain_version(variant):
             s.tile_window, s.run_start, gs=s.gs, gpt=s.gpt, ont=s.ont,
             src_win=s.src_win, dt=16, out_rows=s.padded_out_rows,
             variant="bogus")
+
+
+class _OnCard(torch.Tensor):
+    """A CPU tensor that reports itself on the card, so the wrapper takes
+    its CUDA path: every check before the launch runs, and a refusal
+    raises before anything touches CUDA."""
+
+    @property
+    def is_cuda(self):
+        return True
+
+
+def _onehot_call(p, *, variant, width=16, dt=16, ont=None, on_card=True):
+    s = t_ops.DeviceSchedule(p, "cpu")
+    ont = s.ont if ont is None else ont
+    out_rows = -(-s.padded_out_rows // ont) * ont
+    feat = torch.randn(s.padded_src_rows, width)
+    if on_card:
+        feat = feat.as_subclass(_OnCard)
+    return t_ga.group_aggregate(
+        feat, s.nbrs, s.edge_val, s.local_node, s.tile_node_block,
+        s.tile_window, s.run_start, gs=s.gs, gpt=s.gpt, ont=ont,
+        src_win=s.src_win, dt=dt, out_rows=out_rows, variant=variant)
+
+
+@pytest.mark.parametrize("variant", ["folded", "slot_onehot"])
+def test_onehot_wrapper_raises_on_a_geometry_that_does_not_fit(variant):
+    """On the card the one-hot wrapper refuses, before any launch, a block
+    whose shared memory passes the card's limit, a gpt the kernel's 16-byte
+    metadata copies cannot take, and an odd dim tile."""
+    _, p = _schedule(padded=False)
+    with pytest.raises(ValueError, match="shared memory"):
+        _onehot_call(p, variant=variant, ont=4096)
+    with pytest.raises(ValueError, match="even dt"):
+        _onehot_call(p, variant=variant, width=15, dt=15)
+    _, p6 = _schedule(padded=False, gpt=6)
+    with pytest.raises(ValueError, match="gpt % 4"):
+        _onehot_call(p6, variant=variant)
+
+
+@pytest.mark.parametrize("variant", ["folded", "slot_onehot"])
+def test_cpu_routing_ignores_the_kernels_launch_limits(variant):
+    """A CPU tensor runs the plain version whatever the kernel could take:
+    gpt 6 and an odd dim tile, which the card refuses, still compute."""
+    _, p = _schedule(padded=False, gpt=6)
+    before = t_ga.launches[t_ga.PLAIN]
+    out = _onehot_call(p, variant=variant, width=15, dt=15, on_card=False)
+    assert t_ga.launches[t_ga.PLAIN] == before + 1
+    s = t_ops.DeviceSchedule(p, "cpu")
+    assert tuple(out.shape) == (s.padded_out_rows, 15)
+    assert bool(torch.isfinite(out).all())

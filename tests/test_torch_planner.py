@@ -196,3 +196,42 @@ def test_eq4_prices_the_launch_over_the_search_space(variant):
 def test_eq4_rejects_oversized_block():
     c = AggConfig(ont=4096, dt=512, variant="direct")
     assert "Eq. 4" in config_infeasibility(c)
+
+
+@pytest.mark.parametrize("variant", ["folded", "slot_onehot"])
+def test_onehot_launch_geometry_over_the_search_space(variant):
+    """The one-hot kernels' launch at every config of the search space (and
+    at the narrower dim tiles small widths give): fits one block's shared
+    memory, is exactly Eq. 4, meets the kernel's TMA alignment (a stage's
+    group rows span a multiple of 16 bytes), and keeps the ``gc`` / ``dc``
+    that `KernelModel` prices (the earlier chunking), so the tuner's picks do
+    not move with the kernel."""
+    for gs in SEARCH_SPACE["gs"]:
+        for gpt in SEARCH_SPACE["gpt"]:
+            for dt in SEARCH_SPACE["dt"] + [8, 16, 24]:
+                c = AggConfig(gs=gs, gpt=gpt, dt=dt, variant=variant)
+                geo = launch_geometry(variant, gs=gs, gpt=gpt, ont=c.ont,
+                                      dt=dt)
+                assert geo.smem_bytes == smem_working_set(c)
+                assert geo.smem_bytes <= H100_SXM.smem_per_block
+                assert geo.smem_bytes % 16 == 0
+                assert geo.warps in (8, 16)
+                unit_groups = (32 // gs if gs <= 32 else 1)
+                assert geo.stage_units * unit_groups % 4 == 0
+                assert geo.dc == min(dt, 64)
+                assert geo.gc == (min(gpt, 32) if variant == "folded"
+                                  else max(1, min(gpt, 128 // gs)))
+
+
+@pytest.mark.parametrize("variant,picked,tiles", [
+    ("folded", (4, 16, 64, 128), 94_199),
+    ("slot_onehot", (4, 8, 64, 128), 94_221)])
+def test_planner_picks_on_the_pubmed_replica(variant, picked, tiles):
+    """The pubmed replica's GCN schedules as the chip smoke test's phase 2
+    plans them (in-dim and hidden 16, 4 tuner iterations): the picks and
+    tile counts the one-hot kernels' times in PERF.md were read at."""
+    g, vals = gcn_edge_values(t_csr.random_power_law(19717, 4.5, seed=0))
+    plan = t_advisor.plan_for(g, arch="gcn", in_dim=16, hidden_dim=16,
+                              edge_vals=vals, tune_iters=4, variant=variant)
+    assert plan.config.astuple()[:4] == picked
+    assert plan.partition.num_tiles == tiles
