@@ -30,7 +30,7 @@ Phases, each timed, any failure exits non-zero before the result line:
      the bound any order of float32 products and sums meets.
      2b (``hub``): on the pubmed folded schedule at D 16, the one-hot
      kernel's device time over all runs, over the longest run alone and
-     over every other run, at 8 and 16 warps a block (`hub_probe`).
+     over every other run (`hub_probe`).
   3. serving — `repro_torch.launch.serve_gnn` at pubmed's widths (500
      input features, 3 classes, 19,717 nodes, avg degree 4.5, Zipf-1.1
      requests, batch window 16, 2 hops): the paper's GCN (2 layers, hidden
@@ -134,6 +134,7 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 SRC = os.path.join(ROOT, "src")
 TOL = 1e-5
 SLEEP_CYCLES = 2_000_000  # about 1 ms at the H100's 1.98 GHz boost clock
+SLEEP_MS = SLEEP_CYCLES / 1.98e6  # the spin's least length, at that clock
 U32 = 2.0 ** -24          # unit roundoff of float32
 SOURCES = {"group_aggregate_onehot[folded]": (
                "src/repro_torch/kernels/csrc/group_aggregate_onehot.cu",
@@ -175,22 +176,31 @@ def time_ms(fn, iters: int = 20, warmup: int = 3,
     By default the time between the events holds the host's work inside
     the call (the wrapper's checks, the launch).  ``device_only`` first
     enqueues a spin of about 1 ms (``torch.cuda._sleep``), so the call is
-    queued before the start event runs: the time is the device's alone."""
+    queued before the start event runs: the time is the device's alone.
+    That holds while the host's work in a call stays inside the spin, so
+    the median host time of the calls must stay under half of it."""
     import torch
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
-    times = []
+    times, host = [], []
     for _ in range(iters):
         s = torch.cuda.Event(enable_timing=True)
         e = torch.cuda.Event(enable_timing=True)
         if device_only:
             torch.cuda._sleep(SLEEP_CYCLES)
+        h0 = time.perf_counter()
         s.record()
         fn()
+        host.append(1e3 * (time.perf_counter() - h0))
         e.record()
         e.synchronize()
         times.append(s.elapsed_time(e))
+    if device_only:
+        check(statistics.median(host) < SLEEP_MS / 2,
+              f"host work of {statistics.median(host):.3f} ms a call does "
+              f"not fit in half the {SLEEP_MS:.3f} ms spin: the device-only "
+              f"time would hold device idle time")
     return statistics.median(times)
 
 
@@ -472,9 +482,6 @@ def kernel_sweeps(detail: dict) -> list:
 # pinned search-space corners on cora: ((gs, gpt, dt, src_win), D)
 CORNERS = [((64, 8, 64, 2048), 16), ((4, 128, 512, 128), 500),
            ((32, 64, 128, 512), 64), ((64, 128, 256, 1024), 130)]
-# launch knobs the hub probe compares: {label: {module constant: value}}
-HUB_KNOBS = {"warps 8": {"_ONEHOT_WARPS": 8},
-             "warps 16": {"_ONEHOT_WARPS": 16}}
 
 
 def hub_probe(detail: dict) -> dict:
@@ -482,10 +489,7 @@ def hub_probe(detail: dict) -> dict:
     phase 2's pubmed folded schedule at D 16, float32: device time of the
     kernel over all runs, over the longest (hub) run alone, and over every
     other run (one launch on a copy of the schedule without the hub's
-    tiles); then the same at each launch setting of ``HUB_KNOBS``,
-    each checked first."""
-    from unittest import mock
-
+    tiles)."""
     import torch
 
     from repro_torch.core.advisor import plan_for
@@ -519,26 +523,16 @@ def hub_probe(detail: dict) -> dict:
             src_win=s.src_win, dt=case.dt, out_rows=s.padded_out_rows,
             variant=case.variant)
 
-    def timed() -> dict:
-        return {k: time_ms(lambda: call(*part), device_only=True)
-                for k, part in parts.items()}
-
     rec = {"variant": case.variant, "D": case.d, "tiles": s.num_tiles,
            "runs": s.num_runs, "hub_tiles": t1 - t0,
            "median_run_tiles": float(lens.float().median()),
            "hub_live_slots": int((s.edge_val[t0:t1] != 0).sum()),
-           "ms": timed()}
+           "ms": {k: time_ms(lambda: call(*part), device_only=True)
+                  for k, part in parts.items()}}
     log(f"  hub probe: {rec['runs']} runs, hub {rec['hub_tiles']} tiles "
         f"({rec['hub_live_slots']} live slots), median run "
         f"{rec['median_run_tiles']:.0f}; device ms " + ", ".join(
             f"{k} {v:.4f}" for k, v in rec["ms"].items()))
-    for label, knobs in HUB_KNOBS.items():
-        with mock.patch.multiple(ga, **knobs):
-            chk = case.check()
-            KernelCase.holds(chk, f"hub probe at {label}")
-            rec[label] = dict(timed(), err=chk["max_err_scaled"])
-        log(f"  hub probe at {label}: " + ", ".join(
-            f"{k} {v:.4g}" for k, v in rec[label].items()))
     detail["hub_probe"] = rec
     return rec
 

@@ -19,7 +19,8 @@ import numpy as np
 
 from repro_torch.core.extractor import (GraphProps, extract_arch_props,
                                         extract_graph_props)
-from repro_torch.core.model import AggConfig, feat_dtype_align
+from repro_torch.core.model import (AggConfig, config_infeasibility,
+                                    feat_dtype_align)
 from repro_torch.core.partition import (partition_graph, partition_stats,
                                         transpose_graph)
 from repro_torch.core.plan import Plan
@@ -90,7 +91,7 @@ def plan_for(g: CSRGraph, *, arch: str = "gcn", in_dim: int = 128,
     arch : "gcn" | "gin" | "gat" — decides the §4.2 aggregation placement.
     edge_vals : optional (E,) float32 aligned with ``g.indices``.
     config : optional AggConfig — skip the tuner, partition with exactly
-        these knobs.
+        these knobs (ValueError when `config_infeasibility` rejects them).
     with_backward : also partition the TRANSPOSED graph under the same
         config and attach it as ``plan.partition_bwd`` (+ ``edge_perm_bwd``),
         so `PlanExecutor` differentiates through the CUDA kernels.  Off by
@@ -123,6 +124,10 @@ def plan_for(g: CSRGraph, *, arch: str = "gcn", in_dim: int = 128,
                 f"{config.feat_dtype} alignment unit {align} — retune "
                 f"with feat_dtype={config.feat_dtype!r} or pick an "
                 f"aligned dt")
+        reason = config_infeasibility(config)
+        if reason is not None:
+            raise ValueError(f"pinned config {config} is infeasible: "
+                             f"{reason}")
     part = partition_graph(g, gs=config.gs, gpt=config.gpt, ont=config.ont,
                            src_win=config.src_win, edge_vals=edge_vals)
     part_bwd = edge_perm = None

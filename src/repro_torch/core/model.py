@@ -134,9 +134,9 @@ def smem_working_set(cfg: AggConfig) -> int:
 
 def config_infeasibility(cfg: AggConfig, *,
                          hw: GPUSpec = H100_SXM) -> str | None:
-    """Eq. 3 + Eq. 4 feasibility on the card: None when the config is
-    feasible, else a human-readable reason naming the violated
-    constraint."""
+    """Eq. 3 + Eq. 4 feasibility on the card, and the launch limits of the
+    config's kernel: None when the config is feasible, else a
+    human-readable reason naming the violated constraint."""
     ws = smem_working_set(cfg)
     if ws > hw.smem_per_block:
         return (f"Eq. 4 shared-memory working set {ws}B > {hw.name} "
@@ -150,6 +150,11 @@ def config_infeasibility(cfg: AggConfig, *,
                 f"alignment unit {align}")
     if cfg.src_win % 8 != 0:
         return f"src_win={cfg.src_win} not a multiple of 8"
+    # the one-hot kernels copy a run's group rows in 16-byte spans (the dim
+    # tile is already even: the alignment unit above is 8 or 16)
+    if cfg.variant != "direct" and cfg.gpt % 4 != 0:
+        return (f"gpt={cfg.gpt} not a multiple of 4, which the {cfg.variant} "
+                f"kernel's metadata copies need")
     return None
 
 

@@ -19,7 +19,7 @@
 // A run's slots, ids, values and group rows, are three contiguous spans;
 // the block cuts them into chunks of `stage_units` units of whole groups
 // (32 / gs groups, or one group when gs > 32):
-//   * `warps` warps split the run: warp w takes chunks w, w + warps, ...
+//   * kWarps (8) warps split the run: warp w takes chunks w, w + 8, ...
 //     Each warp keeps its own ring of kStages chunks in flight with
 //     `cp.async.bulk` (TMA 1-D) copies completed on its own `mbarrier`s,
 //     so no warp waits on another until the run's end (a ring shared by
@@ -62,6 +62,7 @@
 
 namespace repro_torch {
 
+constexpr int kWarps = 8;      // warps per block
 constexpr int kStages = 2;     // metadata ring depth per warp
 constexpr int kListCap = 128;  // live-slot list entries per warp (>= a pass)
 constexpr int kUnroll = 8;     // list entries per lane per round trip
@@ -145,29 +146,28 @@ __device__ __forceinline__ void load2(const __half* p, float& a, float& b) {
 // the lists.  Mirrored by repro_torch.kernels.group_aggregate.launch_geometry.
 struct Layout {
   int stage_slots, ids_bytes, stage_bytes, bar_bytes, parts_floats, total;
-  __host__ __device__ Layout(int gs, int ont, int dc, int warps,
-                             int stage_units) {
+  __host__ __device__ Layout(int gs, int ont, int dc, int stage_units) {
     stage_slots = stage_units * unit_slots(gs);
     ids_bytes = 4 * stage_slots;
     stage_bytes = 2 * ids_bytes + align16(4 * (stage_slots / gs));
-    bar_bytes = align16(8 * kStages * warps);
-    parts_floats = warps * (32 / slot_lanes(dc)) * ont * dc;
-    total = bar_bytes + warps * kStages * stage_bytes + 4 * parts_floats +
-            12 * warps * kListCap;
+    bar_bytes = align16(8 * kStages * kWarps);
+    parts_floats = kWarps * (32 / slot_lanes(dc)) * ont * dc;
+    total = bar_bytes + kWarps * kStages * stage_bytes + 4 * parts_floats +
+            12 * kWarps * kListCap;
   }
 };
 
-// 64 registers a thread: 4 blocks of 8 warps (2 of 16) per SM, and room
-// for kUnroll feature loads in flight per lane without spilling.
-template <typename T, bool kFolded, int kWarps>
-__global__ void __launch_bounds__(32 * kWarps, kWarps == 8 ? 4 : 2)
+// 64 registers a thread: 4 blocks of 8 warps per SM, and room for kUnroll
+// feature loads in flight per lane without spilling.
+template <typename T, bool kFolded>
+__global__ void __launch_bounds__(32 * kWarps, 4)
 onehot_kernel(const T* __restrict__ feat, const int* __restrict__ nbrs,
               const float* __restrict__ ev, const int* __restrict__ local_node,
               const int* __restrict__ tile_node_block,
               const int* __restrict__ run_start, float* __restrict__ out,
               int gs, int gpt, int ont, int d_pad, int dc, int stage_units) {
   extern __shared__ __align__(16) unsigned char smem[];
-  const Layout lay(gs, ont, dc, kWarps, stage_units);
+  const Layout lay(gs, ont, dc, stage_units);
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   uint64_t* full = reinterpret_cast<uint64_t*>(smem) + warp * kStages;
@@ -359,16 +359,15 @@ static int launch(const void* feat, const int* nbrs, const float* ev,
                   const int* run_start, float* out, int num_runs, int gs,
                   int gpt, int ont, int d_pad, int dc, int warps,
                   int stage_units, int smem_bytes, cudaStream_t stream) {
-  if ((warps != 8 && warps != 16) || stage_units * (unit_slots(gs) / gs) % 4 ||
+  if (warps != kWarps || stage_units * (unit_slots(gs) / gs) % 4 ||
       gpt % 4 || dc % 2 ||
-      Layout(gs, ont, dc, warps, stage_units).total != smem_bytes)
+      Layout(gs, ont, dc, stage_units).total != smem_bytes)
     return (int)cudaErrorInvalidValue;
-  auto kernel = warps == 8 ? onehot_kernel<T, kFolded, 8>
-                           : onehot_kernel<T, kFolded, 16>;
+  auto kernel = onehot_kernel<T, kFolded>;
   cudaError_t err = allow_smem(kernel, smem_bytes);
   if (err != cudaSuccess) return (int)err;
   dim3 grid(num_runs, (d_pad + dc - 1) / dc);
-  kernel<<<grid, 32 * warps, smem_bytes, stream>>>(
+  kernel<<<grid, 32 * kWarps, smem_bytes, stream>>>(
       static_cast<const T*>(feat), nbrs, ev, local_node, tile_node_block,
       run_start, out, gs, gpt, ont, d_pad, dc, stage_units);
   return (int)cudaGetLastError();
@@ -406,8 +405,8 @@ static int dispatch(int dtype, const void* feat, const int* nbrs,
 
 // The entry point keeps the schedule contract's full argument list:
 // `tile_window` and `src_win` are not read (`nbrs` holds global ids), and
-// the two launch knobs are the consumer warps per block and the units per
-// metadata stage.
+// the two launch knobs are the warps per block (kWarps; any other count is
+// refused) and the units per metadata stage.
 extern "C" int repro_group_aggregate_onehot(
     int folded, int dtype, const void* feat, const int* nbrs, const float* ev,
     const int* local_node, const int* tile_node_block, const int* tile_window,

@@ -75,7 +75,7 @@ launches: Dict[str, int] = {
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 # one-hot kernel launch (see csrc/group_aggregate_onehot.cu, `Layout`)
 _ONEHOT_COLS = 64              # most columns per block (dc)
-_ONEHOT_WARPS = 8              # warps per block (8 or 16)
+_ONEHOT_WARPS = 8              # warps per block (kWarps; no other count)
 _ONEHOT_STAGE_UNITS = 4        # least units of whole groups per metadata stage
 _ONEHOT_STAGES = 2             # metadata ring depth per warp (kStages)
 _ONEHOT_LIST = 128             # live-slot list entries per warp (kListCap)

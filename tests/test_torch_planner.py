@@ -215,12 +215,34 @@ def test_onehot_launch_geometry_over_the_search_space(variant):
                 assert geo.smem_bytes == smem_working_set(c)
                 assert geo.smem_bytes <= H100_SXM.smem_per_block
                 assert geo.smem_bytes % 16 == 0
-                assert geo.warps in (8, 16)
+                assert geo.warps == 8
                 unit_groups = (32 // gs if gs <= 32 else 1)
                 assert geo.stage_units * unit_groups % 4 == 0
                 assert geo.dc == min(dt, 64)
                 assert geo.gc == (min(gpt, 32) if variant == "folded"
                                   else max(1, min(gpt, 128 // gs)))
+
+
+@pytest.mark.parametrize("variant", VARIANTS)
+def test_pinned_config_outside_the_kernels_launch_limits(variant):
+    """gpt 6 is no multiple of 4, which the one-hot kernels' metadata copies
+    need: the feasibility check names it and `plan_for` refuses such a
+    pinned config up front, while the direct kernel takes it."""
+    g = t_csr.random_power_law(200, 4.0, seed=3)
+    cfg = AggConfig(gs=4, gpt=6, dt=16, src_win=128, variant=variant)
+    if variant == "direct":
+        assert config_infeasibility(cfg) is None
+        plan = t_advisor.plan_for(g, arch="gin", in_dim=8, hidden_dim=8,
+                                  config=cfg)
+        assert plan.config.gpt == 6
+        return
+    assert "gpt=6" in config_infeasibility(cfg)
+    with pytest.raises(ValueError, match="gpt=6"):
+        t_advisor.plan_for(g, arch="gin", in_dim=8, hidden_dim=8, config=cfg)
+    ok = dataclasses.replace(cfg, gpt=8)
+    assert config_infeasibility(ok) is None
+    assert t_advisor.plan_for(g, arch="gin", in_dim=8, hidden_dim=8,
+                              config=ok).config.gpt == 8
 
 
 @pytest.mark.parametrize("variant,picked,tiles", [
