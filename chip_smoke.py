@@ -18,7 +18,8 @@ Phases, each timed, any failure exits non-zero before the result line:
      reddit replica at D in {16, 64} on the gather kernel (the analytic
      tuner's one-hot schedule of full reddit pads to 11.7M tiles); float32
      and bfloat16, each against its plain PyTorch version on the card, and
-     each one-hot call run twice, which must give bit-identical output.
+     each call (every variant) run twice, which must give bit-identical
+     output.
      Tolerance: ``max|k-p| / (1 + A) <= 1e-5`` where
      ``A = sum|ev * feat|`` (the plain version on absolute values): a
      float32 sum taken in another order can differ by rounding that scales
@@ -47,9 +48,12 @@ Phases, each timed, any failure exits non-zero before the result line:
      ``plan_for(arch="gat", with_backward=True)``, one tuned for the
      ``slot_onehot`` kernel (block edge-gradient kernel) and one for
      ``direct`` (gather edge-gradient kernel), at D in {1, 16, 128},
-     float32 and bfloat16, real slots only.  Tolerance: ``max|k-p| /
-     (1 + sum|g*f|) <= 1e-5`` and the float64 witness within
-     ``gamma_D * sum|g*f|`` on every slot, as phase 2.  Then the autograd
+     float32 and bfloat16, real slots only, each call run twice (its real
+     slots bit-identical).  Tolerance: ``max|k-p| / (1 + sum|g*f|) <=
+     1e-5`` and the float64 witness within ``gamma_D * sum|g*f|`` on every
+     slot, as phase 2.  A reading beside them: the block kernel, which reads
+     only the schedule's real slots, on the ``direct`` schedule (the gather
+     edge-gradient kernel's shape).  Then the autograd
      `Function` on the card: ``feat`` and ``edge_values`` gradients on
      ``backend="cuda"`` against ``backend="torch"``, ``<= 1e-5`` in the
      same magnitude-scaled form.
@@ -69,7 +73,8 @@ Phases, each timed, any failure exits non-zero before the result line:
      on ``backend="cuda"`` must match three on ``backend="torch"`` from the
      same parameters within ``max|a-b|/(1+|b|) <= 1e-4``.  The
      edge-gradient kernels are then timed at the GAT runs' hidden-width
-     shape.
+     shape, and the gather kernel on the GAT ``direct`` run's schedule at
+     the input width (128) and at the widths a step aggregates (16, 1).
 
   6. scan kernel vs plain — `kernels/selective_scan.py` at (B, S, d_inner,
      N) = (2, 64, 128, 8) (the reduced config), (3, 40, 20, 4) (ragged),
@@ -311,11 +316,10 @@ class KernelCase:
         s, n, d = self.s, self.s.num_nodes, self.d
         k = self.kernel()
         visited = torch.repeat_interleave(s.block_visited, s.ont)[:n]
-        if self.variant != "direct":
-            # no atomics and a fixed summation order: bit-identical reruns
-            # (rows of unvisited blocks are never written)
-            check(torch.equal(k[:n][visited], self.kernel()[:n][visited]),
-                  f"{self.variant}: two calls differ at {self.shape}")
+        # no atomics and a fixed summation order: bit-identical reruns
+        # (rows of unvisited blocks are never written)
+        check(torch.equal(k[:n][visited], self.kernel()[:n][visited]),
+              f"{self.variant}: two calls differ at {self.shape}")
         k = k.double()
         p = self.plain().double()
         feat, ev = self.feat_p.double(), s.edge_val.double()
@@ -684,7 +688,7 @@ class EdgeGradCase(KernelCase):
             self.grad_p, self.feat_p, s.nbrs, s.local_node,
             s.tile_node_block, s.tile_window, s.run_start, gs=s.gs,
             gpt=s.gpt, ont=s.ont, src_win=s.src_win, dt=self.dt,
-            variant=self.variant)
+            variant=self.variant, slot_of_edge=s.slot_of_edge)
 
     def plain(self):
         from repro_torch.kernels.group_aggregate import group_edge_grad_plain
@@ -712,7 +716,12 @@ class EdgeGradCase(KernelCase):
         """Kernel vs plain version, and both vs the float64 witness within
         the float32 summation bound of a D-term dot product."""
         import torch
-        k = self._real(self.kernel()).double()
+        k = self._real(self.kernel())
+        # no atomics and a fixed summation order: bit-identical reruns
+        check(torch.equal(k, self._real(self.kernel())),
+              f"{self.variant}: two edge-gradient calls differ at "
+              f"{self.shape}")
+        k = k.double()
         p = self._real(self.plain()).double()
         g, f = self.grad_p.double(), self.feat_p.double()
         exact = self._real(self.oracle(g, f))
@@ -761,7 +770,7 @@ def edge_grad_checks(detail: dict) -> list:
 
     t0 = time.time()
     g, _, _ = make_dataset("pubmed", max_dim=1)
-    records, grads = [], []
+    records, grads, block_on_direct = [], [], []
     for variant in ("slot_onehot", "direct"):
         t1 = time.time()
         plan = plan_for(g, arch="gat", in_dim=128, hidden_dim=16,
@@ -782,6 +791,20 @@ def edge_grad_checks(detail: dict) -> list:
                 log(f"  D={d} {rec['dtype']}: {KernelCase.summary(rec)}")
                 KernelCase.holds(rec, f"pubmed {kname}")
                 del case
+                if variant == "direct":
+                    # a reading: the block kernel takes its slots from the
+                    # schedule, so it runs on this layout too
+                    case = EdgeGradCase(sched, plan.graph, d, dtype,
+                                        "slot_onehot", cfg.dt, seed=d)
+                    rec = dict(case.run(), graph="pubmed",
+                               kernel=ga.EDGE_GRAD_KERNEL_OF_VARIANT[
+                                   "slot_onehot"], schedule="direct")
+                    block_on_direct.append(rec)
+                    log(f"  block kernel on this schedule, D={d} "
+                        f"{rec['dtype']}: {KernelCase.summary(rec)}")
+                    KernelCase.holds(rec, "pubmed block kernel on the "
+                                     "direct schedule")
+                    del case
 
         # the autograd Function on the card, cuda vs torch backends
         gen = torch.Generator(device="cuda").manual_seed(5)
@@ -834,6 +857,7 @@ def edge_grad_checks(detail: dict) -> list:
         del sched, sched_bwd, plan
         torch.cuda.empty_cache()
     detail["edge_grad"] = records
+    detail["edge_grad_block_on_direct"] = block_on_direct
     detail["autograd"] = grads
     log(f"edge-gradient checks done ({time.time() - t0:.1f}s)")
     return records
@@ -947,6 +971,24 @@ def training(detail: dict) -> dict:
             log(f"{name}: {ename} at {krec['tiles']} tiles ({krec['edges']} "
                 f"edges) D={krec['D']}: {KernelCase.summary(krec)}")
             del case
+        if variant == "direct":
+            # the gather kernel on this run's schedule: at the input width
+            # (128) and at the widths a GAT step aggregates (hidden, and 1
+            # for the softmax denominator)
+            ex = model.executor
+            rec["gather_kernel"] = []
+            for d in (batch["feat"].shape[1], model.cfg.hidden_dim, 1):
+                case = KernelCase(ex.sched, model.plan.graph,
+                                  model.plan.partition.edge_values_csr(), d,
+                                  model.cfg.compute_dtype, variant,
+                                  model.plan.config.dt, seed=10)
+                grec = case.run()
+                KernelCase.holds(grec, f"{name}: {fname} at D {d}")
+                rec["gather_kernel"].append(grec)
+                log(f"{name}: {fname} at {grec['tiles']} tiles "
+                    f"({grec['edges']} edges) D={d}: "
+                    f"{KernelCase.summary(grec)}")
+                del case
         rec["seconds"] = time.time() - t0
         detail["training"].append(rec)
         del res, model, torch_model, batch, finals

@@ -121,11 +121,14 @@ def smem_working_set(cfg: AggConfig) -> int:
     geometry at the config's dim tile, so the bound prices exactly what a
     launch asks for (a narrower feature width only shrinks the tile):
 
-      * ``direct``: the ont x dt f32 node-block accumulator;
+      * ``direct``: one ont x dc f32 partial per warp and lane group (dc =
+        the dim tile up to 128 columns) and each warp's live-slot list;
       * ``folded`` / ``slot_onehot``: the slot-metadata ring, one ont x dc
         f32 partial per warp (and slot lane group) and each warp's
-        live-slot list (features are converted in registers, so the bound
-        does not depend on ``feat_dtype``).
+        live-slot list.
+
+    Features are converted to f32 in registers, so the bound does not
+    depend on ``feat_dtype``.
     """
     from repro_torch.kernels.group_aggregate import launch_geometry
     return launch_geometry(cfg.variant, gs=cfg.gs, gpt=cfg.gpt, ont=cfg.ont,
@@ -168,10 +171,12 @@ class KernelModel:
     the per-block overhead is the spec's ASSUMED ``block_overhead_s``,
     charged per wave of ``num_sms`` blocks, until it is measured.
 
-    The one-hot term prices the one-hot kernels' earlier design (a dense
-    walk over each tile's whole window in group chunks ``gc``), not the
-    live-slot walk that replaced it: repricing it would change the tuner's
-    picks, so it waits for the measured tuner stage.
+    Both terms price the kernels' earlier designs, not the live-slot walks
+    that replaced them: the one-hot term a dense walk over each tile's
+    whole window in group chunks ``gc``, the direct term a row read for
+    every slot, padded or not, with a block per dim tile.  Repricing them
+    would change the tuner's picks, so it waits for the measured tuner
+    stage.
     """
 
     hw: GPUSpec = H100_SXM
@@ -188,7 +193,8 @@ class KernelModel:
         n_blocks = max(props.num_nodes / cfg.ont, 1.0)
         if cfg.variant == "direct":
             flops = 2.0 * slots * dim
-            # every slot reads one row slice of the feature operand
+            # every slot reads one row slice of the feature operand (the
+            # earlier gather design; the kernel reads live slots only)
             bytes_feat_total = slots * dim * bytes_feat
             cols = dt
         else:

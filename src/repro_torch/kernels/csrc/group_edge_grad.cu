@@ -4,14 +4,14 @@
 // (src/repro/kernels/group_aggregate.py:289, `pl.pallas_call` at :351):
 //   block  <- `_edge_grad_kernel` :183         (variants folded, slot_onehot)
 //   gather <- `_direct_edge_grad_kernel` :224  (variant direct)
-// Both compute, for every slot (t, g, s) of the forward group schedule,
+// Both compute, for every real slot (t, g, s) of the forward group schedule,
 //   out[t,g,s] = sum_c grad[tile_node_block[t]*ont + local_node[t,g], c]
 //                      * feat[nbrs[t,g,s], c]
 // over all d_pad columns: the gradient of aggregation with respect to the
 // slot's edge value.  Loads are in the feature dtype (grad and feat share
-// it), products and sums in f32.  Padded slots point at their window's base
-// row and padded groups at row 0 of the node block, so every read is in
-// bounds; their results are don't-care (the caller reads only real slots).
+// it), products and sums in f32.  Every real slot is written exactly once,
+// with no atomics; padded slots are don't-care (the caller reads only real
+// slots).
 //
 // Operands (row-major, contiguous):
 //   grad            (out_rows, d_pad)  f32 | bf16 | f16
@@ -19,18 +19,24 @@
 //   nbrs            (T, gpt, gs) int32
 //   local_node      (T, gpt) int32
 //   tile_node_block (T,) int32
-//   run_start       (R+1,) int32   tile bounds of the live runs
-//   out             (T, gpt, gs) f32; slots of tiles past run_start[R]
-//                                  (pad tiles) are left unwritten
+//   slot_of_edge    (E,) int32     block: the flat slot (edge_slot * gs +
+//                                  edge_pos) of each real edge
+//   run_start       (R+1,) int32   gather: tile bounds of the live runs
+//   out             (T, gpt, gs) f32
 //
-// What bounds both: device-memory bytes.  Each slot reads one feature row
-// (d_pad elements) for 2 FLOP per element; the cotangent rows are shared by
-// all slots of a group (gather) or of a whole node block (block), so they
-// are read once from device memory and reused from registers or shared
-// memory.  Each output is written exactly once, with no atomics: the TPU
-// kernel's revisits of the output block over the sequential dim-tile grid
-// axis become a loop over column chunks inside one thread block, with the
-// per-slot partial sums carried in registers.
+// What bounds the block kernel on the H100: latency, then L2 bytes.  At the
+// GAT training shape (pubmed replica, 146,214 edges in 2,956,000 slots, D
+// 16, f32) the real work is 146,214 x (64 B feature row + 64 B cotangent
+// row), about 19 MB, mostly from L2: 0.001 ms at device-memory rates.  Its
+// earlier design walked every slot of a run (95% of them padding) on one
+// block, each warp taking its 32 slots one after another with a 5-step
+// shuffle each (0.39 ms).  This one never looks at a padded slot: it takes
+// the real slots from the schedule (`slot_of_edge`), so its work follows
+// the edges and no run is walked serially.  The gather kernel (one warp per
+// group, every slot of the live tiles) is unchanged.
+//
+// No tensor cores: each edge is one dot product of two rows that no other
+// edge shares as a pair, so there is no matrix product to tile.
 #include "common.cuh"
 
 namespace repro_torch {
@@ -43,66 +49,111 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-// block: one thread block per run of tiles sharing a node block (the
-// forward kernels' leader-node mapping, `DeviceSchedule.run_start`).  The
-// run's slots are contiguous in memory; the block walks them in chunks of
-// kThreads slots, lane l of warp w owning slot chunk0 + 32 w + l and its f32
-// partial sum in a register.  For each column chunk of `dc` columns the
-// block stages the node block's ont x dc cotangent rows in shared memory
-// (converted to f32); each warp then takes its 32 slots one after another,
-// lanes over the chunk's columns reading the neighbor's feature row from
-// device memory and the cotangent row from shared memory, and a shuffle
-// reduction hands the slot's chunk sum to its owning lane.  After the last
-// column chunk every lane stores its slot once.
+constexpr int kEdgeUnroll = 4;  // edges per lane group with loads in flight
+
+// lanes per edge in the block kernel: 16-byte pieces of a row, to a power of
+// two, at most 32 (wider rows loop)
+__host__ __device__ __forceinline__ int edge_lanes(int d_pad, int vec) {
+  int lw = 1;
+  while (lw < 32 && lw * vec < d_pad) lw <<= 1;
+  return lw;
+}
+
+// 16-byte pieces of two rows: the f32 dot product of their elements
+__device__ __forceinline__ float dot16(float, const uint4& a, const uint4& b) {
+  return fmaf(__uint_as_float(a.w), __uint_as_float(b.w),
+              fmaf(__uint_as_float(a.z), __uint_as_float(b.z),
+                   fmaf(__uint_as_float(a.y), __uint_as_float(b.y),
+                        __uint_as_float(a.x) * __uint_as_float(b.x))));
+}
+__device__ __forceinline__ float dot16(__nv_bfloat16, const uint4& a,
+                                       const uint4& b) {
+  const uint32_t wa[4] = {a.x, a.y, a.z, a.w}, wb[4] = {b.x, b.y, b.z, b.w};
+  float s = 0.f;
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {  // element 2k is the low half of word k
+    s = fmaf(__uint_as_float(wa[k] << 16), __uint_as_float(wb[k] << 16), s);
+    s = fmaf(__uint_as_float(wa[k] & 0xffff0000u),
+             __uint_as_float(wb[k] & 0xffff0000u), s);
+  }
+  return s;
+}
+__device__ __forceinline__ float half_at(uint32_t w, int h) {
+  return __half2float(__ushort_as_half((unsigned short)(w >> (16 * h))));
+}
+__device__ __forceinline__ float dot16(__half, const uint4& a,
+                                       const uint4& b) {
+  const uint32_t wa[4] = {a.x, a.y, a.z, a.w}, wb[4] = {b.x, b.y, b.z, b.w};
+  float s = 0.f;
+#pragma unroll
+  for (int k = 0; k < 8; ++k)
+    s = fmaf(half_at(wa[k >> 1], k & 1), half_at(wb[k >> 1], k & 1), s);
+  return s;
+}
+
+// block: one lane group of lw lanes per real edge (lw = the row's 16-byte
+// pieces up to 32; 32 / lw edges a warp at once, so at D 16 f32 a warp
+// works on 8 edges), kEdgeUnroll edges a lane group.  A lane group reads
+// its edge's flat slot, then the slot's neighbour id and the group's
+// output row, then both rows in 16-byte pieces (lane l on pieces l, l + lw,
+// ...), all kEdgeUnroll edges' loads in flight together; each lane sums its
+// pieces in column order and a log2(lw)-step butterfly over the lane group
+// gives the dot product: a fixed order, so two calls are bit-identical.
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
 edge_grad_block_kernel(const T* __restrict__ grad, const T* __restrict__ feat,
                        const int* __restrict__ nbrs,
                        const int* __restrict__ local_node,
                        const int* __restrict__ tile_node_block,
-                       const int* __restrict__ run_start,
-                       float* __restrict__ out, int gs, int gpt, int ont,
-                       int d_pad, int dc) {
-  extern __shared__ float gsm[];  // ont * dc staged cotangent rows
-  const int t0 = run_start[blockIdx.x];
-  const int t1 = run_start[blockIdx.x + 1];
-  const int64_t q_begin = (int64_t)t0 * gpt * gs;
-  const int64_t q_end = (int64_t)t1 * gpt * gs;
-  const int64_t row0 = (int64_t)tile_node_block[t0] * ont;
-  const int warp = threadIdx.x >> 5;
+                       const int* __restrict__ slot_of_edge,
+                       float* __restrict__ out, int num_edges, int gs,
+                       int gpt, int ont, int d_pad, int lw) {
+  constexpr int kVec = 16 / sizeof(T);
   const int lane = threadIdx.x & 31;
+  const int per_warp = 32 / lw;
+  const int sub = lane / lw;
+  const int cl = lane - sub * lw;
+  const int64_t warp = ((int64_t)blockIdx.x * kThreads + threadIdx.x) >> 5;
+  const int64_t e0 = warp * per_warp * kEdgeUnroll + sub;
 
-  for (int64_t chunk = q_begin; chunk < q_end; chunk += kThreads) {
-    // this lane's slot: its neighbor row and its row in the node block
-    const int64_t q = chunk + warp * 32 + lane;
-    const bool live = q < q_end;
-    const int my_nbr = live ? __ldg(nbrs + q) : 0;
-    const int my_ln = live ? __ldg(local_node + q / gs) : 0;
-    float acc = 0.f;
-    for (int c0 = 0; c0 < d_pad; c0 += dc) {
-      const int width = min(dc, d_pad - c0);
-      __syncthreads();  // previous chunk's readers are done with gsm
-      for (int i = threadIdx.x; i < ont * width; i += blockDim.x) {
-        const int r = i / width;
-        const int c = i - r * width;
-        gsm[r * dc + c] = to_f32(grad[(row0 + r) * d_pad + c0 + c]);
-      }
-      __syncthreads();  // cotangent chunk staged
-      const int64_t rest = q_end - (chunk + warp * 32);
-      const int n_live = rest < 32 ? (int)rest : 32;
-      for (int j = 0; j < n_live; ++j) {  // warp-uniform bound
-        const int64_t nbr = __shfl_sync(0xffffffffu, my_nbr, j);
-        const int ln = __shfl_sync(0xffffffffu, my_ln, j);
-        const T* frow = feat + nbr * d_pad + c0;
-        const float* grow = gsm + ln * dc;
-        float part = 0.f;
-        for (int c = lane; c < width; c += 32)
-          part = fmaf(grow[c], to_f32(frow[c]), part);
-        part = warp_sum(part);
-        if (lane == j) acc += part;
+  int q[kEdgeUnroll];
+  int64_t frow[kEdgeUnroll], grow[kEdgeUnroll];
+#pragma unroll
+  for (int u = 0; u < kEdgeUnroll; ++u) {
+    const int64_t e = e0 + u * per_warp;
+    q[u] = e < num_edges ? __ldg(slot_of_edge + e) : -1;
+  }
+#pragma unroll
+  for (int u = 0; u < kEdgeUnroll; ++u) {
+    frow[u] = grow[u] = 0;
+    if (q[u] >= 0) {
+      const int g = q[u] / gs;
+      frow[u] = (int64_t)__ldg(nbrs + q[u]) * d_pad;
+      grow[u] = ((int64_t)__ldg(tile_node_block + g / gpt) * ont +
+                 __ldg(local_node + g)) * d_pad;
+    }
+  }
+  float acc[kEdgeUnroll];
+#pragma unroll
+  for (int u = 0; u < kEdgeUnroll; ++u) acc[u] = 0.f;
+  for (int c = kVec * cl; c < d_pad; c += kVec * lw) {
+    uint4 a[kEdgeUnroll], b[kEdgeUnroll];
+#pragma unroll
+    for (int u = 0; u < kEdgeUnroll; ++u) {
+      a[u] = b[u] = make_uint4(0u, 0u, 0u, 0u);
+      if (q[u] >= 0) {
+        a[u] = __ldg(reinterpret_cast<const uint4*>(grad + grow[u] + c));
+        b[u] = __ldg(reinterpret_cast<const uint4*>(feat + frow[u] + c));
       }
     }
-    if (live) out[q] = acc;
+#pragma unroll
+    for (int u = 0; u < kEdgeUnroll; ++u) acc[u] += dot16(T(), a[u], b[u]);
+  }
+#pragma unroll
+  for (int u = 0; u < kEdgeUnroll; ++u) {
+    for (int o = lw >> 1; o > 0; o >>= 1)  // lanes of one group only
+      acc[u] += __shfl_xor_sync(0xffffffffu, acc[u], o);
+    if (cl == 0 && q[u] >= 0) out[q[u]] = acc[u];
   }
 }
 
@@ -154,15 +205,18 @@ edge_grad_gather_kernel(const T* __restrict__ grad, const T* __restrict__ feat,
 template <typename T>
 static int launch_block(const void* grad, const void* feat, const int* nbrs,
                         const int* local_node, const int* tile_node_block,
-                        const int* run_start, float* out, int num_runs, int gs,
-                        int gpt, int ont, int d_pad, int dc, int smem_bytes,
+                        const int* slot_of_edge, float* out, int num_edges,
+                        int gs, int gpt, int ont, int d_pad,
                         cudaStream_t stream) {
-  auto kernel = edge_grad_block_kernel<T>;
-  cudaError_t err = allow_smem(kernel, smem_bytes);
-  if (err != cudaSuccess) return (int)err;
-  kernel<<<num_runs, kThreads, smem_bytes, stream>>>(
+  constexpr int kVec = 16 / sizeof(T);
+  if (num_edges <= 0 || d_pad % kVec) return (int)cudaErrorInvalidValue;
+  const int lw = edge_lanes(d_pad, kVec);
+  const int64_t per_block = (int64_t)kWarps * (32 / lw) * kEdgeUnroll;
+  const int64_t blocks = (num_edges + per_block - 1) / per_block;
+  edge_grad_block_kernel<T><<<(unsigned)blocks, kThreads, 0, stream>>>(
       static_cast<const T*>(grad), static_cast<const T*>(feat), nbrs,
-      local_node, tile_node_block, run_start, out, gs, gpt, ont, d_pad, dc);
+      local_node, tile_node_block, slot_of_edge, out, num_edges, gs, gpt, ont,
+      d_pad, lw);
   return (int)cudaGetLastError();
 }
 
@@ -185,25 +239,24 @@ static int launch_gather(const void* grad, const void* feat, const int* nbrs,
 
 extern "C" int repro_group_edge_grad_block(
     int dtype, const void* grad, const void* feat, const int* nbrs,
-    const int* local_node, const int* tile_node_block, const int* run_start,
-    float* out, int num_runs, int gs, int gpt, int ont, int d_pad, int dc,
-    int smem_bytes, void* stream) {
+    const int* local_node, const int* tile_node_block, const int* slot_of_edge,
+    float* out, int num_edges, int gs, int gpt, int ont, int d_pad,
+    void* stream) {
   using namespace repro_torch;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype) {
     case kF32:
       return launch_block<float>(grad, feat, nbrs, local_node,
-                                 tile_node_block, run_start, out, num_runs, gs,
-                                 gpt, ont, d_pad, dc, smem_bytes, s);
+                                 tile_node_block, slot_of_edge, out, num_edges,
+                                 gs, gpt, ont, d_pad, s);
     case kBF16:
       return launch_block<__nv_bfloat16>(grad, feat, nbrs, local_node,
-                                         tile_node_block, run_start, out,
-                                         num_runs, gs, gpt, ont, d_pad, dc,
-                                         smem_bytes, s);
+                                         tile_node_block, slot_of_edge, out,
+                                         num_edges, gs, gpt, ont, d_pad, s);
     case kF16:
       return launch_block<__half>(grad, feat, nbrs, local_node,
-                                  tile_node_block, run_start, out, num_runs,
-                                  gs, gpt, ont, d_pad, dc, smem_bytes, s);
+                                  tile_node_block, slot_of_edge, out,
+                                  num_edges, gs, gpt, ont, d_pad, s);
     default:
       return (int)cudaErrorInvalidValue;
   }

@@ -11,23 +11,25 @@ Port of `src/repro/kernels/group_aggregate.py:group_aggregate_pallas`
     are split across the block's warps, each with a private partial in
     shared memory; each warp streams its share of the run's slot metadata
     in with TMA 1-D copies.
-  * ``direct`` — `csrc/group_aggregate_gather.cu`: per-slot row gathers,
-    warps over groups and lanes over the feature dimension (the paper's
-    own GPU mapping).
+  * ``direct`` — `csrc/group_aggregate_gather.cu`: the same walk over the
+    live slots with per-slot row gathers: the block's warps split the run
+    in 32-slot chunks, list its live slots and gather their rows, lanes
+    over a column slice of up to 128 columns (four a lane: one 16-byte load
+    of float32), several rows in flight a lane, into per-warp partials.
 
 Both kernels take one thread block per run of tiles sharing a node block
-(the leader-node scheme: the block's shared-memory accumulators are zeroed
-at the run's start and the node block is written to device memory once)
-and per column slice.  Each source file states what bounds its kernel on
-the card and what its design does about it.
+(the leader-node scheme: the block's partials are zeroed at the run's
+start, summed in a fixed order at its end and the node block is written to
+device memory once) and per column slice.  Each source file states what
+bounds its kernel on the card and what its design does about it.
 
 The edge-value cotangent, `group_edge_grad` (port of
 `group_edge_grad_pallas` :289, `pl.pallas_call` at :351), computes per
 slot ``<grad[row(t,g)], feat[nbrs[t,g,s]]>`` in `csrc/group_edge_grad.cu`:
-``folded`` / ``slot_onehot`` run the block kernel (one thread block per
-run, the node block's cotangent staged in shared memory; replaces
-`_edge_grad_kernel` :183), ``direct`` the gather kernel (one warp per
-group; replaces `_direct_edge_grad_kernel` :224).
+``folded`` / ``slot_onehot`` run the block kernel (the real slots only,
+taken from the schedule's per-edge slot index, a lane group per edge;
+replaces `_edge_grad_kernel` :183), ``direct`` the gather kernel (one warp
+per group; replaces `_direct_edge_grad_kernel` :224).
 
 Dispatch is by device and nothing else: a CUDA tensor launches the kernel
 (or the call raises — there is no fallback), a CPU tensor runs the plain
@@ -83,7 +85,9 @@ _ONEHOT_LIST = 128             # live-slot list entries per warp (kListCap)
 # dense-window design)
 _FOLDED_GROUPS = 32            # groups per chunk, folded
 _SLOT_ROWS = 128               # W rows per chunk, slot_onehot (gc * gs)
-_EDGE_GRAD_COLS = 64           # cotangent columns staged per chunk, block
+_GATHER_WARPS = 8              # warps per block, direct (kWarps)
+_GATHER_COLS = 4               # neighbouring columns a lane loads (kCols)
+_GATHER_LIST = 128             # live-slot list entries per warp (kListCap)
 _EDGE_GRAD_MAX_GS = 64         # slots per group the gather kernel's lanes hold
 
 
@@ -98,11 +102,18 @@ def _check_variant(variant: str) -> None:
                          f"expected one of {VARIANTS}")
 
 
+def _check_aligned(**tensors: torch.Tensor) -> None:
+    """The kernels read these with 16-byte loads or copies."""
+    for name, x in tensors.items():
+        if x.data_ptr() % 16:
+            raise ValueError(f"{name} must be 16-byte aligned")
+
+
 @dataclasses.dataclass(frozen=True)
 class Geometry:
-    """Launch geometry of one kernel call: columns per block ``dc`` and
-    dynamic shared memory bytes; for the one-hot kernels also ``warps``
-    per block and ``stage_units`` per metadata stage (0 for ``direct``).
+    """Launch geometry of one kernel call: columns per block ``dc``, warps
+    per block and dynamic shared memory bytes; for the one-hot kernels also
+    ``stage_units`` per metadata stage (0 for ``direct``).
     ``gc`` is the group chunk of the earlier dense-window design, which
     `core.model.KernelModel` still prices; no kernel reads it."""
 
@@ -128,6 +139,18 @@ def _onehot_smem(gs: int, ont: int, dc: int, warps: int,
             + 4 * warps * (32 // lanes) * ont * dc + 12 * warps * _ONEHOT_LIST)
 
 
+def _gather_smem(ont: int, dc: int) -> int:
+    """Bytes of the direct kernel's `Layout`: one ont x dc f32 partial per
+    warp and lane group (lanes per entry: the slice row's pieces of
+    _GATHER_COLS columns, to a power of two), and each warp's live-slot
+    list."""
+    lanes = 1
+    while lanes * _GATHER_COLS < dc:
+        lanes *= 2
+    return (4 * _GATHER_WARPS * (32 // lanes) * ont * dc
+            + 12 * _GATHER_WARPS * _GATHER_LIST)
+
+
 def launch_geometry(variant: str, *, gs: int, gpt: int, ont: int,
                     dt: int) -> Geometry:
     """What a launch at these knobs allocates — the single source of the
@@ -135,8 +158,9 @@ def launch_geometry(variant: str, *, gs: int, gpt: int, ont: int,
     (`repro_torch.core.model.smem_working_set`)."""
     _check_variant(variant)
     if variant == "direct":
-        return Geometry(gc=0, dc=dt, warps=0, stage_units=0,
-                        smem_bytes=4 * ont * dt)
+        dc = min(dt, 32 * _GATHER_COLS)
+        return Geometry(gc=0, dc=dc, warps=_GATHER_WARPS, stage_units=0,
+                        smem_bytes=_gather_smem(ont, dc))
     dc = min(dt, _ONEHOT_COLS)
     if variant == "folded":
         gc = min(gpt, _FOLDED_GROUPS)
@@ -218,16 +242,20 @@ def group_aggregate(feat_padded: torch.Tensor, nbrs: torch.Tensor,
         raise ValueError(f"{variant} at gs={gs} gpt={gpt} ont={ont} dt={dt} "
                          f"needs {geo.smem_bytes} B of shared memory per "
                          f"block (> {H100_SXM.smem_per_block} B)")
-    if variant != "direct":
+    if variant == "direct":
+        # a lane loads _GATHER_COLS neighbouring columns of a row at once
+        if dt % _GATHER_COLS:
+            raise ValueError(f"direct needs dt a multiple of {_GATHER_COLS}, "
+                             f"got dt={dt}")
+        _check_aligned(feat_padded=feat_padded)
+    else:
         # TMA 1-D copies take 16-byte aligned spans of a run's metadata;
         # a lane loads two adjacent feature columns at once
         if gpt % 4 or dt % 2:
             raise ValueError(f"{variant} needs gpt % 4 == 0 and an even dt, "
                              f"got gpt={gpt} dt={dt}")
-        for name, x in (("feat_padded", feat_padded), ("nbrs", nbrs),
-                        ("edge_val", edge_val), ("local_node", local_node)):
-            if x.data_ptr() % 16:
-                raise ValueError(f"{name} must be 16-byte aligned")
+        _check_aligned(feat_padded=feat_padded, nbrs=nbrs, edge_val=edge_val,
+                       local_node=local_node)
     out = torch.empty((out_rows, d_pad), dtype=torch.float32, device=dev)
     stream = ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
     ptr = lambda x: ctypes.c_void_p(x.data_ptr())
@@ -240,7 +268,7 @@ def group_aggregate(feat_padded: torch.Tensor, nbrs: torch.Tensor,
             code = fn(i(dcode), ptr(feat_padded), ptr(nbrs), ptr(edge_val),
                       ptr(local_node), ptr(tile_node_block), ptr(run_start),
                       ptr(out), i(num_runs), i(gs), i(gpt), i(ont), i(d_pad),
-                      i(dt), i(geo.smem_bytes), stream)
+                      i(geo.dc), i(geo.smem_bytes), stream)
         else:
             lib = build.load("group_aggregate_onehot")
             fn = bind(lib, "repro_group_aggregate_onehot")
@@ -271,8 +299,8 @@ def group_edge_grad(grad_padded: torch.Tensor, feat_padded: torch.Tensor,
                     nbrs: torch.Tensor, local_node: torch.Tensor,
                     tile_node_block: torch.Tensor, tile_window: torch.Tensor,
                     run_start: torch.Tensor, *, gs: int, gpt: int, ont: int,
-                    src_win: int, dt: int,
-                    variant: str = "slot_onehot") -> torch.Tensor:
+                    src_win: int, dt: int, variant: str = "slot_onehot",
+                    slot_of_edge: torch.Tensor | None = None) -> torch.Tensor:
     """Per-slot edge-value cotangent over the FORWARD group schedule.
 
     For slot (t, g, s) holding edge (v <- u): ``out[t,g,s] = <grad[v],
@@ -286,10 +314,16 @@ def group_edge_grad(grad_padded: torch.Tensor, feat_padded: torch.Tensor,
     as for `group_aggregate`.
     variant : ``folded`` / ``slot_onehot`` run the block kernel,
         ``direct`` the gather kernel (gs <= 64).
+    slot_of_edge : (E,) int32, the flat slot ``edge_slot * gs + edge_pos``
+        of each real edge (`kernels.ops.DeviceSchedule.slot_of_edge`); the
+        block kernel computes exactly these slots, so the CUDA path of the
+        one-hot variants needs it.  The plain version and the gather kernel
+        do not read it.
 
     Returns (T, gpt, gs) float32.  Padded slots hold don't-care values and
-    on the CUDA path the slots of pad tiles past the live runs are left
-    unwritten: callers read only real (edge_slot, edge_pos) entries.
+    on the CUDA path they may be left unwritten (all of them for the block
+    kernel; those of pad tiles past the live runs for the gather kernel):
+    callers read only real (edge_slot, edge_pos) entries.
     """
     _check_variant(variant)
     if not feat_padded.is_cuda:
@@ -320,15 +354,26 @@ def group_edge_grad(grad_padded: torch.Tensor, feat_padded: torch.Tensor,
     num_runs = run_start.numel() - 1
 
     kname = EDGE_GRAD_KERNEL_OF_VARIANT[variant]
-    dc = min(dt, _EDGE_GRAD_COLS)
-    smem = 4 * ont * dc
-    if variant == "direct" and gs > _EDGE_GRAD_MAX_GS:
-        raise ValueError(f"{kname} holds at most {_EDGE_GRAD_MAX_GS} slots "
-                         f"per group, got gs={gs}")
-    if variant != "direct" and smem > H100_SXM.smem_per_block:
-        raise ValueError(f"{kname} at ont={ont} dt={dt} needs {smem} B of "
-                         f"shared memory per block (> "
-                         f"{H100_SXM.smem_per_block} B)")
+    if variant == "direct":
+        if gs > _EDGE_GRAD_MAX_GS:
+            raise ValueError(f"{kname} holds at most {_EDGE_GRAD_MAX_GS} "
+                             f"slots per group, got gs={gs}")
+    else:
+        if slot_of_edge is None:
+            raise ValueError(f"{kname} computes the real slots only: pass "
+                             f"slot_of_edge (DeviceSchedule.slot_of_edge)")
+        if slot_of_edge.dim() != 1 or not 0 < slot_of_edge.numel() <= nbrs.numel():
+            raise ValueError(f"slot_of_edge must be (E,) with 0 < E <= "
+                             f"{nbrs.numel()} slots, got "
+                             f"{tuple(slot_of_edge.shape)}")
+        check_arg("slot_of_edge", slot_of_edge, torch.int32,
+                  slot_of_edge.shape, dev)
+        # a lane loads 16 bytes of a row
+        vec = 16 // feat_padded.element_size()
+        if d_pad % vec:
+            raise ValueError(f"{kname} needs D_pad a multiple of {vec} (16 "
+                             f"bytes of {feat_padded.dtype}), got {d_pad}")
+        _check_aligned(grad_padded=grad_padded, feat_padded=feat_padded)
     out = torch.empty((T, gpt, gs), dtype=torch.float32, device=dev)
     stream = ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
     ptr = lambda x: ctypes.c_void_p(x.data_ptr())
@@ -345,9 +390,9 @@ def group_edge_grad(grad_padded: torch.Tensor, feat_padded: torch.Tensor,
         else:
             fn = bind(lib, "repro_group_edge_grad_block")
             code = fn(i(dcode), ptr(grad_padded), ptr(feat_padded), ptr(nbrs),
-                      ptr(local_node), ptr(tile_node_block), ptr(run_start),
-                      ptr(out), i(num_runs), i(gs), i(gpt), i(ont), i(d_pad),
-                      i(dc), i(smem), stream)
+                      ptr(local_node), ptr(tile_node_block), ptr(slot_of_edge),
+                      ptr(out), i(slot_of_edge.numel()), i(gs), i(gpt),
+                      i(ont), i(d_pad), stream)
     raise_on(lib, code, kname)
     launches[kname] += 1
     return out

@@ -105,9 +105,12 @@ class DeviceSchedule:
     ``run_start`` (R+1,) — the run boundaries the kernels launch one block
     per run over, built once here on the host over the ``live_tiles``
     prefix (trailing pad tiles hold no edge) —, ``block_visited``
-    (padded_out_rows/ont,) bool, the unvisited-output-block mask, and
-    ``edge_slot``/``edge_pos`` (E,).  Static ints mirror the partition's
-    config (`gs`, `gpt`, `ont`, `src_win`) and padding geometry.
+    (padded_out_rows/ont,) bool, the unvisited-output-block mask,
+    ``edge_slot``/``edge_pos`` (E,), and ``slot_of_edge`` (E,) int32, each
+    real edge's flat slot ``edge_slot * gs + edge_pos`` in the (T, gpt, gs)
+    arrays (the slots the block edge-gradient kernel computes).  Static
+    ints mirror the partition's config (`gs`, `gpt`, `ont`, `src_win`) and
+    padding geometry.
 
     Construction validates what the kernels index with (ids inside their
     tile's window, local rows inside the node block), so a malformed
@@ -132,6 +135,9 @@ class DeviceSchedule:
                     or p.tile_node_block.min() < 0
                     or p.tile_node_block.max() >= p.padded_out_rows // p.ont):
                 raise ValueError("schedule indices out of range")
+            if nbrs.size >= 2 ** 31:
+                raise ValueError(f"schedule holds {nbrs.size} slots; the "
+                                 f"kernels index slots with int32")
         as_t = lambda a, dt=None: torch.as_tensor(np.ascontiguousarray(a),
                                                   dtype=dt, device=device)
         self.nbrs = as_t(p.nbrs, torch.int32)
@@ -154,6 +160,8 @@ class DeviceSchedule:
         self.block_visited = as_t(visited)
         self.edge_slot = as_t(p.edge_slot, torch.int64)
         self.edge_pos = as_t(p.edge_pos, torch.int64)
+        self.slot_of_edge = as_t(
+            np.asarray(p.edge_slot, np.int64) * p.gs + p.edge_pos, torch.int32)
         self.edge_perm = (None if edge_perm is None
                           else as_t(edge_perm, torch.int64))
         self.gs, self.gpt, self.ont, self.src_win = p.gs, p.gpt, p.ont, p.src_win
@@ -237,7 +245,6 @@ def _edge_cotangent(g_out: torch.Tensor, feat: torch.Tensor,
     if _no_work(sched, backend):
         return torch.zeros((sched.num_edges,), dtype=torch.float32,
                            device=feat.device)
-    T, gpt, gs = sched.nbrs.shape
     if backend == "torch":
         per_slot = group_edge_grad_plain(
             _pad_to(g_out, sched.padded_out_rows, d),
@@ -251,8 +258,9 @@ def _edge_cotangent(g_out: torch.Tensor, feat: torch.Tensor,
             _pad_to(feat, sched.padded_src_rows, d_pad), sched.nbrs,
             sched.local_node, sched.tile_node_block, sched.tile_window,
             sched.run_start, gs=sched.gs, gpt=sched.gpt, ont=sched.ont,
-            src_win=sched.src_win, dt=dt_eff, variant=variant)
-    return per_slot.reshape(T * gpt, gs)[sched.edge_slot, sched.edge_pos]
+            src_win=sched.src_win, dt=dt_eff, variant=variant,
+            slot_of_edge=sched.slot_of_edge)
+    return per_slot.reshape(-1)[sched.slot_of_edge]
 
 
 class _AggregateFn(torch.autograd.Function):
