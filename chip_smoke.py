@@ -285,7 +285,7 @@ class KernelCase:
             self.feat_p, s.nbrs, s.edge_val, s.local_node, s.tile_node_block,
             s.tile_window, s.run_start, gs=s.gs, gpt=s.gpt, ont=s.ont,
             src_win=s.src_win, dt=self.dt, out_rows=s.padded_out_rows,
-            variant=self.variant)
+            variant=self.variant, run_order=s.run_order)
 
     def plain(self):
         from repro_torch.kernels.group_aggregate import group_aggregate_plain

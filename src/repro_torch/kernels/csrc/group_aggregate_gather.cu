@@ -5,35 +5,43 @@
 //   out[nb*ont + local_node[t,g], c] = sum_t,g sum_s ev[t,g,s] * feat[nbrs[t,g,s], c]
 // over the group schedule: per slot, one gathered row of `feat`.
 //
-// What bounds it on the H100: latency and L2 bytes, not device memory.  At
-// the GIN serving shape (127,722 edges, D 500 -> 504 columns, f32) the rows
-// the real edges read are 257 MB, from a 33 MB feature matrix that stays in
-// the 50 MB L2 (about 0.05 ms at L2 rates), and 68-82% of the schedule's
-// slots are padding (ev == 0).  The earlier design walked every slot of a
-// run on one block, each item a gs-long chain of dependent index and row
-// loads (1.45 ms).  On full reddit (18.6M edges, D 64) the floor is the
-// rows again (4.8 GB, the 60 MB matrix partly in L2) plus the padded slot
-// metadata read once from device memory (0.93 GB, 0.28 ms).
+// What bounds it on the H100: latency, then bytes.  At the GIN serving shape
+// (127,722 edges, D 500 -> 504 columns, f32) the rows the real edges read
+// are 257 MB from a 33 MB feature matrix that stays in the 50 MB L2, about
+// 0.05 ms at L2 rates, and 68% of the slots of the live tiles are padding
+// (ev == 0).  The earlier design walked every slot of a run on one block,
+// each item a gs-long chain of dependent id and row loads (1.45 ms).  Here
+// a block is a short chain of dependent round trips (run bounds, slot
+// metadata, kUnroll-deep rounds of row loads, the partials' sum), and the
+// launch ends with its longest run: one node block of the GIN shape holds
+// 3,010 live slots, 94 rounds of row loads for each of its blocks.  On full
+// reddit (18.6M edges, D 64) the floor is bytes: 4.8 GB of rows, the 60 MB
+// matrix partly in L2, and the padded slot metadata read once from device
+// memory (0.93 GB, 0.28 ms).  PERF.md has the times and the timeline.
 //
 // Mapping.  One thread block per (run of tiles sharing a node block, column
-// slice of `dc` = min(dt, 32 * vec) columns, vec = 16 B / element size),
-// as the schedule contract in common.cuh sets out.  The run's slots are
-// cut into 32-slot chunks; kWarps (8) warps split them (warp w takes chunks
-// w, w + 8, ...), so a long run is walked by all of the block's warps:
+// slice of `dc` = min(dt, 128) columns), as the schedule contract in
+// common.cuh sets out; a run's slices are neighbours in launch order.  The
+// run's slots are cut into 32-slot chunks and kWarps (8) warps split them
+// (warp w takes chunks w, w + 8, ...), so a long run is walked by all of
+// the block's warps:
 //   * a lane loads one slot's id, value and group row per chunk, kAhead
-//     chunks at once (plain coalesced loads: the kernel takes any gs and
-//     gpt), and `__ballot_sync` appends the live slots (ev != 0) in slot
-//     order to the warp's list (row, value, output row) in shared memory;
-//   * when the list could overflow and at the run's end the warp walks it:
-//     lw lanes an entry, one 16-byte load of vec neighbouring columns a
-//     lane, so 32 / lw entries at once, and kUnroll entries per lane with
-//     their row loads in flight together; bf16 / f16 rows are converted in
-//     registers and every entry is `fmaf`-ed in f32 into the warp's private
-//     ont x dc partial (one per lane group) in shared memory;
+//     chunks a batch, the next batch's loads in flight while this one is
+//     listed (plain coalesced loads: the kernel takes any gs and gpt);
+//     `__ballot_sync` appends the live slots (ev != 0) in slot order to the
+//     warp's list (row, value, output row) in shared memory;
+//   * when the list is full and at the run's end the warp walks it: lw
+//     lanes an entry, kCols (4) neighbouring columns a lane in one load (16
+//     bytes of f32, 8 of bf16 / f16, converted in registers), so 32 / lw
+//     entries at once, and kUnroll entries per lane with their row loads in
+//     flight together; each entry is `fmaf`-ed in f32 into the warp's
+//     private ont x dc partial (one per lane group) in shared memory;
 //   * at the run's end the block sums the partials in a fixed order and
 //     writes the slice of the node block once.
 // Work follows the live slots, not the padded tile; no atomics anywhere and
-// a fixed summation order, so two calls give bit-identical output.
+// a fixed summation order, so two calls give bit-identical output.  Four
+// columns a lane (not 16 bytes of 16-bit elements) keep the partials at
+// 4 KB a warp at ont 8, so 4 blocks of 8 warps fit an SM for every dtype.
 // `launch_geometry` in repro_torch.kernels.group_aggregate mirrors `Layout`
 // and is the one source of the shared memory; the kernel refuses a launch
 // whose `smem_bytes` differs from its own layout.
@@ -51,7 +59,7 @@ constexpr int kWarps = 8;      // warps per block
 constexpr int kCols = 4;       // neighbouring columns a lane loads at once
 constexpr int kListCap = 128;  // live-slot list entries per warp
 constexpr int kAhead = 2;      // 32-slot chunks per metadata batch
-constexpr int kUnroll = 8;     // list entries per lane per round of row loads
+constexpr int kUnroll = 4;     // list entries per lane per round of row loads
 constexpr int kMinBlocks = 4;  // blocks per SM the register budget is set for
 
 // The block's shared memory: one ont x dc f32 partial per warp and lane
@@ -97,13 +105,15 @@ struct Meta {
 };
 
 // 64 registers a thread: 4 blocks of 8 warps per SM, with kUnroll row loads
-// in flight per lane.
+// in flight per lane and the next metadata batch, without spills (at
+// kUnroll 8 the f32 instantiation spills).
 template <typename T>
 __global__ void __launch_bounds__(32 * kWarps, kMinBlocks)
 gather_kernel(const T* __restrict__ feat, const int* __restrict__ nbrs,
               const float* __restrict__ ev, const int* __restrict__ local_node,
               const int* __restrict__ tile_node_block,
-              const int* __restrict__ run_start, float* __restrict__ out,
+              const int* __restrict__ run_start,
+              const int* __restrict__ run_order, float* __restrict__ out,
               int gs, int gpt, int ont, int d_pad, int dc) {
   extern __shared__ __align__(16) unsigned char smem[];
   const Layout lay(ont, dc);
@@ -112,9 +122,15 @@ gather_kernel(const T* __restrict__ feat, const int* __restrict__ nbrs,
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
 
-  const int t0 = run_start[blockIdx.x];
-  const int t1 = run_start[blockIdx.x + 1];
-  const int col0 = blockIdx.y * dc;
+  // block -> (run, column slice): runs in `run_order` (longest first, so
+  // the launch does not end on a long run started late), a run's slices
+  // neighbours in launch order
+  const int slices = (d_pad + dc - 1) / dc;
+  const int nth = blockIdx.x / slices;
+  const int run = run_order[nth];
+  const int t0 = run_start[run];
+  const int t1 = run_start[run + 1];
+  const int col0 = (blockIdx.x - nth * slices) * dc;
   const int width = min(dc, d_pad - col0);
   const int64_t g0 = (int64_t)t0 * gpt;  // the run's first group
   const int nslots = (t1 - t0) * gpt * gs;
@@ -234,46 +250,48 @@ gather_kernel(const T* __restrict__ feat, const int* __restrict__ nbrs,
 template <typename T>
 static int launch(const void* feat, const int* nbrs, const float* ev,
                   const int* local_node, const int* tile_node_block,
-                  const int* run_start, float* out, int num_runs, int gs,
-                  int gpt, int ont, int d_pad, int dc, int smem_bytes,
-                  cudaStream_t stream) {
+                  const int* run_start, const int* run_order, float* out,
+                  int num_runs, int gs, int gpt, int ont, int d_pad, int dc,
+                  int smem_bytes, cudaStream_t stream) {
   if (dc <= 0 || dc % kCols || dc > 32 * kCols || d_pad % kCols ||
       Layout(ont, dc).total != smem_bytes)
     return (int)cudaErrorInvalidValue;
   auto kernel = gather_kernel<T>;
   cudaError_t err = allow_smem(kernel, smem_bytes);
   if (err != cudaSuccess) return (int)err;
-  dim3 grid(num_runs, (d_pad + dc - 1) / dc);
-  kernel<<<grid, 32 * kWarps, smem_bytes, stream>>>(
+  const int64_t blocks = (int64_t)num_runs * ((d_pad + dc - 1) / dc);
+  kernel<<<(unsigned)blocks, 32 * kWarps, smem_bytes, stream>>>(
       static_cast<const T*>(feat), nbrs, ev, local_node, tile_node_block,
-      run_start, out, gs, gpt, ont, d_pad, dc);
+      run_start, run_order, out, gs, gpt, ont, d_pad, dc);
   return (int)cudaGetLastError();
 }
 
 }  // namespace repro_torch
 
 // `dc` is the column slice of one block (min(dt, 32 * kCols)) and
-// `smem_bytes` its `Layout`, both from `launch_geometry`.
+// `smem_bytes` its `Layout`, both from `launch_geometry`; `run_order` (R,)
+// is the launch order of the runs (`DeviceSchedule.run_order`).
 extern "C" int repro_group_aggregate_gather(
     int dtype, const void* feat, const int* nbrs, const float* ev,
     const int* local_node, const int* tile_node_block, const int* run_start,
-    float* out, int num_runs, int gs, int gpt, int ont, int d_pad, int dc,
-    int smem_bytes, void* stream) {
+    const int* run_order, float* out, int num_runs, int gs, int gpt, int ont,
+    int d_pad, int dc, int smem_bytes, void* stream) {
   using namespace repro_torch;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype) {
     case kF32:
       return launch<float>(feat, nbrs, ev, local_node, tile_node_block,
-                           run_start, out, num_runs, gs, gpt, ont, d_pad, dc,
-                           smem_bytes, s);
+                           run_start, run_order, out, num_runs, gs, gpt, ont,
+                           d_pad, dc, smem_bytes, s);
     case kBF16:
       return launch<__nv_bfloat16>(feat, nbrs, ev, local_node,
-                                   tile_node_block, run_start, out, num_runs,
-                                   gs, gpt, ont, d_pad, dc, smem_bytes, s);
+                                   tile_node_block, run_start, run_order, out,
+                                   num_runs, gs, gpt, ont, d_pad, dc,
+                                   smem_bytes, s);
     case kF16:
       return launch<__half>(feat, nbrs, ev, local_node, tile_node_block,
-                            run_start, out, num_runs, gs, gpt, ont, d_pad, dc,
-                            smem_bytes, s);
+                            run_start, run_order, out, num_runs, gs, gpt, ont,
+                            d_pad, dc, smem_bytes, s);
     default:
       return (int)cudaErrorInvalidValue;
   }

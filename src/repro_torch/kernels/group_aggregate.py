@@ -191,7 +191,8 @@ def group_aggregate(feat_padded: torch.Tensor, nbrs: torch.Tensor,
                     tile_node_block: torch.Tensor, tile_window: torch.Tensor,
                     run_start: torch.Tensor, *, gs: int, gpt: int, ont: int,
                     src_win: int, dt: int, out_rows: int,
-                    variant: str = "folded") -> torch.Tensor:
+                    variant: str = "folded",
+                    run_order: torch.Tensor | None = None) -> torch.Tensor:
     """Run group aggregation over a padded schedule.
 
     feat_padded : (N_src_pad, D_pad) float32 | bfloat16 | float16;
@@ -203,6 +204,10 @@ def group_aggregate(feat_padded: torch.Tensor, nbrs: torch.Tensor,
     run_start : (R+1,) int32 tile bounds of the maximal runs of tiles
         sharing a node block (`kernels.ops.DeviceSchedule` builds it); each
         node block must form exactly one run.
+    run_order : (R,) int32, the order in which the direct kernel launches
+        the runs (`DeviceSchedule.run_order`: longest first, so the launch
+        does not end on a long run started late); its CUDA path needs it.
+        The plain version and the one-hot kernels do not read it.
 
     Returns (out_rows, D_pad) float32.  Rows of node blocks no tile names
     are undefined on the CUDA path (the caller masks them, as the
@@ -243,6 +248,10 @@ def group_aggregate(feat_padded: torch.Tensor, nbrs: torch.Tensor,
                          f"needs {geo.smem_bytes} B of shared memory per "
                          f"block (> {H100_SXM.smem_per_block} B)")
     if variant == "direct":
+        if run_order is None:
+            raise ValueError("direct launches the runs in run_order: pass "
+                             "DeviceSchedule.run_order")
+        check_arg("run_order", run_order, torch.int32, (num_runs,), dev)
         # a lane loads _GATHER_COLS neighbouring columns of a row at once
         if dt % _GATHER_COLS:
             raise ValueError(f"direct needs dt a multiple of {_GATHER_COLS}, "
@@ -267,8 +276,8 @@ def group_aggregate(feat_padded: torch.Tensor, nbrs: torch.Tensor,
             fn = bind(lib, "repro_group_aggregate_gather")
             code = fn(i(dcode), ptr(feat_padded), ptr(nbrs), ptr(edge_val),
                       ptr(local_node), ptr(tile_node_block), ptr(run_start),
-                      ptr(out), i(num_runs), i(gs), i(gpt), i(ont), i(d_pad),
-                      i(geo.dc), i(geo.smem_bytes), stream)
+                      ptr(run_order), ptr(out), i(num_runs), i(gs), i(gpt),
+                      i(ont), i(d_pad), i(geo.dc), i(geo.smem_bytes), stream)
         else:
             lib = build.load("group_aggregate_onehot")
             fn = bind(lib, "repro_group_aggregate_onehot")
@@ -362,7 +371,8 @@ def group_edge_grad(grad_padded: torch.Tensor, feat_padded: torch.Tensor,
         if slot_of_edge is None:
             raise ValueError(f"{kname} computes the real slots only: pass "
                              f"slot_of_edge (DeviceSchedule.slot_of_edge)")
-        if slot_of_edge.dim() != 1 or not 0 < slot_of_edge.numel() <= nbrs.numel():
+        edges = slot_of_edge.numel()
+        if slot_of_edge.dim() != 1 or not 0 < edges <= nbrs.numel():
             raise ValueError(f"slot_of_edge must be (E,) with 0 < E <= "
                              f"{nbrs.numel()} slots, got "
                              f"{tuple(slot_of_edge.shape)}")
@@ -391,8 +401,8 @@ def group_edge_grad(grad_padded: torch.Tensor, feat_padded: torch.Tensor,
             fn = bind(lib, "repro_group_edge_grad_block")
             code = fn(i(dcode), ptr(grad_padded), ptr(feat_padded), ptr(nbrs),
                       ptr(local_node), ptr(tile_node_block), ptr(slot_of_edge),
-                      ptr(out), i(slot_of_edge.numel()), i(gs), i(gpt),
-                      i(ont), i(d_pad), stream)
+                      ptr(out), i(edges), i(gs), i(gpt), i(ont), i(d_pad),
+                      stream)
     raise_on(lib, code, kname)
     launches[kname] += 1
     return out

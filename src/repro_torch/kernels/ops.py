@@ -104,8 +104,10 @@ class DeviceSchedule:
     ``local_node`` (T, gpt), ``tile_node_block``/``tile_window`` (T,),
     ``run_start`` (R+1,) — the run boundaries the kernels launch one block
     per run over, built once here on the host over the ``live_tiles``
-    prefix (trailing pad tiles hold no edge) —, ``block_visited``
-    (padded_out_rows/ont,) bool, the unvisited-output-block mask,
+    prefix (trailing pad tiles hold no edge) —, ``run_order`` (R,) int32,
+    the runs longest first (the direct kernel's launch order),
+    ``block_visited`` (padded_out_rows/ont,) bool, the unvisited-output-block
+    mask,
     ``edge_slot``/``edge_pos`` (E,), and ``slot_of_edge`` (E,) int32, each
     real edge's flat slot ``edge_slot * gs + edge_pos`` in the (T, gpt, gs)
     arrays (the slots the block edge-gradient kernel computes).  Static
@@ -153,7 +155,9 @@ class DeviceSchedule:
         # otherwise one thread block would walk every pad tile serially
         self.live_tiles = (int(p.edge_slot.max()) // p.gpt + 1
                            if p.num_edges else 0)
-        self.run_start = as_t(run_bounds(p.tile_node_block[:self.live_tiles]),
+        bounds = run_bounds(p.tile_node_block[:self.live_tiles])
+        self.run_start = as_t(bounds, torch.int32)
+        self.run_order = as_t(np.argsort(-np.diff(bounds), kind="stable"),
                               torch.int32)
         visited = p.block_visited()
         self.all_visited = bool(visited.all())
@@ -226,7 +230,7 @@ def _aggregate_impl(feat: torch.Tensor, sched: DeviceSchedule, *, dt: int,
         sched.local_node, sched.tile_node_block, sched.tile_window,
         sched.run_start, gs=sched.gs, gpt=sched.gpt, ont=sched.ont,
         src_win=sched.src_win, dt=dt_eff, out_rows=sched.padded_out_rows,
-        variant=variant)[:n, :d]
+        variant=variant, run_order=sched.run_order)[:n, :d]
     # node blocks no tile names are never written by the kernel (leader-node
     # flush); mask them to true zeros, as the reference does
     if not sched.all_visited:

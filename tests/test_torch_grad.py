@@ -128,6 +128,99 @@ def test_edge_grad_wrapper_routes_cpu_tensors_to_plain_version(variant):
         else "group_edge_grad[block]")
 
 
+@pytest.mark.parametrize("transposed", [False, True])
+def test_slot_of_edge_is_each_edges_flat_slot(transposed):
+    """`DeviceSchedule.slot_of_edge`, the slots the block edge-gradient
+    kernel computes: each real edge's ``edge_slot * gs + edge_pos``, int32,
+    on forward and transposed schedules; every real slot once."""
+    g = j_csr.random_power_law(150, 5.0, seed=12)
+    p, pT, perm = _pair(g, None, gs=4)
+    s = (t_ops.DeviceSchedule(pT, "cpu", edge_perm=perm) if transposed
+         else t_ops.DeviceSchedule(p, "cpu"))
+    part = pT if transposed else p
+    want = part.edge_slot.astype(np.int64) * part.gs + part.edge_pos
+    assert s.slot_of_edge.dtype == torch.int32
+    np.testing.assert_array_equal(s.slot_of_edge.numpy(), want)
+    assert len(np.unique(want)) == part.num_edges
+    assert (part.edge_val.reshape(-1)[want] != 0).all()
+
+
+@pytest.mark.parametrize("d", [3, 16])
+def test_edge_cotangent_gathers_the_plain_per_slot_dots(d):
+    """The plain per-slot cotangent gathered through `slot_of_edge` is
+    `_edge_cotangent`'s output, and both match the reference's
+    `group_edge_grad_ref` (its plain path) at the same real slots, on the
+    same numpy-seeded inputs: float32, rtol/atol 1e-5 (summation order)."""
+    g = j_csr.random_power_law(140, 5.0, seed=d)
+    p, _, _ = _pair(g, None, gs=4)
+    s = t_ops.DeviceSchedule(p, "cpu")
+    rng = np.random.default_rng(d)
+    cot = rng.standard_normal((g.num_nodes, d)).astype(np.float32)
+    feat = rng.standard_normal((g.num_nodes, d)).astype(np.float32)
+    got = t_ops._edge_cotangent(torch.from_numpy(cot), torch.from_numpy(feat),
+                                s, dt=16, backend="torch", variant="folded")
+    assert got.dtype == torch.float32 and got.shape == (g.num_edges,)
+    pad = lambda x, rows: np.pad(x, ((0, rows - x.shape[0]), (0, 0)))
+    per_slot = group_edge_grad_ref(
+        torch.from_numpy(pad(cot, p.padded_out_rows)),
+        torch.from_numpy(pad(feat, p.padded_src_rows)), s.nbrs,
+        s.local_node, s.tile_node_block, p.ont)
+    torch.testing.assert_close(per_slot.reshape(-1)[s.slot_of_edge], got,
+                               rtol=0, atol=0)
+    want = j_edge_grad_ref(jnp.asarray(pad(cot, p.padded_out_rows)),
+                           jnp.asarray(pad(feat, p.padded_src_rows)), p.nbrs,
+                           p.local_node, p.tile_node_block, p.ont)
+    np.testing.assert_allclose(got.numpy(), _real(want, p), **F32_TOL)
+
+
+class _OnCard(torch.Tensor):
+    """A CPU tensor that reports itself on the card, so the wrapper takes
+    its CUDA path: every check before the launch runs, and a refusal
+    raises before anything touches CUDA."""
+
+    @property
+    def is_cuda(self):
+        return True
+
+
+def test_block_edge_grad_refuses_a_malformed_slot_index():
+    """On the card the block kernel's wrapper refuses, before any launch, a
+    missing per-edge slot index and one of the wrong dtype, device, rank or
+    length, and rows its 16-byte loads cannot take."""
+    g = j_csr.random_power_law(90, 4.0, seed=5)
+    p, _, _ = _pair(g, None)
+    s = t_ops.DeviceSchedule(p, "cpu")
+    before = dict(t_ga.launches)
+
+    def call(slots, width=8, dt=8, grad=None):
+        feat = torch.randn(p.padded_src_rows, width).as_subclass(_OnCard)
+        grad = torch.randn(p.padded_out_rows, width) if grad is None else grad
+        return t_ga.group_edge_grad(
+            grad, feat, s.nbrs, s.local_node, s.tile_node_block,
+            s.tile_window, s.run_start, gs=s.gs, gpt=s.gpt, ont=s.ont,
+            src_win=s.src_win, dt=dt, variant="slot_onehot",
+            slot_of_edge=slots)
+
+    with pytest.raises(ValueError, match="slot_of_edge"):
+        call(None)
+    with pytest.raises(TypeError, match="slot_of_edge"):
+        call(s.slot_of_edge.long())
+    with pytest.raises(ValueError, match="slot_of_edge"):
+        call(s.slot_of_edge.to("meta"))
+    with pytest.raises(ValueError, match="slot_of_edge"):
+        call(s.slot_of_edge.reshape(1, -1))
+    with pytest.raises(ValueError, match="slot_of_edge"):
+        call(torch.zeros(s.nbrs.numel() + 1, dtype=torch.int32))
+    with pytest.raises(ValueError, match="slot_of_edge"):
+        call(s.slot_of_edge[:0])
+    with pytest.raises(ValueError, match="16 bytes"):
+        call(s.slot_of_edge, width=6, dt=6)
+    base = torch.randn(p.padded_out_rows * 8 + 1)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        call(s.slot_of_edge, grad=base[1:].view(p.padded_out_rows, 8))
+    assert t_ga.launches == before
+
+
 # ---------------------------------------------------------------------------
 # the autograd Function against jax.grad through the reference's custom VJP
 # ---------------------------------------------------------------------------

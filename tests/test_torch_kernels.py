@@ -191,7 +191,8 @@ def _onehot_call(p, *, variant, width=16, dt=16, ont=None, on_card=True):
     return t_ga.group_aggregate(
         feat, s.nbrs, s.edge_val, s.local_node, s.tile_node_block,
         s.tile_window, s.run_start, gs=s.gs, gpt=s.gpt, ont=ont,
-        src_win=s.src_win, dt=dt, out_rows=out_rows, variant=variant)
+        src_win=s.src_win, dt=dt, out_rows=out_rows, variant=variant,
+        run_order=s.run_order)
 
 
 @pytest.mark.parametrize("variant", ["folded", "slot_onehot"])
@@ -207,6 +208,52 @@ def test_onehot_wrapper_raises_on_a_geometry_that_does_not_fit(variant):
     _, p6 = _schedule(padded=False, gpt=6)
     with pytest.raises(ValueError, match="gpt % 4"):
         _onehot_call(p6, variant=variant)
+
+
+def test_direct_wrapper_raises_on_a_geometry_it_cannot_load():
+    """On the card the direct wrapper refuses, before any launch, a dim tile
+    that is no whole number of a lane's four-column loads, a feature operand
+    its 16-byte loads cannot take, a block over the shared-memory limit and
+    a missing or malformed run order; it takes any gpt (6 here)."""
+    _, p = _schedule(padded=False, gpt=6)
+    before = dict(t_ga.launches)
+    with pytest.raises(ValueError, match="multiple of 4"):
+        _onehot_call(p, variant="direct", width=6, dt=6)
+    with pytest.raises(ValueError, match="shared memory"):
+        _onehot_call(p, variant="direct", ont=4096)
+    s = t_ops.DeviceSchedule(p, "cpu")
+    base = torch.randn(s.padded_src_rows * 16 + 1)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        t_ga.group_aggregate(
+            base[1:].view(s.padded_src_rows, 16).as_subclass(_OnCard),
+            s.nbrs, s.edge_val, s.local_node, s.tile_node_block,
+            s.tile_window, s.run_start, gs=s.gs, gpt=s.gpt, ont=s.ont,
+            src_win=s.src_win, dt=16, out_rows=s.padded_out_rows,
+            variant="direct", run_order=s.run_order)
+    for order, err in ((None, ValueError), (s.run_order.long(), TypeError),
+                       (s.run_order[:-1], ValueError)):
+        with pytest.raises(err, match="run_order"):
+            t_ga.group_aggregate(
+                torch.randn(s.padded_src_rows, 16).as_subclass(_OnCard),
+                s.nbrs, s.edge_val, s.local_node, s.tile_node_block,
+                s.tile_window, s.run_start, gs=s.gs, gpt=s.gpt, ont=s.ont,
+                src_win=s.src_win, dt=16, out_rows=s.padded_out_rows,
+                variant="direct", run_order=order)
+    assert t_ga.launches == before
+
+
+def test_run_order_launches_the_longest_runs_first():
+    """`DeviceSchedule.run_order`: every run once, by descending tile count,
+    ties in schedule order."""
+    _, p = _schedule(padded=True)
+    s = t_ops.DeviceSchedule(p, "cpu")
+    lens = (s.run_start[1:] - s.run_start[:-1]).numpy()
+    order = s.run_order.numpy()
+    assert s.run_order.dtype == torch.int32
+    assert sorted(order) == list(range(s.num_runs))
+    assert (np.diff(lens[order]) <= 0).all()
+    for a, b in zip(order[:-1], order[1:]):
+        assert lens[a] > lens[b] or a < b
 
 
 @pytest.mark.parametrize("variant", ["folded", "slot_onehot"])

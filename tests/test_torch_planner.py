@@ -223,6 +223,31 @@ def test_onehot_launch_geometry_over_the_search_space(variant):
                                   else max(1, min(gpt, 128 // gs)))
 
 
+def test_direct_launch_geometry_over_the_search_space():
+    """The direct kernel's launch at every config of the search space (and
+    at the narrower dim tiles small widths give) is exactly Eq. 4 and the
+    kernel's `Layout`: column slices of up to 128 columns, four a lane,
+    lanes per entry the slice row's four-column pieces to a power of two,
+    one ont x dc f32 partial per warp and lane group and a 128-entry list
+    (12 bytes an entry) per warp, 8 warps; it fits one block's shared
+    memory for every feature dtype."""
+    for gs in SEARCH_SPACE["gs"]:
+        for gpt in SEARCH_SPACE["gpt"]:
+            for dt in SEARCH_SPACE["dt"] + [8, 16, 24, 40]:
+                for feat_dtype in ("float32", "bfloat16"):
+                    c = AggConfig(gs=gs, gpt=gpt, dt=dt, variant="direct",
+                                  feat_dtype=feat_dtype)
+                    geo = launch_geometry("direct", gs=gs, gpt=gpt,
+                                          ont=c.ont, dt=dt)
+                    dc = min(dt, 128)
+                    lanes = 1 << max(0, (-(-dc // 4) - 1).bit_length())
+                    assert geo.dc == dc and geo.warps == 8
+                    assert geo.smem_bytes == (4 * 8 * (32 // lanes) * c.ont
+                                              * dc + 12 * 8 * 128)
+                    assert geo.smem_bytes == smem_working_set(c)
+                    assert geo.smem_bytes <= H100_SXM.smem_per_block
+
+
 @pytest.mark.parametrize("variant", VARIANTS)
 def test_pinned_config_outside_the_kernels_launch_limits(variant):
     """gpt 6 is no multiple of 4, which the one-hot kernels' metadata copies

@@ -58,16 +58,11 @@ def _const(name: str, value: int) -> tuple:
 # name -> (source constants {name: value}, wrapper constants {name: value})
 VARIANTS = {
     "base": ({}, {}),
-    "ahead4": ({"kAhead": 4}, {}),
-    "unroll4": ({"kUnroll": 4}, {}),
-    "unroll16": ({"kUnroll": 16, "kMinBlocks": 2}, {}),
-    "regs3": ({"kMinBlocks": 3}, {}),
-    "warps4": ({"kWarps": 4, "kMinBlocks": 8}, {"_GATHER_WARPS": 4}),
-    "list256": ({"kListCap": 256}, {"_GATHER_LIST": 256}),
     "unroll2": ({"kUnroll": 2}, {}),
-    "unroll4-list64": ({"kUnroll": 4, "kListCap": 64}, {"_GATHER_LIST": 64}),
-    "unroll4-list64-min5": ({"kUnroll": 4, "kListCap": 64, "kMinBlocks": 5},
-                            {"_GATHER_LIST": 64}),
+    "unroll8": ({"kUnroll": 8}, {}),
+    "ahead4": ({"kAhead": 4}, {}),
+    "warps4": ({"kWarps": 4, "kMinBlocks": 8}, {"_GATHER_WARPS": 4}),
+    "list64-min5": ({"kListCap": 64, "kMinBlocks": 5}, {"_GATHER_LIST": 64}),
 }
 
 # per-block stamps: (anchor in the source, text put after it)
@@ -94,7 +89,7 @@ TIMELINE_WRAP = [
      "  }\n}\n",
      "    *reinterpret_cast<float4*>(out + (row0 + r) * d_pad + col0 + c4) = s;\n"
      "  }\n"
-     "  const unsigned blk = blockIdx.y * gridDim.x + blockIdx.x;\n"
+     "  const unsigned blk = blockIdx.x;\n"
      "  if (lane == 0 && blk < 65536) {\n"
      "    unsigned long long* g = g_tl + 12 * blk;\n"
      "    atomicMax(g + 6, (unsigned long long)(tc2 - tc1));\n"
