@@ -14,17 +14,20 @@
 // a block is a short chain of dependent round trips (run bounds, slot
 // metadata, kUnroll-deep rounds of row loads, the partials' sum), and the
 // launch ends with its longest run: one node block of the GIN shape holds
-// 3,010 live slots, 94 rounds of row loads for each of its blocks.  On full
-// reddit (18.6M edges, D 64) the floor is bytes: 4.8 GB of rows, the 60 MB
-// matrix partly in L2, and the padded slot metadata read once from device
-// memory (0.93 GB, 0.28 ms).  PERF.md has the times and the timeline.
+// 3,010 live slots, 94 rounds of row loads for each of its blocks, and
+// sets the launch's time even when it starts first.  On full reddit
+// (18.6M edges, D 64) the floor is bytes: 4.8 GB of rows, the 60 MB matrix
+// partly in L2, and the padded slot metadata read once from device memory
+// (0.93 GB, 0.28 ms).  PERF.md has the times and the timeline.
 //
 // Mapping.  One thread block per (run of tiles sharing a node block, column
 // slice of `dc` = min(dt, 128) columns), as the schedule contract in
-// common.cuh sets out; a run's slices are neighbours in launch order.  The
-// run's slots are cut into 32-slot chunks and kWarps (8) warps split them
-// (warp w takes chunks w, w + 8, ...), so a long run is walked by all of
-// the block's warps:
+// common.cuh sets out.  The runs launch longest first (`run_order`), a
+// run's slices neighbours in launch order, so the longest run overlaps the
+// rest instead of starting late and ending the launch alone.  The run's
+// slots are cut into 32-slot chunks and kWarps (8) warps split them (warp
+// w takes chunks w, w + 8, ...), so a long run is walked by all of the
+// block's warps:
 //   * a lane loads one slot's id, value and group row per chunk, kAhead
 //     chunks a batch, the next batch's loads in flight while this one is
 //     listed (plain coalesced loads: the kernel takes any gs and gpt);

@@ -15,7 +15,8 @@ Port of `src/repro/kernels/group_aggregate.py:group_aggregate_pallas`
     live slots with per-slot row gathers: the block's warps split the run
     in 32-slot chunks, list its live slots and gather their rows, lanes
     over a column slice of up to 128 columns (four a lane: one 16-byte load
-    of float32), several rows in flight a lane, into per-warp partials.
+    of float32), several rows in flight a lane, into per-warp partials;
+    the runs launch longest first (`run_order`).
 
 Both kernels take one thread block per run of tiles sharing a node block
 (the leader-node scheme: the block's partials are zeroed at the run's

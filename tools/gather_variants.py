@@ -10,7 +10,8 @@ checks the kernel as shipped.
 
 A variant is the kernel source with textual replacements (its compile-time
 constants) and patched module constants of the wrapper
-(`repro_torch.kernels.group_aggregate`).  Every variant is compiled at once
+(`repro_torch.kernels.group_aggregate`); ``schedule-order`` is the shipped
+kernel launching the runs in schedule order instead of longest first.  Every variant is compiled at once
 with the repository's nvcc flags into ``build/repro_torch/variants/``,
 checked against the plain version on each case (chip_smoke's
 `KernelCase.holds`), then timed (device time, `chip_smoke.time_ms` with
@@ -31,6 +32,7 @@ list flush and the final sum.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import ctypes
 import json
 import os
@@ -63,7 +65,11 @@ VARIANTS = {
     "ahead4": ({"kAhead": 4}, {}),
     "warps4": ({"kWarps": 4, "kMinBlocks": 8}, {"_GATHER_WARPS": 4}),
     "list64-min5": ({"kListCap": 64, "kMinBlocks": 5}, {"_GATHER_LIST": 64}),
+    "schedule-order": ({}, {}),
 }
+# variants that launch the runs in schedule order, not in
+# `DeviceSchedule.run_order` (longest first)
+SCHEDULE_ORDER = {"schedule-order"}
 
 # per-block stamps: (anchor in the source, text put after it)
 TIMELINE = [
@@ -200,6 +206,19 @@ def cases(reddit: bool) -> dict:
     return out
 
 
+def _launch_order(name: str, cases) -> contextlib.ExitStack:
+    """The run order variant ``name`` launches ``cases`` in."""
+    import torch
+    stack = contextlib.ExitStack()
+    if name in SCHEDULE_ORDER:
+        for case in cases:
+            s = case.s
+            stack.enter_context(mock.patch.object(
+                s, "run_order", torch.arange(s.num_runs, dtype=torch.int32,
+                                             device=s.device)))
+    return stack
+
+
 def timeline(name: str) -> dict:
     """One launch of variant ``name`` with stamps at the GIN serving shape
     (after 3 warm-up launches): where its blocks spend their time."""
@@ -215,7 +234,8 @@ def timeline(name: str) -> dict:
     blocks = case.s.num_runs * -(-case.feat_p.shape[1] // geo.dc)
     with mock.patch.dict(build._libs, {SOURCE: lib}), \
             mock.patch.multiple(ga, **{"_GATHER_WARPS": ga._GATHER_WARPS,
-                                       **VARIANTS[name][1]}):
+                                       **VARIANTS[name][1]}), \
+            _launch_order(name, [case]):
         for _ in range(3):
             case.kernel()
         torch.cuda.synchronize()
@@ -284,7 +304,8 @@ def main() -> int:
         rec = {"variant": name, "ptxas": ptxas}
         with mock.patch.dict(build._libs, {SOURCE: lib}), \
                 mock.patch.multiple(ga, **{"_GATHER_WARPS": ga._GATHER_WARPS,
-                                           **VARIANTS[name][1]}):
+                                           **VARIANTS[name][1]}), \
+                _launch_order(name, all_cases.values()):
             for cname, case in all_cases.items():
                 cs.KernelCase.holds(case.check(), f"{name} {cname}")
                 rec[cname] = cs.time_ms(case.kernel, device_only=True)
