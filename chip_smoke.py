@@ -43,20 +43,18 @@ Phases, each timed, any failure exits non-zero before the result line:
      and a few requests must match the same engine on ``backend="torch"``.
      Then each kernel is timed at the largest schedule its run built.
 
-  4. edge-gradient kernels vs plain — the GAT schedules of the pubmed
+  4. edge-gradient kernel vs plain — the GAT schedules of the pubmed
      replica (`make_dataset("pubmed")`, 19,717 nodes) from
-     ``plan_for(arch="gat", with_backward=True)``, one tuned for the
-     ``slot_onehot`` kernel (block edge-gradient kernel) and one for
-     ``direct`` (gather edge-gradient kernel), at D in {1, 16, 128},
-     float32 and bfloat16, real slots only, each call run twice (its real
-     slots bit-identical).  Tolerance: ``max|k-p| / (1 + sum|g*f|) <=
-     1e-5`` and the float64 witness within ``gamma_D * sum|g*f|`` on every
-     slot, as phase 2.  A reading beside them: the block kernel, which reads
-     only the schedule's real slots, on the ``direct`` schedule (the gather
-     edge-gradient kernel's shape).  Then the autograd
-     `Function` on the card: ``feat`` and ``edge_values`` gradients on
-     ``backend="cuda"`` against ``backend="torch"``, ``<= 1e-5`` in the
-     same magnitude-scaled form.
+     ``plan_for(arch="gat", with_backward=True)`` (`EDGE_GRAD_SCHEDULES`):
+     one tuned for ``slot_onehot``, one for ``direct`` and a pinned
+     ``direct`` config at gs 128; the block edge-gradient kernel, which
+     every variant runs, at D in {1, 16, 128}, float32 and bfloat16, real
+     slots only, each call run twice (its real slots bit-identical).
+     Tolerance: ``max|k-p| / (1 + sum|g*f|) <= 1e-5`` and the float64
+     witness within ``gamma_D * sum|g*f|`` on every slot, as phase 2.  Then
+     the autograd `Function` on the card: ``feat`` and ``edge_values``
+     gradients on ``backend="cuda"`` against ``backend="torch"``, ``<=
+     1e-5`` in the same magnitude-scaled form.
   5. training — `repro_torch.launch.train.run` on the full pubmed replica
      (19,717 nodes, in-dim 128, 3 classes, 20 steps each, a fresh
      checkpoint directory per run): GAT hidden 16 on ``slot_onehot`` and
@@ -73,8 +71,9 @@ Phases, each timed, any failure exits non-zero before the result line:
      on ``backend="cuda"`` must match three on ``backend="torch"`` from the
      same parameters within ``max|a-b|/(1+|b|) <= 1e-4``.  The
      edge-gradient kernels are then timed at the GAT runs' hidden-width
-     shape, and the gather kernel on the GAT ``direct`` run's schedule at
-     the input width (128) and at the widths a step aggregates (16, 1).
+     shape (on each GAT run's schedule), and the gather kernel on the GAT
+     ``direct`` run's schedule at the input width (128) and at the widths a
+     step aggregates (16, 1).
 
   6. scan kernel vs plain — `kernels/selective_scan.py` at (B, S, d_inner,
      N) = (2, 64, 128, 8) (the reduced config), (3, 40, 20, 4) (ragged),
@@ -82,10 +81,13 @@ Phases, each timed, any failure exits non-zero before the result line:
      Falcon-Mamba layer of the phase-7 prefill), inputs as
      `tests/test_selective_scan.py:_inputs` from a seed.  Kernel vs the
      float32 plain version and vs the float64 witness, each
-     ``max|k-p| / (1 + max|p|) <= 1e-5``; times beside the bound (bytes
-     and FLOP terms) and the exp/log count over the special-function
-     rate, this design's floor (see `scan_bound`); the plain version timed
-     over 3 calls at full width.
+     ``max|k-p| / (1 + max|p|) <= 1e-5``; times (per call and on the
+     device alone) beside the bound (bytes and FLOP terms) and the exp/log
+     count over the special-function rate, this design's floor (see
+     `scan_bound`); the plain version timed over 3 calls at full width.
+     ``--scan-variants NAME,...`` adds the named probe instantiations
+     of the kernel (`kProbes` in selective_scan.cu), each held to the
+     same limits and timed on the device, and read through 7b and 7c.
   7. LM serving — Falcon-Mamba-7B (`repro_torch.configs.falcon_mamba_7b.full()`,
      64 layers, bf16, random weights from a seeded generator): (a)
      ``make_prefill_step(backend="cuda")`` at B 4, S 2048, 1 warm-up + 5
@@ -113,7 +115,8 @@ alone (`time_ms`); ``bound_ms`` counts what the function needs on the
 run's data: each real edge's id and value, each group holding an edge,
 each source row an edge reads and each row an edge writes, 2 FLOP per
 edge and column,
-against `repro_torch.hw.H100_SXM`; for the edge-gradient kernels each real
+against `repro_torch.hw.H100_SXM`; for the edge-gradient kernel (one
+record per TPU body it replaces, each on its body's schedule) each real
 edge's id and result, each group holding an edge, the source and
 cotangent rows edges read, 2 FLOP per edge and column; ``library_ms`` is
 one `torch.sparse.mm` for the aggregation kernels and one
@@ -153,12 +156,20 @@ SOURCES = {"group_aggregate_onehot[folded]": (
            "group_edge_grad[block]": (
                "src/repro_torch/kernels/csrc/group_edge_grad.cu",
                "src/repro/kernels/group_aggregate.py:183"),
-           "group_edge_grad[gather]": (
+           "group_edge_grad[block:direct]": (
                "src/repro_torch/kernels/csrc/group_edge_grad.cu",
                "src/repro/kernels/group_aggregate.py:224"),
            "selective_scan": (
                "src/repro_torch/kernels/csrc/selective_scan.cu",
                "src/repro/kernels/selective_scan.py:36")}
+
+
+# the `kernels` line holds one record per TPU body: the block kernel
+# replaces both edge-gradient bodies, so it has a record on the schedule
+# of each (`_edge_grad_kernel` for slot_onehot, `_direct_edge_grad_kernel`
+# for direct); both count their launches under the kernel's one counter
+EDGE_GRAD_RECORDS = {"slot_onehot": "group_edge_grad[block]",
+                     "direct": "group_edge_grad[block:direct]"}
 
 
 class SmokeFailure(Exception):
@@ -757,12 +768,25 @@ def _lib(rec: dict) -> str:
             f"{v:.4f} (device {rec['library_device_ms']:.4f})")
 
 
+# phase 4's GAT schedules of the pubmed replica: (name, variant, pinned
+# config or None for the tuner's pick).  gs 128 is past the 64 slots a
+# group the earlier direct kernel held; Eq. 3 allows it at dt <= 512.
+EDGE_GRAD_SCHEDULES = [
+    ("slot_onehot", "slot_onehot", None),
+    ("direct", "direct", None),
+    ("direct-gs128", "direct",
+     dict(gs=128, gpt=8, dt=128, src_win=512, variant="direct")),
+]
+
+
 def edge_grad_checks(detail: dict) -> list:
-    """Phase 4: both edge-gradient kernels vs their plain version on the
-    pubmed replica's GAT schedules, then the autograd Function."""
+    """Phase 4: the edge-gradient kernel vs its plain version on the pubmed
+    replica's GAT schedules (`EDGE_GRAD_SCHEDULES`), then the autograd
+    Function."""
     import torch
 
     from repro_torch.core.advisor import plan_for
+    from repro_torch.core.model import AggConfig
     from repro_torch.graphs.datasets import make_dataset
     from repro_torch.kernels import group_aggregate as ga
     from repro_torch.kernels.ops import aggregate
@@ -770,15 +794,16 @@ def edge_grad_checks(detail: dict) -> list:
 
     t0 = time.time()
     g, _, _ = make_dataset("pubmed", max_dim=1)
-    records, grads, block_on_direct = [], [], []
-    for variant in ("slot_onehot", "direct"):
+    records, grads = [], []
+    for name, variant, pinned in EDGE_GRAD_SCHEDULES:
         t1 = time.time()
         plan = plan_for(g, arch="gat", in_dim=128, hidden_dim=16,
-                        tune_iters=4, variant=variant, with_backward=True)
+                        tune_iters=4, variant=variant, with_backward=True,
+                        config=None if pinned is None else AggConfig(**pinned))
         sched, sched_bwd = plan.sched("cuda"), plan.sched_bwd("cuda")
         cfg = plan.config
         kname = ga.EDGE_GRAD_KERNEL_OF_VARIANT[variant]
-        log(f"pubmed gat {variant} ({kname}): gs={cfg.gs} gpt={cfg.gpt} "
+        log(f"pubmed gat {name} ({kname}): gs={cfg.gs} gpt={cfg.gpt} "
             f"dt={cfg.dt} src_win={cfg.src_win} tiles={sched.num_tiles} "
             f"runs={sched.num_runs} bwd tiles={sched_bwd.num_tiles} "
             f"runs={sched_bwd.num_runs} (plan {time.time() - t1:.1f}s)")
@@ -786,25 +811,12 @@ def edge_grad_checks(detail: dict) -> list:
             for dtype in (torch.float32, torch.bfloat16):
                 case = EdgeGradCase(sched, plan.graph, d, dtype, variant,
                                     cfg.dt, seed=d)
-                rec = dict(case.run(), graph="pubmed", kernel=kname)
+                rec = dict(case.run(), graph="pubmed", kernel=kname,
+                           schedule=name)
                 records.append(rec)
                 log(f"  D={d} {rec['dtype']}: {KernelCase.summary(rec)}")
-                KernelCase.holds(rec, f"pubmed {kname}")
+                KernelCase.holds(rec, f"pubmed {name} {kname}")
                 del case
-                if variant == "direct":
-                    # a reading: the block kernel takes its slots from the
-                    # schedule, so it runs on this layout too
-                    case = EdgeGradCase(sched, plan.graph, d, dtype,
-                                        "slot_onehot", cfg.dt, seed=d)
-                    rec = dict(case.run(), graph="pubmed",
-                               kernel=ga.EDGE_GRAD_KERNEL_OF_VARIANT[
-                                   "slot_onehot"], schedule="direct")
-                    block_on_direct.append(rec)
-                    log(f"  block kernel on this schedule, D={d} "
-                        f"{rec['dtype']}: {KernelCase.summary(rec)}")
-                    KernelCase.holds(rec, "pubmed block kernel on the "
-                                     "direct schedule")
-                    del case
 
         # the autograd Function on the card, cuda vs torch backends
         gen = torch.Generator(device="cuda").manual_seed(5)
@@ -843,7 +855,7 @@ def edge_grad_checks(detail: dict) -> list:
         mag_e = per_slot.reshape(-1, sched.gs)[sched.edge_slot,
                                                sched.edge_pos]
         (kf, ke), (pf, pe) = out["cuda"], out["torch"]
-        rec = {"variant": variant,
+        rec = {"schedule": name, "variant": variant,
                "feat_err_scaled": float(((kf - pf).abs() / (1 + mag_f)).max()),
                "feat_err": float(((kf - pf).abs() / (1 + pf.abs())).max()),
                "ev_err_scaled": float(((ke - pe).abs() / (1 + mag_e)).max()),
@@ -853,11 +865,10 @@ def edge_grad_checks(detail: dict) -> list:
             f"(/(1+|p|) {rec['feat_err']:.2e}) edge values "
             f"{rec['ev_err_scaled']:.2e} (/(1+|p|) {rec['ev_err']:.2e})")
         check(rec["feat_err_scaled"] <= TOL and rec["ev_err_scaled"] <= TOL,
-              f"{variant}: autograd cuda vs torch beyond {TOL}: {rec}")
+              f"{name}: autograd cuda vs torch beyond {TOL}: {rec}")
         del sched, sched_bwd, plan
         torch.cuda.empty_cache()
     detail["edge_grad"] = records
-    detail["edge_grad_block_on_direct"] = block_on_direct
     detail["autograd"] = grads
     log(f"edge-gradient checks done ({time.time() - t0:.1f}s)")
     return records
@@ -880,8 +891,8 @@ TRAIN_PHASES = [
 
 def training(detail: dict) -> dict:
     """Phase 5: the training main path, one run per (arch, variant,
-    dtype); returns the edge-gradient kernels' records at the training
-    shape, keyed by kernel name."""
+    dtype); returns the edge-gradient kernel's records at the training
+    shape, keyed by `EDGE_GRAD_RECORDS` name."""
     import dataclasses
     import shutil
     import tempfile
@@ -966,7 +977,7 @@ def training(detail: dict) -> dict:
             KernelCase.holds(krec, f"{name}: {ename} at the training shape")
             krec.update(phase=name, launches=counts[ename],
                         launches_per_step=edge_per)
-            at_training[ename] = krec
+            at_training[EDGE_GRAD_RECORDS[variant]] = krec
             rec["edge_grad_kernel"] = krec
             log(f"{name}: {ename} at {krec['tiles']} tiles ({krec['edges']} "
                 f"edges) D={krec['D']}: {KernelCase.summary(krec)}")
@@ -1042,10 +1053,52 @@ def _nerr(a, b) -> float:
     return float((a - b).abs().max() / (1.0 + b.abs().max()))
 
 
+# `--scan-variants`: names of the scan kernel's probe instantiations
+# (`kProbes` in selective_scan.cu) phases 6 and 7 read beside the shipped one
+SCAN_VARIANTS: tuple = ()
+
+
+def _scan_lib(entry: str):
+    from repro_torch.kernels import build
+    lib = build.load("selective_scan")
+    return lib, build.bind(lib, entry)
+
+
+def scan_lanes_for(B, di, N) -> int:
+    """Lanes per channel the shipped launch takes at this shape."""
+    import ctypes
+    _, fn = _scan_lib("repro_selective_scan_lanes")
+    return fn(ctypes.c_int(B), ctypes.c_int(di), ctypes.c_int(N))
+
+
+def scan_variant(name: str, args) -> "torch.Tensor":
+    """The scan kernel's probe instantiation ``name`` on ``args``, through
+    its probe entry (`repro_selective_scan_probe`; the wrapper never calls
+    it, so it adds to no count)."""
+    import ctypes
+
+    import torch
+
+    from repro_torch.kernels.build import raise_on
+    lib, fn = _scan_lib("repro_selective_scan_probe")
+    xc, b = args[0], args[2]
+    B, S, di = xc.shape
+    y = torch.empty_like(xc)
+    ptr = lambda x: ctypes.c_void_p(x.data_ptr())
+    i = ctypes.c_int
+    code = fn(ctypes.c_char_p(name.encode()), *(ptr(a) for a in args), ptr(y),
+              i(B), i(S), i(di), i(b.shape[-1]),
+              ctypes.c_void_p(torch.cuda.current_stream().cuda_stream))
+    raise_on(lib, code, f"selective_scan probe {name}")
+    return y
+
+
 def scan_checks(detail: dict) -> dict:
     """Phase 6: the scan kernel vs its plain version and the float64
     witness at the reduced, ragged and full-width layer shapes; times at
-    each.  Returns the records keyed by shape name."""
+    each (per call and on the device alone), and each launch of
+    `SCAN_VARIANTS` checked and timed beside it.  Returns the records keyed
+    by shape name."""
     import torch
 
     from repro_torch.kernels import selective_scan as ss
@@ -1063,20 +1116,38 @@ def scan_checks(detail: dict) -> dict:
               f"scan {name}: bad kernel output {tuple(k.shape)}")
         bms, by, sfu_ms = scan_bound(B, S, di, N)
         rec = {"shape": name, "B": B, "S": S, "d_inner": di, "N": N,
+               "lanes": scan_lanes_for(B, di, N),
                "max_abs_err": float((k - p).abs().max()),
                "err_plain": _nerr(k, p), "err_f64": _nerr(k, w),
                "plain_err_f64": _nerr(p, w),
-               "bound_ms": bms, "bound_by": by, "sfu_ms": sfu_ms}
+               "bound_ms": bms, "bound_by": by, "sfu_ms": sfu_ms,
+               "variants": []}
+        for v in SCAN_VARIANTS:
+            kv = scan_variant(v, args)
+            probe = {"variant": v, "err_plain": _nerr(kv, p),
+                     "err_f64": _nerr(kv, w),
+                     "device_ms": time_ms(lambda: scan_variant(v, args),
+                                          device_only=True)}
+            rec["variants"].append(probe)
+            log(f"scan {name} probe {v}: vs plain {probe['err_plain']:.2e} "
+                f"vs f64 {probe['err_f64']:.2e} "
+                f"device_ms={probe['device_ms']:.4f}")
+            check(max(probe["err_plain"], probe["err_f64"]) <= TOL,
+                  f"scan {name} probe {v}: {probe} beyond {TOL}")
+            del kv
         del p, w
         full = di >= 8192
         rec["ms"] = time_ms(lambda: ss.selective_scan(*args))
+        rec["device_ms"] = time_ms(lambda: ss.selective_scan(*args),
+                                   device_only=True)
         rec["plain_ms"] = time_ms(lambda: ss.selective_scan_plain(*args),
                                   iters=3 if full else 20,
                                   warmup=1 if full else 3)
         rec["seconds"] = time.time() - t0
-        log(f"scan {name} {(B, S, di, N)}: kernel vs plain "
-            f"{rec['err_plain']:.2e} vs f64 {rec['err_f64']:.2e} (plain "
-            f"{rec['plain_err_f64']:.2e}) ms={rec['ms']:.4f} "
+        log(f"scan {name} {(B, S, di, N)} ({rec['lanes']} lanes a channel): "
+            f"kernel vs plain {rec['err_plain']:.2e} vs f64 "
+            f"{rec['err_f64']:.2e} (plain {rec['plain_err_f64']:.2e}) "
+            f"ms={rec['ms']:.4f} (device {rec['device_ms']:.4f}) "
             f"plain={rec['plain_ms']:.3f} bound={bms:.4f} ({by}; "
             f"exp/log on the SFUs {sfu_ms:.4f}) "
             f"({rec['seconds']:.1f}s)")
@@ -1241,13 +1312,16 @@ def lm_serving(detail: dict) -> dict:
     tokens = torch.as_tensor(rng.integers(0, cfg.vocab,
                                           (LM_BATCH, LM_CMP_SEQ)),
                              device=DEVICE)
-    layer_errs = []
+    layer_errs, variant_errs = [], {v: [] for v in SCAN_VARIANTS}
 
     def probe(*args):
         y = ss.selective_scan(*args)
         plain = ss.selective_scan_plain(*args)
         witness = selective_scan_ref(*args, acc_dtype=torch.float64)
         layer_errs.append((_nerr(y, plain), _nerr(y, witness)))
+        for v in SCAN_VARIANTS:          # `--scan-variants`, read beside
+            yv = scan_variant(v, args)
+            variant_errs[v].append(max(_nerr(yv, plain), _nerr(yv, witness)))
         return y
 
     _reset_counts()
@@ -1274,6 +1348,12 @@ def lm_serving(detail: dict) -> dict:
         f"{rec['logits_err']:.3e} (max|b| {float(b.abs().max()):.3f}), "
         f"control without the kernel (fused plain vs chunked) "
         f"{rec['control_err']:.3e} ({time.time() - t0:.1f}s)")
+    rec["variant_layer_scan_errs"] = {
+        k: max(v) for k, v in variant_errs.items()}
+    for v, err in rec["variant_layer_scan_errs"].items():
+        log(f"lm scan variant {v}: every layer's output vs plain and "
+            f"float64, max {err:.3e}" + (" (over the limit)" if err > TOL
+                                         else ""))
     check(max(plain_errs) <= TOL, f"cuda vs torch scan output "
           f"{max(plain_errs):.3e} > {TOL}")
     check(max(f64_errs) <= TOL, f"cuda scan output vs float64 "
@@ -1312,6 +1392,7 @@ def lm_serving(detail: dict) -> dict:
             set_matmul_precision()
 
     errs, plain_errs = {}, {}
+    variant_errs = {v: {} for v in SCAN_VARIANTS}
     for seed in LM_F32_SEEDS:
         m32 = LMModel.create(cfg32, seed=seed, device=DEVICE)
         got = decoded(m32.params)
@@ -1319,7 +1400,17 @@ def lm_serving(detail: dict) -> dict:
         plain_errs[seed] = _nerr(got, prefilled(m32.params, "torch"))
         if seed == LM_F32_SEEDS[0]:
             tf32_err = _nerr(got, prefilled(m32.params, tf32=True))
+        for v in SCAN_VARIANTS:            # the prefill's scans through it
+            with mock.patch.object(mamba_mod, "selective_scan",
+                                   lambda *a: scan_variant(v, a)):
+                variant_errs[v][seed] = _nerr(got, prefilled(m32.params))
         del m32, got
+    rec["variant_prefill_vs_decode_errs"] = variant_errs
+    for v, by_seed in variant_errs.items():
+        log(f"lm prefill vs decode through scan variant {v}: "
+            + ", ".join(f"{k}: {e:.3e}" for k, e in by_seed.items())
+            + (" (over the limit)" if max(by_seed.values()) > F32_DECODE_TOL
+               else ""))
     rec.update(prefill_vs_decode_err=max(errs.values()),
                prefill_vs_decode_errs=errs,
                plain_prefill_vs_decode_errs=plain_errs,
@@ -1362,10 +1453,18 @@ def main(argv=None) -> int:
                     help="comma-separated subset of phases 2-7 to run "
                          f"({', '.join(PHASES)}; default all); the device "
                          "phase always runs")
-    phases = ap.parse_args(argv).phases.split(",")
+    ap.add_argument("--scan-variants", default="",
+                    help="comma-separated names of the scan kernel's probe "
+                         "instantiations (`kProbes` in selective_scan.cu) "
+                         "that phases 6 and 7 also check and time beside "
+                         "the shipped launch (default: none)")
+    args = ap.parse_args(argv)
+    phases = args.phases.split(",")
     unknown = set(phases) - set(PHASES)
     if unknown:
         ap.error(f"unknown phases {sorted(unknown)}")
+    global SCAN_VARIANTS
+    SCAN_VARIANTS = tuple(v for v in args.scan_variants.split(",") if v)
     t_start = time.time()
     try:
         import torch
@@ -1444,14 +1543,15 @@ def main(argv=None) -> int:
                                           "dt", "dtype")},
             "launches_per_batch": rec["launches_per_batch"],
             "batches_served": rec["batches_served"]})
-    for kname in dict.fromkeys(EDGE_GRAD_KERNEL_OF_VARIANT.values()):
-        if kname not in at_training:
+    for variant, rname in EDGE_GRAD_RECORDS.items():
+        if rname not in at_training:
             continue
-        rec = at_training[kname]
-        checks = [r for r in edge_sweeps if r["kernel"] == kname] + [rec]
-        source, replaces = SOURCES[kname]
+        rec = at_training[rname]
+        checks = [r for r in edge_sweeps if r["variant"] == variant] + [rec]
+        source, replaces = SOURCES[rname]
         kernels.append({
-            "name": kname, "route": "cuda", "source": source,
+            "name": rname, "counter": EDGE_GRAD_KERNEL_OF_VARIANT[variant],
+            "variant": variant, "route": "cuda", "source": source,
             "replaces": replaces, "launches": rec["launches"],
             "max_abs_err": max(r["max_abs_err"] for r in checks),
             "max_err": max(r["max_err"] for r in checks),
@@ -1482,9 +1582,11 @@ def main(argv=None) -> int:
             "err_plain": max(r["err_plain"] for r in checks),
             "err_f64": max(r["err_f64"] for r in checks),
             "plain_err_f64": max(r["plain_err_f64"] for r in checks),
-            "ms": rec["ms"], "plain_ms": rec["plain_ms"],
+            "ms": rec["ms"], "device_ms": rec["device_ms"],
+            "plain_ms": rec["plain_ms"],
             "bound_ms": rec["bound_ms"], "bound_by": rec["bound_by"],
             "sfu_ms": rec["sfu_ms"], "library_ms": None,
+            "lanes": rec["lanes"],
             "phase": "scan (timed shape); lm prefill (launches)",
             "shape": {k: rec[k] for k in ("B", "S", "d_inner", "N")},
             "launches_per_prefill": lm.get("launches_per_prefill"),

@@ -1,17 +1,18 @@
-// group_edge_grad: the edge-value cotangent of group aggregation, two kernels.
+// group_edge_grad: the edge-value cotangent of group aggregation.
 //
-// Replaces the TPU bodies of `group_edge_grad_pallas`
+// Replaces both TPU bodies of `group_edge_grad_pallas`
 // (src/repro/kernels/group_aggregate.py:289, `pl.pallas_call` at :351):
-//   block  <- `_edge_grad_kernel` :183         (variants folded, slot_onehot)
-//   gather <- `_direct_edge_grad_kernel` :224  (variant direct)
-// Both compute, for every real slot (t, g, s) of the forward group schedule,
+// `_edge_grad_kernel` :183 (variants folded, slot_onehot) and
+// `_direct_edge_grad_kernel` :224 (variant direct).  One kernel serves
+// every variant, because it reads only the real edges' slots: for every
+// real slot (t, g, s) of the forward group schedule,
 //   out[t,g,s] = sum_c grad[tile_node_block[t]*ont + local_node[t,g], c]
 //                      * feat[nbrs[t,g,s], c]
 // over all d_pad columns: the gradient of aggregation with respect to the
 // slot's edge value.  Loads are in the feature dtype (grad and feat share
 // it), products and sums in f32.  Every real slot is written exactly once,
-// with no atomics; padded slots are don't-care (the caller reads only real
-// slots).
+// with no atomics; padded slots are left unwritten (the caller reads only
+// real slots).
 //
 // Operands (row-major, contiguous):
 //   grad            (out_rows, d_pad)  f32 | bf16 | f16
@@ -19,21 +20,23 @@
 //   nbrs            (T, gpt, gs) int32
 //   local_node      (T, gpt) int32
 //   tile_node_block (T,) int32
-//   slot_of_edge    (E,) int32     block: the flat slot (edge_slot * gs +
+//   slot_of_edge    (E,) int32     the flat slot (edge_slot * gs +
 //                                  edge_pos) of each real edge
-//   run_start       (R+1,) int32   gather: tile bounds of the live runs
 //   out             (T, gpt, gs) f32
 //
-// What bounds the block kernel on the H100: latency, then L2 bytes.  At the
-// GAT training shape (pubmed replica, 146,214 edges in 2,956,000 slots, D
-// 16, f32) the real work is 146,214 x (64 B feature row + 64 B cotangent
-// row), about 19 MB, mostly from L2: 0.001 ms at device-memory rates.  Its
-// earlier design walked every slot of a run (95% of them padding) on one
-// block, each warp taking its 32 slots one after another with a 5-step
-// shuffle each (0.39 ms).  This one never looks at a padded slot: it takes
-// the real slots from the schedule (`slot_of_edge`), so its work follows
-// the edges and no run is walked serially.  The gather kernel (one warp per
-// group, every slot of the live tiles) is unchanged.
+// What bounds it on the H100: latency, then L2 bytes.  At the GAT training
+// shape (pubmed replica, 146,214 edges in 2,956,000 slots, D 16, f32) the
+// real work is 146,214 x (64 B feature row + 64 B cotangent row), about
+// 19 MB, mostly from L2: 0.001 ms at device-memory rates.  Each edge is a
+// chain of three dependent round trips (its slot, the slot's neighbour id
+// and group row, the two rows), so the time is those round trips over one
+// wave of warps.  The earlier designs walked slots: the block kernel every
+// slot of a run (95% of them padding) on one block, the direct one every
+// slot of the live tiles, a warp per group with a shuffle reduction per
+// slot and chunk of 32 columns, and lanes that held at most 64 slots of a
+// group.  This one never looks at a padded slot and takes the real slots
+// from the schedule (`slot_of_edge`), so its work follows the edges, no run
+// is walked serially, and neither the layout nor the group size limits it.
 //
 // No tensor cores: each edge is one dot product of two rows that no other
 // edge shares as a pair, so there is no matrix product to tile.
@@ -42,12 +45,6 @@
 namespace repro_torch {
 
 constexpr int kWarps = kThreads / 32;
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
 
 constexpr int kEdgeUnroll = 4;  // edges per lane group with loads in flight
 
@@ -91,7 +88,7 @@ __device__ __forceinline__ float dot16(__half, const uint4& a,
   return s;
 }
 
-// block: one lane group of lw lanes per real edge (lw = the row's 16-byte
+// One lane group of lw lanes per real edge (lw = the row's 16-byte
 // pieces up to 32; 32 / lw edges a warp at once, so at D 16 f32 a warp
 // works on 8 edges), kEdgeUnroll edges a lane group.  A lane group reads
 // its edge's flat slot, then the slot's neighbour id and the group's
@@ -157,51 +154,6 @@ edge_grad_block_kernel(const T* __restrict__ grad, const T* __restrict__ feat,
   }
 }
 
-// gather: one warp per group, over the live tiles' groups.  For each chunk
-// of 32 columns every lane loads one cotangent element of the group's row
-// (the row is read once), then for each slot one feature element; a
-// shuffle reduction gives the slot's chunk sum, which lane s % 32 adds to
-// its register (two registers per lane cover gs <= 64, the search space's
-// largest group).  Lane s stores slot s once at the end.
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-edge_grad_gather_kernel(const T* __restrict__ grad, const T* __restrict__ feat,
-                        const int* __restrict__ nbrs,
-                        const int* __restrict__ local_node,
-                        const int* __restrict__ tile_node_block,
-                        const int* __restrict__ run_start,
-                        float* __restrict__ out, int num_runs, int gs, int gpt,
-                        int ont, int d_pad) {
-  const int64_t group = (int64_t)blockIdx.x * kWarps + (threadIdx.x >> 5);
-  const int lane = threadIdx.x & 31;
-  const int64_t live_groups = (int64_t)run_start[num_runs] * gpt;
-  if (group >= live_groups) return;  // warp-uniform: pad tiles stay unwritten
-  const int t = (int)(group / gpt);
-  const int64_t row =
-      (int64_t)tile_node_block[t] * ont + __ldg(local_node + group);
-  const int* slot_nbr = nbrs + group * gs;
-  const T* grow = grad + row * d_pad;
-
-  float acc_lo = 0.f, acc_hi = 0.f;  // slots lane and 32 + lane
-  for (int c0 = 0; c0 < d_pad; c0 += 32) {
-    const int c = c0 + lane;
-    const bool in = c < d_pad;
-    const float gv = in ? to_f32(grow[c]) : 0.f;
-    for (int s = 0; s < gs; ++s) {
-      const int64_t nbr = __ldg(slot_nbr + s);
-      float part = in ? gv * to_f32(feat[nbr * d_pad + c]) : 0.f;
-      part = warp_sum(part);
-      if (lane == (s & 31)) {
-        if (s < 32) acc_lo += part;
-        else acc_hi += part;
-      }
-    }
-  }
-  float* o = out + group * gs;
-  if (lane < gs) o[lane] = acc_lo;
-  if (32 + lane < gs) o[32 + lane] = acc_hi;
-}
-
 template <typename T>
 static int launch_block(const void* grad, const void* feat, const int* nbrs,
                         const int* local_node, const int* tile_node_block,
@@ -217,21 +169,6 @@ static int launch_block(const void* grad, const void* feat, const int* nbrs,
       static_cast<const T*>(grad), static_cast<const T*>(feat), nbrs,
       local_node, tile_node_block, slot_of_edge, out, num_edges, gs, gpt, ont,
       d_pad, lw);
-  return (int)cudaGetLastError();
-}
-
-template <typename T>
-static int launch_gather(const void* grad, const void* feat, const int* nbrs,
-                         const int* local_node, const int* tile_node_block,
-                         const int* run_start, float* out, int num_runs,
-                         int num_tiles, int gs, int gpt, int ont, int d_pad,
-                         cudaStream_t stream) {
-  const int64_t groups = (int64_t)num_tiles * gpt;
-  const int blocks = (int)((groups + kWarps - 1) / kWarps);
-  edge_grad_gather_kernel<T><<<blocks, kThreads, 0, stream>>>(
-      static_cast<const T*>(grad), static_cast<const T*>(feat), nbrs,
-      local_node, tile_node_block, run_start, out, num_runs, gs, gpt, ont,
-      d_pad);
   return (int)cudaGetLastError();
 }
 
@@ -257,32 +194,6 @@ extern "C" int repro_group_edge_grad_block(
       return launch_block<__half>(grad, feat, nbrs, local_node,
                                   tile_node_block, slot_of_edge, out,
                                   num_edges, gs, gpt, ont, d_pad, s);
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
-}
-
-extern "C" int repro_group_edge_grad_gather(
-    int dtype, const void* grad, const void* feat, const int* nbrs,
-    const int* local_node, const int* tile_node_block, const int* run_start,
-    float* out, int num_runs, int num_tiles, int gs, int gpt, int ont,
-    int d_pad, void* stream) {
-  using namespace repro_torch;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (dtype) {
-    case kF32:
-      return launch_gather<float>(grad, feat, nbrs, local_node,
-                                  tile_node_block, run_start, out, num_runs,
-                                  num_tiles, gs, gpt, ont, d_pad, s);
-    case kBF16:
-      return launch_gather<__nv_bfloat16>(grad, feat, nbrs, local_node,
-                                          tile_node_block, run_start, out,
-                                          num_runs, num_tiles, gs, gpt, ont,
-                                          d_pad, s);
-    case kF16:
-      return launch_gather<__half>(grad, feat, nbrs, local_node,
-                                   tile_node_block, run_start, out, num_runs,
-                                   num_tiles, gs, gpt, ont, d_pad, s);
     default:
       return (int)cudaErrorInvalidValue;
   }

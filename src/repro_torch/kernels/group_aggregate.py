@@ -26,11 +26,12 @@ bounds its kernel on the card and what its design does about it.
 
 The edge-value cotangent, `group_edge_grad` (port of
 `group_edge_grad_pallas` :289, `pl.pallas_call` at :351), computes per
-slot ``<grad[row(t,g)], feat[nbrs[t,g,s]]>`` in `csrc/group_edge_grad.cu`:
-``folded`` / ``slot_onehot`` run the block kernel (the real slots only,
-taken from the schedule's per-edge slot index, a lane group per edge;
-replaces `_edge_grad_kernel` :183), ``direct`` the gather kernel (one warp
-per group; replaces `_direct_edge_grad_kernel` :224).
+slot ``<grad[row(t,g)], feat[nbrs[t,g,s]]>`` in `csrc/group_edge_grad.cu`: all
+three variants run the block kernel, which computes the real slots only,
+taken from the schedule's per-edge slot index (a lane group per edge), so
+it runs on any layout and group size.  It replaces both TPU bodies,
+`_edge_grad_kernel` :183 (``folded`` / ``slot_onehot``) and
+`_direct_edge_grad_kernel` :224 (``direct``).
 
 Dispatch is by device and nothing else: a CUDA tensor launches the kernel
 (or the call raises — there is no fallback), a CPU tensor runs the plain
@@ -52,7 +53,8 @@ from repro_torch.kernels import build
 from repro_torch.kernels.build import bind, check_arg, raise_on
 from repro_torch.kernels.ref import group_aggregate_ref, group_edge_grad_ref
 
-__all__ = ["VARIANTS", "KERNEL_OF_VARIANT", "EDGE_GRAD_KERNEL_OF_VARIANT",
+__all__ = ["VARIANTS", "KERNEL_OF_VARIANT", "EDGE_GRAD_KERNEL",
+           "EDGE_GRAD_KERNEL_OF_VARIANT",
            "Geometry", "group_aggregate", "group_aggregate_plain",
            "group_edge_grad", "group_edge_grad_plain", "launch_geometry",
            "launches", "reset_launches"]
@@ -63,17 +65,17 @@ KERNEL_OF_VARIANT = {"folded": "group_aggregate_onehot[folded]",
                      "slot_onehot": "group_aggregate_onehot[slot]",
                      "direct": "group_aggregate_gather"}
 PLAIN = "group_aggregate_ref"
-# the edge-value cotangent has no folded form: both one-hot variants share
-# the block kernel, as they share `_edge_grad_kernel` on the TPU
-EDGE_GRAD_KERNEL_OF_VARIANT = {"folded": "group_edge_grad[block]",
-                               "slot_onehot": "group_edge_grad[block]",
-                               "direct": "group_edge_grad[gather]"}
+# the edge-value cotangent has no folded form, and the block kernel reads
+# only the real edges' slots, so every variant's schedule runs it (the TPU
+# has `_edge_grad_kernel` and `_direct_edge_grad_kernel`)
+EDGE_GRAD_KERNEL = "group_edge_grad[block]"
+EDGE_GRAD_KERNEL_OF_VARIANT = {v: EDGE_GRAD_KERNEL for v in VARIANTS}
 EDGE_GRAD_PLAIN = "group_edge_grad_ref"
 
 # launch counts: one per kernel launch, one per plain-version call
 launches: Dict[str, int] = {
-    k: 0 for k in (*KERNEL_OF_VARIANT.values(), PLAIN,
-                   *EDGE_GRAD_KERNEL_OF_VARIANT.values(), EDGE_GRAD_PLAIN)}
+    k: 0 for k in (*KERNEL_OF_VARIANT.values(), PLAIN, EDGE_GRAD_KERNEL,
+                   EDGE_GRAD_PLAIN)}
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 # one-hot kernel launch (see csrc/group_aggregate_onehot.cu, `Layout`)
@@ -89,7 +91,6 @@ _SLOT_ROWS = 128               # W rows per chunk, slot_onehot (gc * gs)
 _GATHER_WARPS = 8              # warps per block, direct (kWarps)
 _GATHER_COLS = 4               # neighbouring columns a lane loads (kCols)
 _GATHER_LIST = 128             # live-slot list entries per warp (kListCap)
-_EDGE_GRAD_MAX_GS = 64         # slots per group the gather kernel's lanes hold
 
 
 def reset_launches() -> None:
@@ -320,20 +321,19 @@ def group_edge_grad(grad_padded: torch.Tensor, feat_padded: torch.Tensor,
     feat_padded : (N_src_pad, D_pad), the same dtype (float32 | bfloat16 |
         float16); N_src_pad % src_win == 0, D_pad % dt == 0.
     nbrs : (T, gpt, gs) int32; local_node : (T, gpt) int32;
-    tile_node_block / tile_window : (T,) int32; run_start : (R+1,) int32
-    as for `group_aggregate`.
-    variant : ``folded`` / ``slot_onehot`` run the block kernel,
-        ``direct`` the gather kernel (gs <= 64).
+    tile_node_block : (T,) int32, as for `group_aggregate`.
+    tile_window, run_start : taken as `group_aggregate` takes them, and
+        not read: the kernel follows the real edges, not the runs.
+    variant : checked, and otherwise not read: every variant runs the
+        block kernel, on any gs.
     slot_of_edge : (E,) int32, the flat slot ``edge_slot * gs + edge_pos``
         of each real edge (`kernels.ops.DeviceSchedule.slot_of_edge`); the
-        block kernel computes exactly these slots, so the CUDA path of the
-        one-hot variants needs it.  The plain version and the gather kernel
-        do not read it.
+        block kernel computes exactly these slots, so the CUDA path needs
+        it.  The plain version does not read it.
 
-    Returns (T, gpt, gs) float32.  Padded slots hold don't-care values and
-    on the CUDA path they may be left unwritten (all of them for the block
-    kernel; those of pad tiles past the live runs for the gather kernel):
-    callers read only real (edge_slot, edge_pos) entries.
+    Returns (T, gpt, gs) float32.  Padded slots hold don't-care values; on
+    the CUDA path they are left unwritten: callers read only real
+    (edge_slot, edge_pos) entries.
     """
     _check_variant(variant)
     if not feat_padded.is_cuda:
@@ -357,53 +357,35 @@ def group_edge_grad(grad_padded: torch.Tensor, feat_padded: torch.Tensor,
     check_arg("nbrs", nbrs, torch.int32, (T, gpt, gs), dev)
     check_arg("local_node", local_node, torch.int32, (T, gpt), dev)
     check_arg("tile_node_block", tile_node_block, torch.int32, (T,), dev)
-    check_arg("tile_window", tile_window, torch.int32, (T,), dev)
-    if run_start.dim() != 1 or run_start.numel() < 2:
-        raise ValueError("run_start must be (R+1,) with R >= 1")
-    check_arg("run_start", run_start, torch.int32, run_start.shape, dev)
-    num_runs = run_start.numel() - 1
 
-    kname = EDGE_GRAD_KERNEL_OF_VARIANT[variant]
-    if variant == "direct":
-        if gs > _EDGE_GRAD_MAX_GS:
-            raise ValueError(f"{kname} holds at most {_EDGE_GRAD_MAX_GS} "
-                             f"slots per group, got gs={gs}")
-    else:
-        if slot_of_edge is None:
-            raise ValueError(f"{kname} computes the real slots only: pass "
-                             f"slot_of_edge (DeviceSchedule.slot_of_edge)")
-        edges = slot_of_edge.numel()
-        if slot_of_edge.dim() != 1 or not 0 < edges <= nbrs.numel():
-            raise ValueError(f"slot_of_edge must be (E,) with 0 < E <= "
-                             f"{nbrs.numel()} slots, got "
-                             f"{tuple(slot_of_edge.shape)}")
-        check_arg("slot_of_edge", slot_of_edge, torch.int32,
-                  slot_of_edge.shape, dev)
-        # a lane loads 16 bytes of a row
-        vec = 16 // feat_padded.element_size()
-        if d_pad % vec:
-            raise ValueError(f"{kname} needs D_pad a multiple of {vec} (16 "
-                             f"bytes of {feat_padded.dtype}), got {d_pad}")
-        _check_aligned(grad_padded=grad_padded, feat_padded=feat_padded)
+    kname = EDGE_GRAD_KERNEL
+    if slot_of_edge is None:
+        raise ValueError(f"{kname} computes the real slots only: pass "
+                         f"slot_of_edge (DeviceSchedule.slot_of_edge)")
+    edges = slot_of_edge.numel()
+    if slot_of_edge.dim() != 1 or not 0 < edges <= nbrs.numel():
+        raise ValueError(f"slot_of_edge must be (E,) with 0 < E <= "
+                         f"{nbrs.numel()} slots, got "
+                         f"{tuple(slot_of_edge.shape)}")
+    check_arg("slot_of_edge", slot_of_edge, torch.int32, slot_of_edge.shape,
+              dev)
+    # a lane loads 16 bytes of a row
+    vec = 16 // feat_padded.element_size()
+    if d_pad % vec:
+        raise ValueError(f"{kname} needs D_pad a multiple of {vec} (16 "
+                         f"bytes of {feat_padded.dtype}), got {d_pad}")
+    _check_aligned(grad_padded=grad_padded, feat_padded=feat_padded)
+    lib = build.load("group_edge_grad")
+    fn = bind(lib, "repro_group_edge_grad_block")
     out = torch.empty((T, gpt, gs), dtype=torch.float32, device=dev)
     stream = ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
     ptr = lambda x: ctypes.c_void_p(x.data_ptr())
     i = ctypes.c_int
-    dcode = _DTYPE_CODE[feat_padded.dtype]
-    lib = build.load("group_edge_grad")
     with torch.cuda.device(dev):
-        if variant == "direct":
-            fn = bind(lib, "repro_group_edge_grad_gather")
-            code = fn(i(dcode), ptr(grad_padded), ptr(feat_padded), ptr(nbrs),
-                      ptr(local_node), ptr(tile_node_block), ptr(run_start),
-                      ptr(out), i(num_runs), i(T), i(gs), i(gpt), i(ont),
-                      i(d_pad), stream)
-        else:
-            fn = bind(lib, "repro_group_edge_grad_block")
-            code = fn(i(dcode), ptr(grad_padded), ptr(feat_padded), ptr(nbrs),
-                      ptr(local_node), ptr(tile_node_block), ptr(slot_of_edge),
-                      ptr(out), i(edges), i(gs), i(gpt), i(ont), i(d_pad),
-                      stream)
+        code = fn(i(_DTYPE_CODE[feat_padded.dtype]), ptr(grad_padded),
+                  ptr(feat_padded), ptr(nbrs), ptr(local_node),
+                  ptr(tile_node_block), ptr(slot_of_edge), ptr(out), i(edges),
+                  i(gs), i(gpt), i(ont), i(d_pad), stream)
     raise_on(lib, code, kname)
     launches[kname] += 1
     return out

@@ -5,8 +5,11 @@ Port of `src/repro/kernels/selective_scan.py:selective_scan_pallas` (:82,
 `csrc/selective_scan.cu`, takes the pre-activation streams (``xc`` after
 the conv and silu, ``dt_raw`` before softplus, the B and C streams) and
 computes ``y_t = C_t . h_t + D xc_t`` with ``h_t = exp(dt_t A) h_{t-1} +
-dt_t xc_t B_t``, keeping the state in registers; the source states its
-bound and mapping.  The reference's ``chunk`` / ``dt_width`` are VMEM
+dt_t xc_t B_t``: a thread per (b, d) channel holds its N states in
+registers (2 lanes a channel when the grid would leave SMs idle; the
+launch decides from the shape), and the next chunk's inputs are copied
+into shared memory while the thread walks this one; the source states its
+bound, mapping and error budget.  The reference's ``chunk`` / ``dt_width`` are VMEM
 tiling: the result does not depend on them and the kernel has neither.
 
 Dispatch is by device and nothing else: a CUDA tensor launches the kernel
@@ -30,7 +33,7 @@ __all__ = ["KERNEL", "PLAIN", "launches", "reset_launches", "selective_scan",
 
 KERNEL = "selective_scan"
 PLAIN = "selective_scan_ref"
-MAX_STATE = 32                 # lanes per channel the kernel holds
+MAX_STATE = 32                 # states per channel the kernel holds
 MAX_BATCH = 65535              # grid.y
 
 launches: Dict[str, int] = {KERNEL: 0, PLAIN: 0}

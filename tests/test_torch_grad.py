@@ -123,9 +123,10 @@ def test_edge_grad_wrapper_routes_cpu_tensors_to_plain_version(variant):
     ref = group_edge_grad_ref(grad, feat, s.nbrs, s.local_node,
                               s.tile_node_block, s.ont)
     torch.testing.assert_close(out, ref, rtol=0, atol=0)
-    assert t_ga.EDGE_GRAD_KERNEL_OF_VARIANT[variant] == (
-        "group_edge_grad[gather]" if variant == "direct"
-        else "group_edge_grad[block]")
+    # the block kernel reads only the real edges' slots, so every
+    # variant's schedule runs it
+    assert t_ga.EDGE_GRAD_KERNEL_OF_VARIANT[variant] == \
+        "group_edge_grad[block]"
 
 
 @pytest.mark.parametrize("transposed", [False, True])
@@ -183,8 +184,8 @@ class _OnCard(torch.Tensor):
         return True
 
 
-def test_block_edge_grad_refuses_a_malformed_slot_index():
-    """On the card the block kernel's wrapper refuses, before any launch, a
+def _edge_grad_refusals(variant):
+    """On the card the edge-gradient wrapper refuses, before any launch, a
     missing per-edge slot index and one of the wrong dtype, device, rank or
     length, and rows its 16-byte loads cannot take."""
     g = j_csr.random_power_law(90, 4.0, seed=5)
@@ -198,8 +199,7 @@ def test_block_edge_grad_refuses_a_malformed_slot_index():
         return t_ga.group_edge_grad(
             grad, feat, s.nbrs, s.local_node, s.tile_node_block,
             s.tile_window, s.run_start, gs=s.gs, gpt=s.gpt, ont=s.ont,
-            src_win=s.src_win, dt=dt, variant="slot_onehot",
-            slot_of_edge=slots)
+            src_win=s.src_win, dt=dt, variant=variant, slot_of_edge=slots)
 
     with pytest.raises(ValueError, match="slot_of_edge"):
         call(None)
@@ -219,6 +219,56 @@ def test_block_edge_grad_refuses_a_malformed_slot_index():
     with pytest.raises(ValueError, match="16-byte aligned"):
         call(s.slot_of_edge, grad=base[1:].view(p.padded_out_rows, 8))
     assert t_ga.launches == before
+
+
+def test_block_edge_grad_refuses_a_malformed_slot_index():
+    _edge_grad_refusals("slot_onehot")
+
+
+def test_direct_edge_grad_refuses_a_malformed_slot_index():
+    """`direct` runs the block kernel too, so its wrapper refuses what the
+    one-hot variants' does."""
+    _edge_grad_refusals("direct")
+
+
+class _ReachedBuild(Exception):
+    pass
+
+
+def test_pinned_gs128_direct_edge_grad_has_no_group_size_limit(monkeypatch):
+    """A pinned `direct` config at gs 128 (Eq. 3 allows it at dt <= 512)
+    plans, its per-slot edge cotangent on the CPU matches the reference's
+    `group_edge_grad_ref` at the real slots (float32, rtol/atol 1e-5), and
+    on the card its wrapper passes every check and goes on to build the
+    kernel: no limit on the group size stands before the launch."""
+    g = j_csr.random_power_law(300, 6.0, seed=21)
+    cfg = AggConfig(gs=128, gpt=8, dt=16, src_win=128, variant="direct")
+    plan = plan_for(g, arch="gat", in_dim=8, hidden_dim=8, config=cfg,
+                    with_backward=True)
+    assert (plan.config.gs, plan.config.variant) == (128, "direct")
+    p, s = plan.partition, plan.sched("cpu")
+    rng = np.random.default_rng(21)
+    grad = rng.standard_normal((p.padded_out_rows, 16)).astype(np.float32)
+    feat = rng.standard_normal((p.padded_src_rows, 16)).astype(np.float32)
+    kw = dict(gs=s.gs, gpt=s.gpt, ont=s.ont, src_win=s.src_win, dt=16,
+              variant="direct", slot_of_edge=s.slot_of_edge)
+    got = t_ga.group_edge_grad(torch.from_numpy(grad), torch.from_numpy(feat),
+                               s.nbrs, s.local_node, s.tile_node_block,
+                               s.tile_window, s.run_start, **kw)
+    want = j_edge_grad_ref(jnp.asarray(grad), jnp.asarray(feat), p.nbrs,
+                           p.local_node, p.tile_node_block, p.ont)
+    np.testing.assert_allclose(_real(got.numpy(), p), _real(want, p),
+                               **F32_TOL)
+
+    def load(name):
+        raise _ReachedBuild(name)
+
+    monkeypatch.setattr(t_ga.build, "load", load)
+    with pytest.raises(_ReachedBuild, match="group_edge_grad"):
+        t_ga.group_edge_grad(torch.from_numpy(grad),
+                             torch.from_numpy(feat).as_subclass(_OnCard),
+                             s.nbrs, s.local_node, s.tile_node_block,
+                             s.tile_window, s.run_start, **kw)
 
 
 # ---------------------------------------------------------------------------

@@ -104,6 +104,47 @@ def test_wrapper_on_cpu_counts_one_plain_call():
     assert sum(t_scan.launches.values()) == 0
 
 
+class _OnCard(torch.Tensor):
+    """A CPU tensor that reports itself on the card, so the wrapper takes
+    its CUDA path: every check before the launch runs, and a refusal
+    raises before anything touches CUDA."""
+
+    @property
+    def is_cuda(self):
+        return True
+
+
+class _ReachedBuild(Exception):
+    pass
+
+
+def test_scan_wrapper_refuses_past_its_limits_on_the_card(monkeypatch):
+    """On the card the scan wrapper refuses, before any launch, more than
+    32 states a channel and more than 65,535 batch rows (the grid's y
+    extent); at 32 states and 65,535 rows it passes every check and goes
+    on to build the kernel."""
+    def call(B, N):
+        rng = np.random.default_rng(0)
+        args = _t(_inputs(rng, B, 1, 4, N))
+        args[0] = args[0].as_subclass(_OnCard)
+        return t_scan.selective_scan(*args)
+
+    def load(name):
+        raise _ReachedBuild(name)
+
+    monkeypatch.setattr(t_scan.build, "load", load)
+    assert (t_scan.MAX_STATE, t_scan.MAX_BATCH) == (32, 65535)
+    t_scan.reset_launches()
+    with pytest.raises(ValueError, match="1..32 states"):
+        call(1, 33)
+    with pytest.raises(ValueError, match="at most 65535 batch rows"):
+        call(65536, 4)
+    for B, N in ((1, 32), (65535, 4)):
+        with pytest.raises(_ReachedBuild, match="selective_scan"):
+            call(B, N)
+    assert sum(t_scan.launches.values()) == 0
+
+
 def test_float64_witness():
     """``acc_dtype=float64`` runs the recurrence in float64: it matches a
     numpy float64 loop to rounding and the float32 oracle to 1e-5."""
