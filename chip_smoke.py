@@ -74,6 +74,25 @@ Phases, each timed, any failure exits non-zero before the result line:
      shape (on each GAT run's schedule), and the gather kernel on the GAT
      ``direct`` run's schedule at the input width (128) and at the widths a
      step aggregates (16, 1).
+     5b (``sampled``): `repro_torch.launch.train.run` with ``--sampled`` on
+     the full reddit replica (232,965 nodes, in-dim 128, 41 classes;
+     generated once for the three jobs), ``--fanouts 10,5 --batch-nodes
+     512``, 20 steps, the folded kernel, a fresh checkpoint directory per
+     job: GCN 2x16 in float32 and bfloat16, GIN hidden 64 (depth cut to
+     2) in float32 (`SAMPLED_JOBS`).  Launch counts zeroed just before
+     each run and read just after: the folded kernel exactly 4 times a
+     GCN step (2 forward, 2 transposed) and 3 a GIN step (block 0's raw
+     features take no gradient), the plain version never.  The mean loss
+     of the last five steps must be below the first five's; three steps
+     on ``backend="cuda"`` and three on ``"torch"`` from the same
+     parameters on the same three batches within ``max|a-b|/(1+|b|) <=
+     1e-4``.  On the run's largest batch (by block 0's edges) each block's
+     rows past its dst nodes must come back as exact zeros, and every
+     schedule a step launches the kernel over (forward at the width it
+     aggregates; transposed where the step takes that gradient) is
+     checked and timed as in phase 2.  The loader's sample p50, prefetch
+     stall p99, plan-cache hit rate, bucket count, step times and block
+     sizes are logged and written to the detail JSON.
 
   6. scan kernel vs plain — `kernels/selective_scan.py` at (B, S, d_inner,
      N) = (2, 64, 128, 8) (the reduced config), (3, 40, 20, 4) (ragged),
@@ -121,10 +140,13 @@ edge's id and result, each group holding an edge, the source and
 cotangent rows edges read, 2 FLOP per edge and column; ``library_ms`` is
 one `torch.sparse.mm` for the aggregation kernels and one
 `torch.sparse.sampled_addmm` on the same CSR pattern for the
-edge-gradient kernels, float32; the scan kernel's record is at the timed
-shape, its ``launches`` those of phase 7a's six prefills, ``sfu_ms``
-the exp/log term beside ``bound_ms``, and ``library_ms`` null: no one
-PyTorch call computes a selective scan); the last line is ``{"ok": true, "device": {...}}``.  Details of every check go to
+edge-gradient kernels, float32; the folded kernel's record adds
+``launches_sampled``, its launches in phase 5b, and its error maxima
+cover phase 5b's block-shape checks; the scan kernel's record is at the
+timed shape, its ``launches`` those of phase 7a's six prefills,
+``sfu_ms`` the exp/log term beside ``bound_ms``, and ``library_ms``
+null: no one PyTorch call computes a selective scan); the last line is
+``{"ok": true, "device": {...}}``.  Details of every check go to
 ``chiprun_out/chip_smoke_detail.json`` when that directory exists.
 """
 from __future__ import annotations
@@ -1007,6 +1029,213 @@ def training(detail: dict) -> dict:
     return at_training
 
 
+SAMPLED_STEPS = 20
+SAMPLED_COMMON = ["--sampled", "--dataset", "reddit", "--scale", "1.0",
+                  "--fanouts", "10,5", "--batch-nodes", "512",
+                  "--steps", str(SAMPLED_STEPS), "--lr", "1e-2",
+                  "--warmup", "2", "--ckpt-every", "10", "--device", "cuda",
+                  "--backend", "cuda", "--variant", "folded"]
+# (job, arch, hidden, dtype, folded launches per step, the layers whose
+#  transposed schedule a step launches: block 0's raw features take no
+#  gradient in GIN, whose first aggregation reads them directly)
+SAMPLED_JOBS = [
+    ("sampled-gcn-f32", "gcn", 16, "float32", 4, (0, 1)),
+    ("sampled-gcn-bf16", "gcn", 16, "bfloat16", 4, (0, 1)),
+    ("sampled-gin-f32", "gin", 64, "float32", 3, (1,)),
+]
+
+
+def _span_ms(doc: dict, path: str, skip: int = 1) -> float:
+    """Median of a span's durations in the run's metrics document (ms),
+    dropping the first ``skip``."""
+    ds = [r["duration_s"] for r in doc["spans"] if r["span"] == path]
+    return 1e3 * statistics.median(ds[skip:]) if len(ds) > skip else None
+
+
+def sampled_training(detail: dict) -> list:
+    """Phase 5b: neighbor-sampled training on the full reddit replica
+    through `repro_torch.launch.train.run(--sampled)`, one job per
+    `SAMPLED_JOBS` row; returns the folded kernel's records at the block
+    shapes (phase-2 checks and times), with ``launches`` the jobs'."""
+    import dataclasses
+    import shutil
+    import tempfile
+    from unittest import mock
+
+    import torch
+
+    from repro_torch.core.aggregate import PlanExecutor
+    from repro_torch.core.partition import transpose_graph
+    from repro_torch.kernels import group_aggregate as ga
+    from repro_torch.launch import train
+    from repro_torch.optim.adamw import (AdamWConfig, adamw_init,
+                                         cosine_schedule)
+    from repro_torch.sampling import SampledLoader, SampledTrainStep
+
+    build = SampledLoader.batch_for
+
+    fname = ga.KERNEL_OF_VARIANT["folded"]
+    records = []
+    detail["sampled"] = []
+    for name, arch, hidden, dtype, per_step, bwd_layers in SAMPLED_JOBS:
+        t0 = time.time()
+        ckpt = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+        want = {k: 0 for k in ga.launches}
+        want[fname] = SAMPLED_STEPS * per_step
+        # keep every batch the run's loader builds (on its worker thread;
+        # the loader is pure in the step index, so these are the batches
+        # the steps consumed): the checks below reuse them, since one
+        # reddit batch takes seconds of host work to build again
+        built = {}
+
+        def keep(loader, step):
+            built[step] = build(loader, step)
+            return built[step]
+
+        try:
+            ga.reset_launches()
+            with mock.patch.object(SampledLoader, "batch_for", keep):
+                res = train.run(SAMPLED_COMMON + [
+                    "--arch", arch, "--hidden-dim", str(hidden), "--dtype",
+                    dtype, "--ckpt-dir", ckpt])
+            counts = dict(ga.launches)
+        finally:
+            shutil.rmtree(ckpt, ignore_errors=True)
+        hist, st, cfg = res["history"], res["stats"], res["cfg"]
+        losses = [m["loss"] for m in hist]
+        log(f"{name}: launches={ {k: v for k, v in counts.items() if v} } "
+            f"steps={len(hist)} loss {losses[0]:.4f} -> {losses[-1]:.4f} "
+            f"avg_step={res['avg_step_s'] * 1e3:.2f}ms "
+            f"sample_p50={st['sample_p50_ms']:.1f}ms "
+            f"stall_p99={st['prefetch_stall_p99_ms']:.1f}ms "
+            f"hit_rate={st['cache']['hit_rate']:.3f} "
+            f"buckets={st['num_buckets']}")
+        check(res["ok"] and len(hist) == SAMPLED_STEPS,
+              f"{name}: training did not run {SAMPLED_STEPS} finite steps")
+        check(counts == want, f"{name}: launch counts {counts} != {want}")
+        first5, last5 = (statistics.mean(losses[:5]),
+                         statistics.mean(losses[-5:]))
+        check(last5 < first5, f"{name}: mean loss of the last five steps "
+              f"{last5} is not below the first five's {first5}")
+
+        loader = res["loader"]
+        check(set(range(SAMPLED_STEPS)) <= set(built),
+              f"{name}: the loader built steps {sorted(built)}")
+        raw = [built[s].raw_edges for s in range(SAMPLED_STEPS)]
+        big = max(range(SAMPLED_STEPS), key=lambda s: raw[s][0])
+        # three steps on each backend from the run's initial parameters,
+        # on the run's first three batches
+        opt = AdamWConfig(lr=1e-2, schedule=cosine_schedule(2, SAMPLED_STEPS))
+        batches = [built[s] for s in range(3)]
+        on_torch = [dataclasses.replace(b, entries=[dataclasses.replace(
+            e, executor=PlanExecutor(e.plan, backend="torch",
+                                     device=loader.device))
+            for e in b.entries]) for b in batches]
+        finals, alone_ms = [], []
+        for bs, backend in ((batches, "cuda"), (on_torch, "torch")):
+            step = SampledTrainStep(dataclasses.replace(cfg, backend=backend),
+                                    opt)
+            params = {k: v.clone() for k, v in res["init_params"].items()}
+            state = (params, adamw_init(params))
+            for b in bs:
+                t1 = time.perf_counter()
+                state, m = step(state, b)
+                float(m["loss"])            # waits for the step's kernels
+                if backend == "cuda":
+                    alone_ms.append(1e3 * (time.perf_counter() - t1))
+            finals.append(state[0])
+            if backend == "cuda":
+                # one more step, on the largest batch, under the profiler:
+                # the device's share of a step with no loader work beside it
+                # (with the wrapper's count of its launches, to read the
+                # profiler's kernel rows against)
+                before = ga.launches[fname]
+                prof = _profile(lambda: step(state, built[big]))
+                prof["folded_launches"] = ga.launches[fname] - before
+        param_err = max(float(((finals[0][k] - finals[1][k]).abs()
+                               / (1 + finals[1][k].abs())).max())
+                        for k in finals[0])
+        log(f"{name}: 3 steps cuda vs torch, params {param_err:.2e}")
+        check(param_err <= 1e-4, f"{name}: cuda vs torch parameters "
+              f"{param_err:.2e} > 1e-4")
+        del batches, on_torch, finals
+
+        batch = built[big]
+        widths = ([hidden, cfg.num_classes] if arch == "gcn"
+                  else [cfg.in_dim, hidden])
+        blocks = []
+        for layer, ent in enumerate(batch.entries):
+            ex, plan = ent.executor, ent.plan
+            # rows past the block's dst nodes hold no edge: exact zeros
+            x = torch.randn((ex.sched.num_nodes, widths[layer]),
+                            device=loader.device).to(cfg.compute_dtype)
+            raw_dst = (batch.raw_nodes[layer + 1]
+                       if layer + 1 < len(batch.raw_nodes)
+                       else batch.num_seeds)
+            with torch.no_grad():
+                out = ex(x)
+            check(bool((out[raw_dst:] == 0).all()),
+                  f"{name}: block {layer} rows past its {raw_dst} dst nodes "
+                  f"are not exact zeros")
+            ev = plan.partition.edge_values_csr()
+            gT, ev_t, _ = transpose_graph(plan.graph, ev)
+            scheds = [("fwd", ex.sched, plan.graph, ev)]
+            if layer in bwd_layers:
+                scheds.append(("bwd", ex.sched_bwd, gT, ev_t))
+            for direction, sched, graph, vals in scheds:
+                case = KernelCase(sched, graph, vals, widths[layer],
+                                  cfg.compute_dtype, "folded",
+                                  plan.config.dt, seed=11)
+                krec = case.run()
+                KernelCase.holds(krec, f"{name}: {fname} block {layer} "
+                                 f"{direction}")
+                krec.update(phase=name, layer=layer, direction=direction,
+                            step=big, raw_nodes=batch.raw_nodes[layer],
+                            raw_edges=batch.raw_edges[layer],
+                            dst_nodes=raw_dst)
+                blocks.append(krec)
+                log(f"{name}: {fname} block {layer} {direction} at "
+                    f"{krec['tiles']} tiles ({krec['live_tiles']} live, "
+                    f"{krec['edges']} edges, {krec['nodes']} nodes) "
+                    f"D={krec['D']}: {KernelCase.summary(krec)}")
+                del case
+        rec = {"phase": name, "arch": arch, "hidden": hidden,
+               "dtype": dtype, "steps": len(hist), "launches": counts,
+               "launches_per_step": per_step, "first_loss": losses[0],
+               "last_loss": losses[-1], "first5_loss": first5,
+               "last5_loss": last5,
+               "avg_step_ms": res["avg_step_s"] * 1e3,
+               "step_ms": [m["step_time_s"] * 1e3 for m in hist],
+               "wall_step_ms": _span_ms(res["doc"], "train/step"),
+               "batch_wait_ms": _span_ms(res["doc"], "train/step/batch"),
+               "sample_p50_ms": st["sample_p50_ms"],
+               "prefetch_stall_p99_ms": st["prefetch_stall_p99_ms"],
+               "cache": st["cache"], "num_buckets": st["num_buckets"],
+               "batches_built": st["batches_built"],
+               "raw_edges": [list(r) for r in raw], "largest_step": big,
+               "largest_raw_nodes": list(batch.raw_nodes),
+               "param_err": param_err, "step_alone_ms": alone_ms,
+               "step_profile": prof,
+               "kernel_device_ms_per_step": sum(
+                   r["device_ms"] for r in blocks),
+               "blocks": blocks, "seconds": time.time() - t0}
+        log(f"{name}: wall step {rec['wall_step_ms']:.2f}ms (batch wait "
+            f"{rec['batch_wait_ms']:.2f}ms); a step alone "
+            f"{statistics.median(alone_ms):.2f}ms, under the profiler "
+            f"{prof['wall_ms']:.2f}ms with {prof['device_ms']:.4f}ms on "
+            f"device (idle {prof['idle_share']:.3f}); folded device "
+            f"{rec['kernel_device_ms_per_step']:.4f}ms a step; blocks of "
+            f"step {big}: raw nodes {list(batch.raw_nodes)} edges "
+            f"{list(batch.raw_edges)}; {rec['seconds']:.1f}s")
+        for r in blocks:
+            r["launches"] = counts[fname]
+        records.extend(blocks)
+        detail["sampled"].append(rec)
+        del res, loader, batch, built
+        torch.cuda.empty_cache()
+    return records
+
+
 DEVICE = "cuda"          # phases 6-7 build their inputs here
 SCAN_SHAPES = [("reduced", (2, 64, 128, 8)), ("ragged", (3, 40, 20, 4)),
                ("layer-256", (1, 256, 8192, 16)),
@@ -1444,7 +1673,7 @@ def lm_serving(detail: dict) -> dict:
 
 PHASES = {"kernels": kernel_sweeps, "hub": hub_probe, "serving": serving,
           "edge-grad": edge_grad_checks, "training": training,
-          "scan": scan_checks, "lm": lm_serving}
+          "sampled": sampled_training, "scan": scan_checks, "lm": lm_serving}
 
 
 def main(argv=None) -> int:
@@ -1516,11 +1745,14 @@ def main(argv=None) -> int:
     sweeps, at_serving = done.get("kernels", []), done.get("serving", {})
     edge_sweeps, at_training = (done.get("edge-grad", []),
                                 done.get("training", {}))
+    at_sampled = done.get("sampled", [])
     for variant, kname in KERNEL_OF_VARIANT.items():
         if kname not in at_serving:
             continue
         rec = at_serving[kname]
-        checks = [r for r in sweeps if r["variant"] == variant] + [rec]
+        sampled = [r for r in at_sampled if r["variant"] == variant]
+        checks = [r for r in sweeps if r["variant"] == variant] + [rec] + \
+            sampled
         source, replaces = SOURCES[kname]
         kernels.append({
             "name": kname, "route": "cuda", "source": source,
@@ -1542,7 +1774,10 @@ def main(argv=None) -> int:
                                           "src_win", "nodes", "edges", "D",
                                           "dt", "dtype")},
             "launches_per_batch": rec["launches_per_batch"],
-            "batches_served": rec["batches_served"]})
+            "batches_served": rec["batches_served"],
+            **({"launches_sampled": sum(d["launches"].get(kname, 0)
+                                        for d in detail["sampled"])}
+               if sampled else {})})
     for variant, rname in EDGE_GRAD_RECORDS.items():
         if rname not in at_training:
             continue

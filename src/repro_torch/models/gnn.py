@@ -3,9 +3,10 @@ GNNAdvisor aggregation engine.
 
 Port of `src/repro/models/gnn.py` (`GNNConfig`, `gcn_edge_values`,
 `init_gnn_params`, `GNNModel.logits` / `loss`, `build_gnn`,
-`planted_labels`, `structural_labels`, `make_gnn_train_step`, plus
-`params_from_jax` to carry the reference's weights across).  The sampled
-and sharded forwards come with their slices.
+`planted_labels`, `structural_labels`, `make_gnn_train_step`, the sampled
+block forward `gnn_block_logits` / `gnn_block_loss`, plus
+`params_from_jax` to carry the reference's weights across).  The sharded
+forward comes with its slice.
 
 Training runs on either backend: `build_gnn` attaches the transposed
 backward schedule when the backend is ``"cuda"`` (or when
@@ -49,8 +50,9 @@ from repro_torch.graphs.csr import CSRGraph
 Params = Dict[str, torch.Tensor]
 
 __all__ = ["GNNConfig", "GNNModel", "build_gnn", "gcn_edge_values",
-           "init_gnn_params", "make_gnn_train_step", "params_from_jax",
-           "planted_labels", "structural_labels"]
+           "gnn_block_logits", "gnn_block_loss", "init_gnn_params",
+           "make_gnn_train_step", "params_from_jax", "planted_labels",
+           "structural_labels"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -167,6 +169,50 @@ def _masked_xent(lg: torch.Tensor, labels: torch.Tensor,
     loss = (per * mask).sum() / denom
     acc = ((lg.argmax(-1) == labels) * mask).sum() / denom
     return loss, {"loss": loss, "accuracy": acc}
+
+
+def gnn_block_logits(cfg: GNNConfig, params: Params, feat: torch.Tensor,
+                     executors) -> torch.Tensor:
+    """Sampled mini-batch forward: one bipartite block per layer.
+
+    ``executors[l]`` aggregates layer l's block (square CSR over the
+    block's source frontier, dst nodes first — `repro_torch.sampling.
+    neighbor`).  ``feat`` is (num_src_0, in_dim) in block 0's local order.
+    After each layer the activation is cropped to the next block's
+    (padded) source count: the rows dropped are the nodes no deeper layer
+    reads.  Returns (num_nodes_last, num_classes) float32; rows beyond the
+    seed count are padding (mask them in the loss).
+
+    GCN keeps its reduce-dim-first placement; GIN aggregates the full
+    width, then runs its MLP.  GAT needs per-block dynamic edge values,
+    which the sampled path does not carry (the reference refuses it too).
+    """
+    if cfg.arch not in ("gcn", "gin"):
+        raise NotImplementedError(
+            f"sampled block forward supports gcn/gin, not {cfg.arch!r}")
+    cdt = cfg.compute_dtype
+    x = feat
+    for i, ex in enumerate(executors):
+        w = params[f"w{i}"]
+        if cfg.arch == "gcn":
+            x = ex(_mmul(x, w, cdt))
+            if i < cfg.num_layers - 1:
+                x = torch.relu(x)
+        else:
+            agg = ex(x.to(cdt))
+            h = (1.0 + cfg.gin_eps) * x.to(cdt) + agg.to(cdt)
+            x = _mmul(torch.relu(_mmul(h, w, cdt)), params[f"w{i}b"], cdt)
+        if i + 1 < len(executors):
+            x = x[: executors[i + 1].sched.num_nodes]
+    return x.float()
+
+
+def gnn_block_loss(cfg: GNNConfig, params: Params, feat: torch.Tensor,
+                   labels: torch.Tensor, mask: torch.Tensor, executors):
+    """Masked loss over a sampled mini-batch's block chain (labels / mask
+    are (num_nodes_last,); mask is 0 on shape-bucket padding rows)."""
+    return _masked_xent(gnn_block_logits(cfg, params, feat, executors),
+                        labels, mask)
 
 
 def init_gnn_params(cfg: GNNConfig,

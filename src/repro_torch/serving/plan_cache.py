@@ -1,8 +1,10 @@
 """Plan cache: amortize advisor runs across serving requests.
 
 Port of `src/repro/serving/plan_cache.py` (`PlanCache`, `bucket_pow2`,
-`shape_class_fingerprint`, `graph_key`).  Two levels, from cheapest to
-most general:
+`shape_class_fingerprint`, `graph_key`), with the reference's two modes
+for the sampled loader: ``with_backward`` (train-ready plans) and
+``config_fn`` (a caller's heuristic in place of the tuner).  Two levels,
+from cheapest to most general:
 
   * **exact level** — blake2b over the (bucketed) subgraph's CSR bytes +
     edge values + arch key -> a ready `CacheEntry` (plan, device-resident
@@ -18,10 +20,10 @@ partitioning and tile counts are padded to powers of two here, so the
 kernels see a small recurring set of operand shapes.  Padded tiles carry
 all-zero edge values, so they contribute nothing to any output row.
 
-Left for later slices: measured variant selection, keyed invalidation of
-mutated graphs and the training-ready (backward) plans.  The port adds a
-``variant`` knob that stamps the gather kernel onto every plan (the
-reference reaches other variants only through measurement).
+Left for later slices: measured variant selection and keyed invalidation
+of mutated graphs.  The port adds a ``variant`` knob that stamps the
+gather kernel onto every plan (the reference reaches other variants only
+through measurement).
 """
 from __future__ import annotations
 
@@ -57,8 +59,9 @@ def shape_class_fingerprint(g: CSRGraph, arch_key: tuple = ()) -> tuple:
     config.  Pow2 size buckets + a 16-bin log2-degree histogram quantized
     to 1/4ths of the working node count (isolated nodes excluded).
     Content-BLIND, which is safe because every planned graph is ephemeral
-    and exact-keyed anyway (the serving engine's ego-graph batches): the
-    memo only ever transfers a tuned CONFIG, never a plan.  (The
+    and exact-keyed anyway (the serving engine's ego-graph batches, the
+    sampled loader's freshly drawn blocks): the memo only ever transfers a
+    tuned CONFIG, never a plan.  (The
     reference's content-aware default waits for mutable graphs.)"""
     degs = g.degrees
     degs = degs[degs > 0]
@@ -100,6 +103,16 @@ class PlanCache:
     ``variant`` is stamped onto every plan's config.  ``registry``:
     optional shared `MetricsRegistry` (hit/miss/eviction counters, build
     time, tuner cost, per-source build provenance).
+
+    ``with_backward``: every built plan also carries the transposed
+    graph's schedule (`plan_for(with_backward=True)`), so entries are
+    train-ready; the arch key gains ``("bwd",)``, so a forward-only
+    serving entry is never handed to a trainer, and with
+    ``bucket_shapes`` the backward tile count is pow2-padded beside the
+    forward's.  ``config_fn``: optional ``(CSRGraph) -> AggConfig``
+    consulted on a fingerprint miss in place of the tuner (its
+    ``feat_dtype`` forced to the cache's); the build counts under
+    ``plan_cache_builds_total{source="heuristic"}``.
     """
 
     def __init__(self, *, backend: str = "cuda", device="cuda",
@@ -108,6 +121,8 @@ class PlanCache:
                  max_configs: Optional[int] = None,
                  bucket_shapes: bool = True, seed: int = 0,
                  feat_dtype: str = "float32", variant: str = "folded",
+                 with_backward: bool = False,
+                 config_fn: Optional[Callable[[CSRGraph], AggConfig]] = None,
                  registry: Optional[MetricsRegistry] = None):
         self.backend = backend
         self.device = device
@@ -119,6 +134,8 @@ class PlanCache:
         self.max_configs = max_configs
         self.bucket_shapes = bucket_shapes
         self.seed = seed
+        self.with_backward = with_backward
+        self.config_fn = config_fn
         self._lock = threading.RLock()
         self._plans: "OrderedDict[tuple, CacheEntry]" = OrderedDict()
         self._configs: "OrderedDict[tuple, AggConfig]" = OrderedDict()
@@ -162,7 +179,7 @@ class PlanCache:
                              edge_vals: Optional[np.ndarray] = None
                              ) -> CacheEntry:
         arch_key = (arch, in_dim, hidden_dim, num_layers, self.feat_dtype,
-                    self.variant)
+                    self.variant) + (("bwd",) if self.with_backward else ())
         key = graph_key(g, edge_vals, arch_key)
         ent = self._plans.get(key)
         if ent is not None:
@@ -182,12 +199,19 @@ class PlanCache:
         else:
             self.misses += 1
             self._c_miss.inc()
-            source = "tuner"
+            source = "heuristic" if self.config_fn is not None else "tuner"
+            if self.config_fn is not None:
+                config = self.config_fn(g)
+                if config.feat_dtype != self.feat_dtype:
+                    config = dataclasses.replace(
+                        config, feat_dtype=self.feat_dtype)
+                self._set_config(fp, config)
         t_build = time.perf_counter()
         plan = plan_for(g, arch=arch, in_dim=in_dim, hidden_dim=hidden_dim,
                         num_layers=num_layers, edge_vals=edge_vals,
                         config=config, tune_mode=self.tune_mode,
                         tune_iters=self.tune_iters, seed=self.seed,
+                        with_backward=self.with_backward,
                         feat_dtype=self.feat_dtype, variant=self.variant)
         if config is None:
             self._set_config(fp, plan.config)
@@ -197,7 +221,12 @@ class PlanCache:
         if self.bucket_shapes:
             part = pad_partition_tiles(
                 plan.partition, bucket_pow2(plan.partition.num_tiles))
-            plan = dataclasses.replace(plan, partition=part)
+            part_bwd = plan.partition_bwd
+            if part_bwd is not None:
+                part_bwd = pad_partition_tiles(
+                    part_bwd, bucket_pow2(part_bwd.num_tiles))
+            plan = dataclasses.replace(plan, partition=part,
+                                       partition_bwd=part_bwd)
         ent = CacheEntry(plan=plan,
                          executor=plan.executor(self.backend, self.device),
                          fingerprint=fp)

@@ -308,6 +308,27 @@ def test_driver_cpu_smoke_loss_falls(arch, tmp_path):
     assert res["doc"]["metrics"]
 
 
+@pytest.mark.parametrize("arch,variant", [("gcn", "folded"),
+                                          ("gin", "direct")])
+def test_driver_cpu_sampled_smoke(arch, variant, tmp_path):
+    """``--sampled`` on the CPU with the reference's default fanouts and
+    batch (512 seeds, capped here to the 300 nodes): a finite loss every
+    step, the plans stamped with ``--variant``.  Without ``--max-nodes``
+    the sampled branch is uncapped."""
+    assert t_train.parse_args(["--arch", "gcn", "--sampled"]).max_nodes \
+        is None
+    res = t_train.run(CPU + ["--arch", arch, "--sampled", "--steps", "5",
+                             "--variant", variant,
+                             "--ckpt-dir", str(tmp_path / "ck")])
+    losses = [m["loss"] for m in res["history"]]
+    assert res["ok"] and len(losses) == 5 and np.isfinite(losses).all()
+    assert res["loader"].g.num_nodes == 300
+    assert res["cfg"].num_layers == 2 and res["cfg"].in_dim == 128
+    assert res["stats"]["num_buckets"] >= 1 and res["doc"]["metrics"]
+    assert {e.plan.config.variant
+            for e in res["loader"].batch_for(0).entries} == {variant}
+
+
 def test_driver_fail_at_reproduces_clean_run(tmp_path):
     """--fail-at: crash, restore the step-5 checkpoint, replay: the same
     parameters as an uninterrupted run, to atol 1e-6 (the reference's
@@ -329,7 +350,10 @@ def test_driver_fail_at_reproduces_clean_run(tmp_path):
 
 
 @pytest.mark.parametrize("flags,msg", [
-    (["--arch", "gcn", "--sampled"], "Queue 1, item 3"),
+    (["--arch", "gat", "--sampled"], "gcn/gin only"),
+    (["--arch", "gcn", "--sampled", "--shards", "2"], "Queue 1, item 5"),
+    (["--arch", "gcn", "--sampled", "--stream-deltas", "2"],
+     "Queue 1, item 6"),
     (["--arch", "gcn", "--shards", "2"], "Queue 1, item 5"),
     (["--arch", "mamba2-130m"], "LM slices"),
 ])
