@@ -83,10 +83,13 @@ Phases, each timed, any failure exits non-zero before the result line:
      each run and read just after: the folded kernel exactly 4 times a
      GCN step (2 forward, 2 transposed) and 3 a GIN step (block 0's raw
      features take no gradient), the plain version never.  The mean loss
-     of the last five steps must be below the first five's; three steps
-     on ``backend="cuda"`` and three on ``"torch"`` from the same
-     parameters on the same three batches within ``max|a-b|/(1+|b|) <=
-     1e-4``.  On the run's largest batch (by block 0's edges) each block's
+     of the last five steps must be below the first five's, with a
+     nonzero gradient norm at each of them (GCN at lr 1e-2, GIN at 1e-3,
+     where its ReLUs stay alive).  These two say only that training moves
+     and the network lives; the path's correctness checks are the next
+     two: three steps on ``backend="cuda"`` and three on ``"torch"`` from
+     the same parameters on the same three batches within
+     ``max|a-b|/(1+|b|) <= 1e-4``, and the kernel at the block shapes.  On the run's largest batch (by block 0's edges) each block's
      rows past its dst nodes must come back as exact zeros, and every
      schedule a step launches the kernel over (forward at the width it
      aggregates; transposed where the step takes that gradient) is
@@ -1032,16 +1035,18 @@ def training(detail: dict) -> dict:
 SAMPLED_STEPS = 20
 SAMPLED_COMMON = ["--sampled", "--dataset", "reddit", "--scale", "1.0",
                   "--fanouts", "10,5", "--batch-nodes", "512",
-                  "--steps", str(SAMPLED_STEPS), "--lr", "1e-2",
-                  "--warmup", "2", "--ckpt-every", "10", "--device", "cuda",
+                  "--steps", str(SAMPLED_STEPS), "--warmup", "2", "--ckpt-every", "10", "--device", "cuda",
                   "--backend", "cuda", "--variant", "folded"]
-# (job, arch, hidden, dtype, folded launches per step, the layers whose
-#  transposed schedule a step launches: block 0's raw features take no
-#  gradient in GIN, whose first aggregation reads them directly)
+# (job, arch, hidden, dtype, learning rate, folded launches per step, the
+#  layers whose transposed schedule a step launches: block 0's raw features
+#  take no gradient in GIN, whose first aggregation reads them directly).
+#  GIN's sum aggregation over reddit's scaled edge values starts its logits
+#  near 1e4; at lr 1e-2 its ReLUs die within 20 steps (loss ln 41, gradient
+#  0), so it trains at 1e-3.
 SAMPLED_JOBS = [
-    ("sampled-gcn-f32", "gcn", 16, "float32", 4, (0, 1)),
-    ("sampled-gcn-bf16", "gcn", 16, "bfloat16", 4, (0, 1)),
-    ("sampled-gin-f32", "gin", 64, "float32", 3, (1,)),
+    ("sampled-gcn-f32", "gcn", 16, "float32", 1e-2, 4, (0, 1)),
+    ("sampled-gcn-bf16", "gcn", 16, "bfloat16", 1e-2, 4, (0, 1)),
+    ("sampled-gin-f32", "gin", 64, "float32", 1e-3, 3, (1,)),
 ]
 
 
@@ -1077,7 +1082,7 @@ def sampled_training(detail: dict) -> list:
     fname = ga.KERNEL_OF_VARIANT["folded"]
     records = []
     detail["sampled"] = []
-    for name, arch, hidden, dtype, per_step, bwd_layers in SAMPLED_JOBS:
+    for name, arch, hidden, dtype, lr, per_step, bwd_layers in SAMPLED_JOBS:
         t0 = time.time()
         ckpt = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
         want = {k: 0 for k in ga.launches}
@@ -1097,14 +1102,16 @@ def sampled_training(detail: dict) -> list:
             with mock.patch.object(SampledLoader, "batch_for", keep):
                 res = train.run(SAMPLED_COMMON + [
                     "--arch", arch, "--hidden-dim", str(hidden), "--dtype",
-                    dtype, "--ckpt-dir", ckpt])
+                    dtype, "--lr", str(lr), "--ckpt-dir", ckpt])
             counts = dict(ga.launches)
         finally:
             shutil.rmtree(ckpt, ignore_errors=True)
         hist, st, cfg = res["history"], res["stats"], res["cfg"]
         losses = [m["loss"] for m in hist]
+        grad_norms = [m["grad_norm"] for m in hist]
         log(f"{name}: launches={ {k: v for k, v in counts.items() if v} } "
             f"steps={len(hist)} loss {losses[0]:.4f} -> {losses[-1]:.4f} "
+            f"grad_norm {grad_norms[0]:.4g} -> {grad_norms[-1]:.4g} "
             f"avg_step={res['avg_step_s'] * 1e3:.2f}ms "
             f"sample_p50={st['sample_p50_ms']:.1f}ms "
             f"stall_p99={st['prefetch_stall_p99_ms']:.1f}ms "
@@ -1117,6 +1124,10 @@ def sampled_training(detail: dict) -> list:
                          statistics.mean(losses[-5:]))
         check(last5 < first5, f"{name}: mean loss of the last five steps "
               f"{last5} is not below the first five's {first5}")
+        # a network whose ReLUs all died also lowers the loss (to ln C):
+        # it must still take a gradient at each of the last five steps
+        check(min(grad_norms[-5:]) > 0, f"{name}: a zero gradient in the "
+              f"last five steps {grad_norms[-5:]} (dead network)")
 
         loader = res["loader"]
         check(set(range(SAMPLED_STEPS)) <= set(built),
@@ -1125,7 +1136,7 @@ def sampled_training(detail: dict) -> list:
         big = max(range(SAMPLED_STEPS), key=lambda s: raw[s][0])
         # three steps on each backend from the run's initial parameters,
         # on the run's first three batches
-        opt = AdamWConfig(lr=1e-2, schedule=cosine_schedule(2, SAMPLED_STEPS))
+        opt = AdamWConfig(lr=lr, schedule=cosine_schedule(2, SAMPLED_STEPS))
         batches = [built[s] for s in range(3)]
         on_torch = [dataclasses.replace(b, entries=[dataclasses.replace(
             e, executor=PlanExecutor(e.plan, backend="torch",
@@ -1203,7 +1214,7 @@ def sampled_training(detail: dict) -> list:
                "dtype": dtype, "steps": len(hist), "launches": counts,
                "launches_per_step": per_step, "first_loss": losses[0],
                "last_loss": losses[-1], "first5_loss": first5,
-               "last5_loss": last5,
+               "last5_loss": last5, "lr": lr, "grad_norms": grad_norms,
                "avg_step_ms": res["avg_step_s"] * 1e3,
                "step_ms": [m["step_time_s"] * 1e3 for m in hist],
                "wall_step_ms": _span_ms(res["doc"], "train/step"),

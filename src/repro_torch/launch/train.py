@@ -278,7 +278,7 @@ def _run_sampled(args) -> dict:
     loader = SampledLoader(
         g, feat, labels, cfg,
         LoaderConfig(fanouts=fanouts, batch_nodes=args.batch_nodes,
-                     seed=args.seed, tune_iters=4, variant=args.variant),
+                     seed=args.seed, variant=args.variant),
         registry=registry)
     opt = AdamWConfig(lr=args.lr,
                       schedule=cosine_schedule(args.warmup, args.steps))

@@ -105,39 +105,32 @@ class GNNModel:
         device -> (N, num_classes) float32 (intermediate activations follow
         ``cfg.feat_dtype``)."""
         cfg = self.cfg
+        if cfg.arch != "gat":
+            # the block forward with this graph's executor at every layer
+            # (each crop keeps every row)
+            return gnn_block_logits(cfg, params, feat,
+                                    [self.executor] * cfg.num_layers)
         cdt = cfg.compute_dtype
         x = feat
         for i in range(cfg.num_layers):
-            w = params[f"w{i}"]
-            if cfg.arch == "gcn":
-                x = self.executor(_mmul(x, w, cdt))
-            elif cfg.arch == "gat":
-                # single-head GAT with DYNAMIC per-edge values through the
-                # same group schedule; attention scores stay f32
-                z = _mmul(x, w, cdt)                           # (N, h)
-                s_src = z.float() @ params[f"a{i}s"]
-                s_dst = z.float() @ params[f"a{i}d"]
-                rows, cols = self._edges
-                e = torch.nn.functional.leaky_relu(
-                    s_dst[rows] + s_src[cols], negative_slope=cfg.gat_slope)
-                # a constant shift, outside the gradient (the reference's
-                # jax.lax.stop_gradient)
-                emax = e.max().detach() if e.numel() else 0.0
-                wgt = torch.exp(e - emax)
-                num = self.executor.aggregate_edges(z, wgt)
-                den = self.executor.aggregate_edges(
-                    torch.ones((z.shape[0], 1), dtype=cdt, device=z.device),
-                    wgt)
-                x = num.float() / torch.clamp(den.float(), min=1e-9)
-                if i < cfg.num_layers - 1:
-                    x = torch.nn.functional.elu(x)
-            else:
-                # GIN: aggregate full-dim, then (1+eps)*x + agg -> 2-layer MLP
-                agg = self.executor(x.to(cdt))
-                h = (1.0 + cfg.gin_eps) * x.to(cdt) + agg.to(cdt)
-                x = _mmul(torch.relu(_mmul(h, w, cdt)), params[f"w{i}b"], cdt)
-            if cfg.arch == "gcn" and i < cfg.num_layers - 1:
-                x = torch.relu(x)
+            # single-head GAT with DYNAMIC per-edge values through the same
+            # group schedule; attention scores stay f32
+            z = _mmul(x, params[f"w{i}"], cdt)                 # (N, h)
+            s_src = z.float() @ params[f"a{i}s"]
+            s_dst = z.float() @ params[f"a{i}d"]
+            rows, cols = self._edges
+            e = torch.nn.functional.leaky_relu(
+                s_dst[rows] + s_src[cols], negative_slope=cfg.gat_slope)
+            # a constant shift, outside the gradient (the reference's
+            # jax.lax.stop_gradient)
+            emax = e.max().detach() if e.numel() else 0.0
+            wgt = torch.exp(e - emax)
+            num = self.executor.aggregate_edges(z, wgt)
+            den = self.executor.aggregate_edges(
+                torch.ones((z.shape[0], 1), dtype=cdt, device=z.device), wgt)
+            x = num.float() / torch.clamp(den.float(), min=1e-9)
+            if i < cfg.num_layers - 1:
+                x = torch.nn.functional.elu(x)
         return x.float()
 
     def loss(self, params: Params, feat: torch.Tensor, labels: torch.Tensor,
@@ -199,6 +192,7 @@ def gnn_block_logits(cfg: GNNConfig, params: Params, feat: torch.Tensor,
             if i < cfg.num_layers - 1:
                 x = torch.relu(x)
         else:
+            # aggregate full-dim, then (1+eps)*x + agg -> 2-layer MLP
             agg = ex(x.to(cdt))
             h = (1.0 + cfg.gin_eps) * x.to(cdt) + agg.to(cdt)
             x = _mmul(torch.relu(_mmul(h, w, cdt)), params[f"w{i}b"], cdt)

@@ -14,7 +14,7 @@ deterministic stream of device-ready `TrainBatch`es:
      on the ``"cuda"`` backend), whose ``bucket_shapes`` mode pads *tile*
      counts to pow2;
   3. a background thread prefetches batches into a double buffer
-     (``prefetch=2``): host-side sampling + planning for step s+1 overlaps
+     (``PREFETCH = 2``): host-side sampling + planning for step s+1 overlaps
      device compute for step s.  Out-of-order requests (a Trainer restart)
      flush the buffer and resync — determinism makes that loss-free.
 
@@ -69,17 +69,20 @@ def sampled_agg_config(g: CSRGraph):
 
 @dataclasses.dataclass(frozen=True)
 class LoaderConfig:
+    """The loader's settings.  The reference's other knobs are fixed here
+    at the values its loader runs by default: configs from
+    `sampled_agg_config` (no tuner), pow2 node and tile buckets, a ragged
+    last batch dropped, ``PREFETCH`` batches buffered, ``MAX_PLANS``
+    plans cached."""
+
     fanouts: tuple                  # per-layer fanout, forward order
     batch_nodes: int                # seeds per mini-batch
     seed: int = 0
-    bucket_shapes: bool = True      # pow2 node/tile shape bucketing
-    prefetch: int = 2               # double buffering depth
-    drop_last: bool = True          # keep every batch the same seed count
-    use_tuner: bool = False         # False: `sampled_agg_config` heuristic
-    tune_mode: str = "model"
-    tune_iters: int = 4
-    max_plans: int = 32
     variant: str = "folded"         # port: gather kernel stamped on plans
+
+
+PREFETCH = 2                        # double buffering depth
+MAX_PLANS = 32                      # plan-cache LRU bound
 
 
 @dataclasses.dataclass
@@ -156,18 +159,14 @@ class SampledLoader:
         # sampled blocks are ephemeral subgraphs keyed EXACTLY in the plan
         # cache; the shape-class fingerprint keeps the config memo hot
         self.cache = PlanCache(
-            backend=cfg.backend, device=self.device,
-            tune_mode=loader.tune_mode, tune_iters=loader.tune_iters,
-            max_plans=loader.max_plans, bucket_shapes=loader.bucket_shapes,
-            seed=loader.seed, feat_dtype=cfg.feat_dtype,
+            backend=cfg.backend, device=self.device, max_plans=MAX_PLANS,
+            bucket_shapes=True, seed=loader.seed, feat_dtype=cfg.feat_dtype,
             variant=loader.variant, with_backward=with_backward,
-            config_fn=None if loader.use_tuner else sampled_agg_config,
-            registry=self.registry)
+            config_fn=sampled_agg_config, registry=self.registry)
         self.edge_mode = "gcn" if cfg.arch == "gcn" else "scale"
         n = len(self.train_nodes)
-        b = min(loader.batch_nodes, n)
-        self.steps_per_epoch = max(
-            n // b if loader.drop_last else -(-n // b), 1)
+        # a ragged last batch is dropped: every batch has the same seeds
+        self.steps_per_epoch = max(n // min(loader.batch_nodes, n), 1)
         self._epoch_perm_cache: tuple[int, np.ndarray] = (-1, None)
         # prefetch state
         self._cond = threading.Condition()
@@ -178,7 +177,7 @@ class SampledLoader:
         self._stop = False
         self._err: Optional[BaseException] = None
         self._thread = None
-        if start_thread and loader.prefetch > 0:
+        if start_thread:
             self._thread = threading.Thread(target=self._worker, daemon=True)
             self._thread.start()
 
@@ -207,9 +206,7 @@ class SampledLoader:
                            edge_mode=self.edge_mode)
         entries, key_parts = [], []
         for blk in sb.blocks:
-            sub = blk.graph
-            if lc.bucket_shapes:
-                sub = pad_to_nodes(sub, bucket_pow2(sub.num_nodes))
+            sub = pad_to_nodes(blk.graph, bucket_pow2(blk.graph.num_nodes))
             ent = self.cache.get_or_build(
                 sub, arch=cfg.arch, in_dim=cfg.in_dim,
                 hidden_dim=cfg.hidden_dim, num_layers=cfg.num_layers,
@@ -281,7 +278,7 @@ class SampledLoader:
             while True:
                 with self._cond:
                     while (not self._stop
-                           and len(self._buf) >= self.lc.prefetch):
+                           and len(self._buf) >= PREFETCH):
                         self._cond.wait(timeout=0.5)
                     if self._stop:
                         return

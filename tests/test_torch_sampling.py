@@ -86,12 +86,12 @@ def _loaders(graphs, arch, dtype="float32", fanouts=(4, 2), batch_nodes=64,
     jl = j_loader.SampledLoader(
         jg, feat, labels, jcfg,
         j_loader.LoaderConfig(fanouts=fanouts, batch_nodes=batch_nodes,
-                              seed=0, tune_iters=2),
+                              seed=0),
         start_thread=False, with_backward=True)
     tl = t_loader.SampledLoader(
         tg, feat, labels, tcfg,
         t_loader.LoaderConfig(fanouts=fanouts, batch_nodes=batch_nodes,
-                              seed=0, tune_iters=2),
+                              seed=0),
         start_thread=False, with_backward=True)
     return jcfg, tcfg, jl, tl
 
@@ -282,7 +282,7 @@ def _port_loader(graphs, batch_nodes, **kw):
     return t_loader.SampledLoader(
         tg, feat, labels, tcfg,
         t_loader.LoaderConfig(fanouts=(4, 2), batch_nodes=batch_nodes,
-                              seed=0, tune_iters=2), **kw)
+                              seed=0), **kw)
 
 
 def test_loader_deterministic_and_epoch_coverage(graphs):
@@ -315,7 +315,7 @@ def test_prefetch_matches_batch_for_and_restart_resyncs(graphs):
 def test_prefetch_out_of_order_under_thread_switching(graphs):
     """Restarts and skips with the interpreter switching threads every few
     microseconds: every request gets its own step's batch, the buffer
-    never holds more than ``prefetch`` batches, and close() ends the
+    never holds more than ``PREFETCH`` batches, and close() ends the
     worker."""
     import sys
     order = [0, 1, 2, 0, 1, 5, 6, 7, 3, 4, 4, 9, 10, 2, 3]
@@ -328,7 +328,7 @@ def test_prefetch_out_of_order_under_thread_switching(graphs):
                 b = loader(step)
                 assert b.step == step
                 np.testing.assert_array_equal(b.seeds, want[step])
-                assert len(loader._buf) <= loader.lc.prefetch
+                assert len(loader._buf) <= t_loader.PREFETCH
             thread = loader._thread
         thread.join(timeout=10.0)
         assert not thread.is_alive()
