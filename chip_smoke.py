@@ -42,6 +42,22 @@ Phases, each timed, any failure exits non-zero before the result line:
      version never; ``--verify`` must pass (1e-5 float32, 2e-2 bfloat16)
      and a few requests must match the same engine on ``backend="torch"``.
      Then each kernel is timed at the largest schedule its run built.
+     3b (``async``): `serve_gnn`'s async tier at the gcn-f32 widths
+     (folded kernel, 3 tenants: gold / silver / bronze over ``--slo-ms
+     250``, 512 requests) offered half the synchronous gcn-f32 run's
+     req/s of the same call (a short synchronous run measures it when
+     phase 3 did not run): once with ``--policy deadline``, once with
+     ``--policy clock``, then deadline with ``--stream-deltas 4``
+     (`ASYNC_RUNS`).  Launch counts zeroed before each run and read after
+     its engine closed: the folded kernel launched, nothing else.
+     Accounting exact (``submitted == completed + rejected``, nothing
+     outstanding) with zero rejections (their reasons are printed);
+     ``--verify`` at 1e-5; four requests against a fresh engine on
+     ``backend="torch"`` within 1e-5; with deltas every update applied
+     with no error, the engine's graph and features equal to the four
+     deltas applied here, and the last chunk's requests against a fresh
+     engine on that mutated graph within 1e-5.  Per-tenant p50, p99,
+     SLO attainment and mean batch are printed.
 
   4. edge-gradient kernel vs plain — the GAT schedules of the pubmed
      replica (`make_dataset("pubmed")`, 19,717 nodes) from
@@ -95,7 +111,24 @@ Phases, each timed, any failure exits non-zero before the result line:
      aggregates; transposed where the step takes that gradient) is
      checked and timed as in phase 2.  The loader's sample p50, prefetch
      stall p99, plan-cache hit rate, bucket count, step times and block
-     sizes are logged and written to the detail JSON.
+     sizes are logged and written to the detail JSON.  A fourth job, GCN
+     float32 with ``--stream-deltas 5`` for 8 steps, swaps an
+     interaction-stream delta into the loader's graph before step 5: it
+     must be applied, every consumed batch must carry the graph epoch of
+     its step, and its cuda vs torch steps, largest batch and block
+     checks are taken on the three steps after the swap.
+     5c (``dynamic``): one interaction-stream delta (1% of the nodes'
+     worth of edges, the reference's dynamic-benchmark size) through
+     ``Plan.apply_delta`` on phase 2's gather plan of the full reddit
+     replica and on a train-ready folded GCN plan of the pubmed replica
+     (A-hat values from the mutated degrees): the patched path must run;
+     the kernel on each patched schedule (forward; transposed for pubmed)
+     is held against the plain version and the float64 witness as in
+     phase 2 and against the kernel on a fresh ``partition_graph`` of the
+     mutated graph at the same config (``/(1 + sum|ev*x|) <= 1e-5``), and
+     the autograd Function's feature gradient on the patched pubmed pair
+     against ``backend="torch"``.  The host time of ``apply_delta`` is
+     printed beside a fresh ``plan_for`` and a same-config repartition.
 
   6. scan kernel vs plain — `kernels/selective_scan.py` at (B, S, d_inner,
      N) = (2, 64, 128, 8) (the reduced config), (3, 40, 20, 4) (ragged),
@@ -145,7 +178,9 @@ one `torch.sparse.mm` for the aggregation kernels and one
 `torch.sparse.sampled_addmm` on the same CSR pattern for the
 edge-gradient kernels, float32; the folded kernel's record adds
 ``launches_sampled``, its launches in phase 5b, and its error maxima
-cover phase 5b's block-shape checks; the scan kernel's record is at the
+cover phase 5b's block-shape checks, and ``launches_async`` its launches
+in phase 3b; the gather and folded records' error maxima cover phase
+5c's patched schedules; the scan kernel's record is at the
 timed shape, its ``launches`` those of phase 7a's six prefills,
 ``sfu_ms`` the exp/log term beside ``bound_ms``, and ``library_ms``
 null: no one PyTorch call computes a selective scan); the last line is
@@ -199,6 +234,11 @@ EDGE_GRAD_RECORDS = {"slot_onehot": "group_edge_grad[block]",
 
 class SmokeFailure(Exception):
     pass
+
+
+# what one phase builds and a later one reuses: phase 2's full reddit
+# replica and its gather plan (the dynamic phase patches that plan)
+SHARED: dict = {}
 
 
 def log(msg: str) -> None:
@@ -449,6 +489,7 @@ def kernel_sweeps(detail: dict) -> list:
     cora, vals_k = gcn_edge_values(make_dataset("cora", max_dim=1)[0])
     reddit_g, _, _ = make_dataset("reddit", max_dim=1)
     reddit, vals_r = gcn_edge_values(reddit_g)
+    SHARED["reddit"] = (reddit_g, reddit, vals_r)
     log(f"graphs: pubmed n={pubmed.num_nodes} e={pubmed.num_edges}, "
         f"community n={community.num_nodes} e={community.num_edges}, "
         f"cora n={cora.num_nodes} e={cora.num_edges}, "
@@ -484,6 +525,8 @@ def kernel_sweeps(detail: dict) -> list:
                 plan = plan_for(g, arch="gcn", in_dim=dim, hidden_dim=dim,
                                 edge_vals=vals, tune_iters=4,
                                 variant=variant, config=config)
+                if name == "reddit":
+                    SHARED["reddit_plan"] = plan
             part = plan.partition
             if pad:
                 part = pad_partition_tiles(part, 1 << part.num_tiles.bit_length())
@@ -595,14 +638,10 @@ SERVE_PHASES = [
 
 def serving(detail: dict) -> dict:
     """Phase 3: the main path, one run per (arch, dtype, variant)."""
-    import dataclasses
-
-    import numpy as np
     import torch
 
     from repro_torch.kernels import group_aggregate as ga
     from repro_torch.launch import serve_gnn
-    from repro_torch.serving import ServingEngine
 
     at_serving = {}
     detail["serving"] = []
@@ -626,17 +665,8 @@ def serving(detail: dict) -> dict:
                 check(c == 0, f"{name}: unconfigured kernel {other} launched")
         # a few requests against the same engine on the plain versions
         tol = 1e-5 if eng.cfg.feat_dtype == "float32" else 2e-2
-        plain = ServingEngine(eng.graph, eng.feat,
-                              dataclasses.replace(eng.cfg, backend="torch"),
-                              params=eng.params, serving=eng.serving)
         done = [r for r in res["requests"] if r.status == "done"][:4]
-        err = 0.0
-        for r in done:
-            ref = plain.serve_batch([r.seed])[0]
-            check(np.isfinite(r.result).all() and r.result.shape == (3,),
-                  f"{name}: bad result {r.result}")
-            err = max(err, float((np.abs(r.result - ref)
-                                  / (1.0 + np.abs(ref))).max()))
+        err = _engine_err(eng, done, backend="torch")
         check(err <= tol, f"{name}: kernel engine vs torch engine {err:.2e} > {tol}")
         # the kernel at the largest schedule this run built
         ent = max(eng.cache._plans.values(),
@@ -653,7 +683,9 @@ def serving(detail: dict) -> dict:
         rec.update(phase=name, launches=counts[kname], batches_served=served,
                    launches_per_batch=counts[kname] / max(served, 1),
                    req_per_s=s["req_per_s"], p50_ms=s["p50_ms"],
-                   p99_ms=s["p99_ms"], verify_err=res["verify_err"],
+                   p99_ms=s["p99_ms"],
+                   compute_p50_ms=eng.stats.compute.percentile(50) * 1e3,
+                   verify_err=res["verify_err"],
                    torch_engine_err=err, seconds=time.time() - t0)
         detail["serving"].append(rec)
         at_serving.setdefault(kname, rec)      # the float32 run comes first
@@ -661,9 +693,171 @@ def serving(detail: dict) -> dict:
             f"kernel at {rec['tiles']} tiles ({rec['live_tiles']} live, "
             f"{rec['edges']} edges) D={rec['D']}: {KernelCase.summary(rec)} "
             f"({time.time() - t0:.1f}s)")
-        del plain, res, eng
+        del res, eng
         torch.cuda.empty_cache()
     return at_serving
+
+
+# phase 3b: the async tier at phase 3's gcn-f32 widths, three SLO tenants
+# (gold / silver / bronze over 250 ms), one schedule of 512 requests
+ASYNC_COMMON = SERVE_COMMON + ["--arch", "gcn", "--hidden-dim", "16",
+                               "--variant", "folded", "--tenants", "3",
+                               "--slo-ms", "250", "--requests", "512"]
+ASYNC_RUNS = [("async-deadline", ["--policy", "deadline"]),
+              ("async-clock", ["--policy", "clock"]),
+              ("async-deadline-deltas", ["--policy", "deadline",
+                                         "--stream-deltas", "4"])]
+
+
+def _engine_err(eng, reqs, backend=None, graph=None, feat=None):
+    """Worst ``max|a-b|/(1+|b|)`` of served results against a fresh
+    `ServingEngine` (same parameters and serving knobs) on ``backend``
+    (default: the engine's) and ``graph``/``feat`` (default: its own)."""
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch.serving import ServingEngine
+    cfg = eng.cfg if backend is None else dataclasses.replace(
+        eng.cfg, backend=backend)
+    fresh = ServingEngine(eng.graph if graph is None else graph,
+                          eng.feat if feat is None else feat, cfg,
+                          params=eng.params, serving=eng.serving)
+    err = 0.0
+    for r in reqs:
+        ref = fresh.serve_batch([r.seed])[0]
+        check(np.isfinite(r.result).all() and r.result.shape == ref.shape,
+              f"bad result {r.result}")
+        err = max(err, float((np.abs(r.result - ref)
+                              / (1.0 + np.abs(ref))).max()))
+    return err
+
+
+def _mutated_inputs(argv):
+    """The serve driver's resident graph and features with its
+    ``--stream-deltas`` stream applied, rebuilt here from its flags."""
+    import numpy as np
+
+    from repro_torch.graphs.csr import random_power_law
+    from repro_torch.launch import serve_gnn
+
+    args = serve_gnn.parse_args(argv)
+    g = random_power_law(args.num_nodes, args.avg_degree, seed=args.seed)
+    feat = np.random.default_rng(args.seed).standard_normal(
+        (g.num_nodes, args.in_dim)).astype(np.float32)
+    for d in serve_gnn._delta_stream(args, g):
+        g = g.apply_delta(d).graph
+        new = np.zeros((g.num_nodes - len(feat), args.in_dim), np.float32)
+        if d.node_feat is not None:
+            new[:len(d.node_feat)] = d.node_feat
+        feat = np.concatenate([feat, new])
+    return g, feat
+
+
+def async_serving(detail: dict) -> dict:
+    """Phase 3b: `serve_gnn`'s async tier (`ASYNC_RUNS`) at half the
+    synchronous gcn-f32 run's req/s of this call; the launch counts are
+    zeroed just before each run and read after its engine closed."""
+    import collections
+
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels import group_aggregate as ga
+    from repro_torch.launch import serve_gnn
+
+    kname = ga.KERNEL_OF_VARIANT["folded"]
+    sync = [r for r in detail.get("serving", []) if r["phase"] == "gcn-f32"]
+    if sync:
+        sync_rps, sync_compute = sync[0]["req_per_s"], sync[0][
+            "compute_p50_ms"]
+    else:
+        # this phase alone: a short synchronous run sets the offered rate
+        res = serve_gnn.run(SERVE_COMMON + ["--arch", "gcn", "--hidden-dim",
+                                            "16", "--requests", "128",
+                                            "--variant", "folded"])
+        check(res["ok"], "the synchronous gcn-f32 run failed")
+        sync_rps = res["summary"]["req_per_s"]
+        sync_compute = res["engine"].stats.compute.percentile(50) * 1e3
+        del res
+    rate = sync_rps / 2
+    log(f"async: offered {rate:.1f} req/s (half the synchronous gcn-f32 "
+        f"run's {sync_rps:.1f})")
+    runs = []
+    for name, flags in ASYNC_RUNS:
+        t0 = time.time()
+        ga.reset_launches()
+        res = serve_gnn.run(ASYNC_COMMON + flags + ["--rate", str(rate)])
+        counts = dict(ga.launches)           # after the engine's close()
+        eng, acc = res["engine"], res["accounting"]
+        reasons = collections.Counter(r.reject_reason
+                                      for r in res["all_requests"]
+                                      if r.status == "rejected")
+        compute_p50 = eng.stats.compute.percentile(50) * 1e3
+        log(f"{name}: launches={ {k: v for k, v in counts.items() if v} } "
+            f"accounting={acc} rejections={dict(reasons)} "
+            f"throughput={res['throughput_rps']:.1f} req/s "
+            f"serve_batch p50={compute_p50:.1f}ms (synchronous run "
+            f"{sync_compute:.1f}ms) updates={res['updates']} "
+            f"update_errors={res['update_errors']}")
+        for tenant, st in res["summary"].items():
+            log(f"  {tenant} ({st['slo_class']} {st['slo_ms']:.0f}ms): "
+                f"p50={st['p50_ms']:.1f}ms p99={st['p99_ms']:.1f}ms "
+                f"attainment={st['slo_attainment']:.3f} "
+                f"mean-batch={st['mean_batch']:.2f} "
+                f"batches={st['batches']}")
+        check(res["ok"], f"{name}: serve_gnn accounting/verify failed "
+              f"(verify err {res['verify_err']})")
+        check(acc["submitted"] == acc["completed"] + acc["rejected"]
+              and acc["outstanding"] == 0 and acc["rejected"] == 0,
+              f"{name}: accounting {acc}, rejections {dict(reasons)}")
+        check(counts[kname] > 0, f"{name}: {kname} never launched")
+        for other, c in counts.items():
+            check(other == kname or c == 0,
+                  f"{name}: {other} launched {c} times on the main path")
+        deltas = "--stream-deltas" in flags
+        if deltas:
+            check(res["updates"] == 4 and res["update_errors"] == 0,
+                  f"{name}: {res['updates']} updates applied, "
+                  f"{res['update_errors']} failed")
+        # the last chunk (answered on the final snapshot) against the
+        # plain versions, and against a fresh engine built on the mutated
+        # graph; without deltas the first requests
+        done = [r for r in res["requests"] if r.status == "done"][:4]
+        torch_err = _engine_err(eng, done, backend="torch")
+        fresh_err = None
+        if deltas:
+            g2, feat2 = _mutated_inputs(ASYNC_COMMON + flags)
+            check(np.array_equal(g2.indptr, eng.graph.indptr)
+                  and np.array_equal(g2.indices, eng.graph.indices)
+                  and np.array_equal(feat2, eng.feat),
+                  f"{name}: the engine's graph is not the four deltas "
+                  f"applied to the resident graph")
+            fresh_err = _engine_err(eng, done, graph=g2, feat=feat2)
+        check(torch_err <= TOL, f"{name}: kernel engine vs torch engine "
+              f"{torch_err:.2e} > {TOL}")
+        if deltas:
+            check(fresh_err <= TOL, f"{name}: after the deltas vs a fresh "
+                  f"engine on the mutated graph {fresh_err:.2e} > {TOL}")
+        rec = {"phase": name, "flags": flags, "rate_rps": rate,
+               "sync_rps": sync_rps, "launches": counts[kname],
+               "accounting": acc, "throughput_rps": res["throughput_rps"],
+               "verify_err": res["verify_err"], "torch_engine_err": torch_err,
+               "fresh_engine_err": fresh_err, "updates": res["updates"],
+               "update_errors": res["update_errors"],
+               "graph_epoch": eng.graph_epoch,
+               "serve_batch_p50_ms": compute_p50,
+               "sync_serve_batch_p50_ms": sync_compute,
+               "tenants": res["summary"], "seconds": time.time() - t0}
+        runs.append(rec)
+        log(f"{name}: verify={res['verify_err']:.2e} "
+            f"torch-engine={torch_err:.2e} "
+            f"fresh-engine={'-' if fresh_err is None else f'{fresh_err:.2e}'}"
+            f" ({rec['seconds']:.1f}s)")
+        del res, eng
+        torch.cuda.empty_cache()
+    detail["async"] = runs
+    return {"launches": sum(r["launches"] for r in runs)}
 
 
 class EdgeGradCase(KernelCase):
@@ -1035,18 +1229,27 @@ def training(detail: dict) -> dict:
 SAMPLED_STEPS = 20
 SAMPLED_COMMON = ["--sampled", "--dataset", "reddit", "--scale", "1.0",
                   "--fanouts", "10,5", "--batch-nodes", "512",
-                  "--steps", str(SAMPLED_STEPS), "--warmup", "2", "--ckpt-every", "10", "--device", "cuda",
+                  "--warmup", "2", "--ckpt-every", "10", "--device", "cuda",
                   "--backend", "cuda", "--variant", "folded"]
 # (job, arch, hidden, dtype, learning rate, folded launches per step, the
 #  layers whose transposed schedule a step launches: block 0's raw features
 #  take no gradient in GIN, whose first aggregation reads them directly).
 #  GIN's sum aggregation over reddit's scaled edge values starts its logits
 #  near 1e4; at lr 1e-2 its ReLUs die within 20 steps (loss ln 41, gradient
-#  0), so it trains at 1e-3.
+#  0), so it trains at 1e-3.  The stream job swaps an interaction-stream
+#  delta into the loader's resident graph every 5 steps (8 steps: one swap,
+#  before step 5, about 20 s of the trainer's thread at full reddit); its
+#  checks read the three batches after it.
+STREAM_EVERY, STREAM_STEPS = 5, 8
 SAMPLED_JOBS = [
-    ("sampled-gcn-f32", "gcn", 16, "float32", 1e-2, 4, (0, 1)),
-    ("sampled-gcn-bf16", "gcn", 16, "bfloat16", 1e-2, 4, (0, 1)),
-    ("sampled-gin-f32", "gin", 64, "float32", 1e-3, 3, (1,)),
+    ("sampled-gcn-f32", "gcn", 16, "float32", 1e-2, 4, (0, 1),
+     SAMPLED_STEPS, []),
+    ("sampled-gcn-bf16", "gcn", 16, "bfloat16", 1e-2, 4, (0, 1),
+     SAMPLED_STEPS, []),
+    ("sampled-gin-f32", "gin", 64, "float32", 1e-3, 3, (1,),
+     SAMPLED_STEPS, []),
+    ("sampled-gcn-f32-stream", "gcn", 16, "float32", 1e-2, 4, (0, 1),
+     STREAM_STEPS, ["--stream-deltas", str(STREAM_EVERY)]),
 ]
 
 
@@ -1082,11 +1285,12 @@ def sampled_training(detail: dict) -> list:
     fname = ga.KERNEL_OF_VARIANT["folded"]
     records = []
     detail["sampled"] = []
-    for name, arch, hidden, dtype, lr, per_step, bwd_layers in SAMPLED_JOBS:
+    for (name, arch, hidden, dtype, lr, per_step, bwd_layers, steps,
+         extra) in SAMPLED_JOBS:
         t0 = time.time()
         ckpt = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
         want = {k: 0 for k in ga.launches}
-        want[fname] = SAMPLED_STEPS * per_step
+        want[fname] = steps * per_step
         # keep every batch the run's loader builds (on its worker thread;
         # the loader is pure in the step index, so these are the batches
         # the steps consumed): the checks below reuse them, since one
@@ -1100,9 +1304,10 @@ def sampled_training(detail: dict) -> list:
         try:
             ga.reset_launches()
             with mock.patch.object(SampledLoader, "batch_for", keep):
-                res = train.run(SAMPLED_COMMON + [
+                res = train.run(SAMPLED_COMMON + extra + [
                     "--arch", arch, "--hidden-dim", str(hidden), "--dtype",
-                    dtype, "--lr", str(lr), "--ckpt-dir", ckpt])
+                    dtype, "--lr", str(lr), "--steps", str(steps),
+                    "--ckpt-dir", ckpt])
             counts = dict(ga.launches)
         finally:
             shutil.rmtree(ckpt, ignore_errors=True)
@@ -1117,8 +1322,8 @@ def sampled_training(detail: dict) -> list:
             f"stall_p99={st['prefetch_stall_p99_ms']:.1f}ms "
             f"hit_rate={st['cache']['hit_rate']:.3f} "
             f"buckets={st['num_buckets']}")
-        check(res["ok"] and len(hist) == SAMPLED_STEPS,
-              f"{name}: training did not run {SAMPLED_STEPS} finite steps")
+        check(res["ok"] and len(hist) == steps,
+              f"{name}: training did not run {steps} finite steps")
         check(counts == want, f"{name}: launch counts {counts} != {want}")
         first5, last5 = (statistics.mean(losses[:5]),
                          statistics.mean(losses[-5:]))
@@ -1129,15 +1334,30 @@ def sampled_training(detail: dict) -> list:
         check(min(grad_norms[-5:]) > 0, f"{name}: a zero gradient in the "
               f"last five steps {grad_norms[-5:]} (dead network)")
 
-        loader = res["loader"]
-        check(set(range(SAMPLED_STEPS)) <= set(built),
+        loader, stream = res["loader"], res["stream"]
+        check(set(range(steps)) <= set(built),
               f"{name}: the loader built steps {sorted(built)}")
-        raw = [built[s].raw_edges for s in range(SAMPLED_STEPS)]
-        big = max(range(SAMPLED_STEPS), key=lambda s: raw[s][0])
+        first = 0
+        if stream is not None:
+            due = list(range(STREAM_EVERY, steps, STREAM_EVERY))
+            log(f"{name}: deltas applied before steps {stream.applied_at}, "
+                f"graph epoch {st['graph_epoch']}, swaps "
+                f"{st['graph_swaps']}, nodes {loader.g.num_nodes}")
+            check(stream.applied_at == due
+                  and st["graph_swaps"] == st["graph_epoch"] == len(due),
+                  f"{name}: deltas applied at {stream.applied_at}, swaps "
+                  f"{st['graph_swaps']}, want {due}")
+            # every consumed batch was built from the graph of its step
+            epochs = [built[s].graph_epoch for s in range(steps)]
+            check(epochs == [sum(a <= s for a in due) for s in range(steps)],
+                  f"{name}: batches' graph epochs {epochs}")
+            first = due[0]
+        raw = [built[s].raw_edges for s in range(steps)]
+        big = max(range(first, steps), key=lambda s: raw[s][0])
         # three steps on each backend from the run's initial parameters,
-        # on the run's first three batches
-        opt = AdamWConfig(lr=lr, schedule=cosine_schedule(2, SAMPLED_STEPS))
-        batches = [built[s] for s in range(3)]
+        # on the run's first three batches (after the first swap)
+        opt = AdamWConfig(lr=lr, schedule=cosine_schedule(2, steps))
+        batches = [built[s] for s in range(first, first + 3)]
         on_torch = [dataclasses.replace(b, entries=[dataclasses.replace(
             e, executor=PlanExecutor(e.plan, backend="torch",
                                      device=loader.device))
@@ -1166,7 +1386,8 @@ def sampled_training(detail: dict) -> list:
         param_err = max(float(((finals[0][k] - finals[1][k]).abs()
                                / (1 + finals[1][k].abs())).max())
                         for k in finals[0])
-        log(f"{name}: 3 steps cuda vs torch, params {param_err:.2e}")
+        log(f"{name}: 3 steps cuda vs torch from step {first}, params "
+            f"{param_err:.2e}")
         check(param_err <= 1e-4, f"{name}: cuda vs torch parameters "
               f"{param_err:.2e} > 1e-4")
         del batches, on_torch, finals
@@ -1212,6 +1433,9 @@ def sampled_training(detail: dict) -> list:
                 del case
         rec = {"phase": name, "arch": arch, "hidden": hidden,
                "dtype": dtype, "steps": len(hist), "launches": counts,
+               "deltas_applied_at": (None if stream is None
+                                     else stream.applied_at),
+               "graph_epoch": st["graph_epoch"],
                "launches_per_step": per_step, "first_loss": losses[0],
                "last_loss": losses[-1], "first5_loss": first5,
                "last5_loss": last5, "lr": lr, "grad_norms": grad_norms,
@@ -1247,7 +1471,204 @@ def sampled_training(detail: dict) -> list:
     return records
 
 
-DEVICE = "cuda"          # phases 6-7 build their inputs here
+def gcn_plan_delta(delta, num_nodes: int):
+    """Mirror a raw-graph delta onto a GCN plan graph, which carries a
+    self-loop on every node: new nodes get theirs, and deleted nodes get
+    theirs back (deleting a node empties its row; the id survives)."""
+    import dataclasses
+
+    import numpy as np
+
+    def ids(x):
+        return np.asarray([] if x is None else x, np.int64).ravel()
+
+    loops = np.concatenate([
+        np.arange(num_nodes, num_nodes + delta.num_new_nodes, dtype=np.int64),
+        ids(delta.del_nodes)])
+    return dataclasses.replace(
+        delta, add_src=np.concatenate([ids(delta.add_src), loops]),
+        add_dst=np.concatenate([ids(delta.add_dst), loops]), add_val=None)
+
+
+def ahat_values(g):
+    """GCN's A-hat weights of a graph that already carries its self-loops
+    (`models.gnn.gcn_edge_values` without adding them)."""
+    import numpy as np
+    inv = 1.0 / np.sqrt(np.maximum(g.degrees.astype(np.float64), 1.0))
+    rows, cols = g.to_coo()
+    return (inv[rows] * inv[cols]).astype(np.float32)
+
+
+def dynamic_plans(detail: dict) -> list:
+    """Phase 5c: `Plan.apply_delta` on the kernels.  One interaction-stream
+    delta (1% of the nodes' worth of edge churn, as the reference's
+    dynamic benchmark sizes it) patches phase 2's gather plan of the full
+    reddit replica and a train-ready folded GCN plan of the pubmed
+    replica; each patched schedule (forward, and transposed where the
+    plan has one) is held against the plain version, the float64 witness
+    and the kernel on a fresh partition of the mutated graph at the same
+    config, and the autograd Function's feature gradient on the patched
+    pubmed pair against ``backend="torch"``."""
+    import torch
+
+    from repro_torch.core.advisor import plan_for
+    from repro_torch.core.incremental import dirty_block_fraction
+    from repro_torch.core.partition import partition_graph, transpose_graph
+    from repro_torch.graphs.csr import random_power_law
+    from repro_torch.graphs.datasets import interaction_stream, make_dataset
+    from repro_torch.kernels.ops import DeviceSchedule, aggregate
+    from repro_torch.kernels.ref import group_aggregate_ref
+    from repro_torch.models.gnn import gcn_edge_values
+
+    t0 = time.time()
+    if "reddit" in SHARED:
+        raw_r, reddit, vals_r = SHARED["reddit"]
+    else:
+        raw_r = make_dataset("reddit", max_dim=1)[0]
+        reddit, vals_r = gcn_edge_values(raw_r)
+    plan_r = SHARED.get("reddit_plan") or plan_for(
+        reddit, arch="gcn", in_dim=64, hidden_dim=64, edge_vals=vals_r,
+        tune_iters=4, variant="direct")
+    raw_p = random_power_law(19717, 4.5, seed=0)
+    pubmed, vals_p = gcn_edge_values(raw_p)
+    plan_p = plan_for(pubmed, arch="gcn", in_dim=16, hidden_dim=16,
+                      edge_vals=vals_p, tune_iters=4, variant="folded",
+                      with_backward=True)
+    log(f"dynamic: plans ready ({time.time() - t0:.1f}s)")
+    # (name, raw graph, plan, variant, planning width, widths, dtypes)
+    cases = [("reddit", raw_r, plan_r, "direct", 64, (64,), (torch.float32,)),
+             ("pubmed", raw_p, plan_p, "folded", 16, (16,),
+              (torch.float32, torch.bfloat16))]
+    records, host = [], []
+    for name, raw, plan, variant, dim, widths, dtypes in cases:
+        cfg = plan.config
+        wb = plan.partition_bwd is not None
+        eb = max(64, raw.num_nodes // 100)
+        delta = next(interaction_stream(raw, num_batches=1,
+                                        edges_per_batch=eb, seed=0))
+        # the dirty share a delta of 1% of the EDGES would give
+        big = next(interaction_stream(raw, num_batches=1,
+                                      edges_per_batch=raw.num_edges // 100,
+                                      seed=0))
+        res_big = raw.apply_delta(big)
+        frac_big = dirty_block_fraction(res_big.dirty_rows,
+                                        res_big.graph.num_nodes, cfg.ont)
+        del res_big, big
+        t1 = time.perf_counter()
+        plan2 = plan.apply_delta(gcn_plan_delta(delta, plan.graph.num_nodes),
+                                 edge_vals=ahat_values)
+        t_inc = time.perf_counter() - t1
+        g2 = plan2.graph
+        ev2 = ahat_values(g2)
+        t1 = time.perf_counter()
+        plan_for(g2, arch="gcn", in_dim=dim, hidden_dim=dim, edge_vals=ev2,
+                 tune_iters=4, variant=variant, with_backward=wb)
+        t_scratch = time.perf_counter() - t1
+        t1 = time.perf_counter()
+        knobs = dict(gs=cfg.gs, gpt=cfg.gpt, ont=cfg.ont, src_win=cfg.src_win)
+        fresh = [("fwd", plan2.partition, None, partition_graph(
+            g2, edge_vals=ev2, **knobs), g2, ev2)]
+        if wb:
+            gT, evT, _ = transpose_graph(g2, ev2)
+            fresh.append(("bwd", plan2.partition_bwd, plan2.edge_perm_bwd,
+                          partition_graph(gT, edge_vals=evT, **knobs), gT,
+                          evT))
+        t_repart = time.perf_counter() - t1
+        st = plan2.stats
+        h = {"graph": name, "nodes": g2.num_nodes, "edges": g2.num_edges,
+             "delta_edges": eb, "mode": st["incremental"],
+             "dirty_fraction": st["dirty_fraction"],
+             "dirty_fraction_1pct_edges": frac_big, "tiles": st["tiles"],
+             "apply_delta_ms": 1e3 * t_inc, "plan_for_ms": 1e3 * t_scratch,
+             "repartition_ms": 1e3 * t_repart,
+             "speedup": t_scratch / t_inc,
+             "repartition_speedup": t_repart / t_inc}
+        host.append(h)
+        log(f"{name} {variant} (gs={cfg.gs} gpt={cfg.gpt} ont={cfg.ont} "
+            f"src_win={cfg.src_win}): delta of {eb} edges -> "
+            f"{st['incremental']}, dirty {st['dirty_fraction']:.4f} "
+            f"(1% of the edges would dirty {frac_big:.4f}); host: "
+            f"apply_delta {h['apply_delta_ms']:.1f}ms, fresh plan_for "
+            f"{h['plan_for_ms']:.1f}ms ({h['speedup']:.1f}x), repartition "
+            f"at the config {h['repartition_ms']:.1f}ms "
+            f"({h['repartition_speedup']:.1f}x)")
+        check(st["incremental"] == "patched",
+              f"{name}: Plan.apply_delta took the {st['incremental']} path")
+        check(plan2.epoch == plan.epoch + 1, f"{name}: epoch not bumped")
+        for direction, part, perm, part_f, graph, vals in fresh:
+            sp = DeviceSchedule(part, DEVICE, edge_perm=perm)
+            sf = DeviceSchedule(part_f, DEVICE)
+            n = sp.num_nodes
+            visited = torch.repeat_interleave(sp.block_visited, sp.ont)[:n]
+            check(torch.equal(visited, torch.repeat_interleave(
+                sf.block_visited, sf.ont)[:n]),
+                  f"{name} {direction}: patched and fresh schedules visit "
+                  f"other node blocks")
+            for d in widths:
+                for dtype in dtypes:
+                    case = KernelCase(sp, graph, vals, d, dtype, variant,
+                                      cfg.dt, seed=d, device=DEVICE)
+                    rec = dict(case.run(), graph=name, direction=direction,
+                               schedule="patched")
+                    KernelCase.holds(rec, f"{name} {variant} patched "
+                                     f"{direction}")
+                    case_f = KernelCase(sf, graph, vals, d, dtype, variant,
+                                        cfg.dt, seed=d, device=DEVICE)
+                    kp, kf = case.kernel()[:n, :d], case_f.kernel()[:n, :d]
+                    mag = case.oracle(case.feat_p.double().abs(),
+                                      sp.edge_val.double().abs())[:n, :d]
+                    rec["fresh_err_scaled"] = float(
+                        ((kp - kf).double().abs() / (1.0 + mag))[visited]
+                        .max())
+                    rec["fresh_ms"] = time_ms(case_f.kernel)
+                    rec["fresh_device_ms"] = time_ms(case_f.kernel,
+                                                     device_only=True)
+                    rec["fresh_tiles"] = sf.num_tiles
+                    records.append(rec)
+                    log(f"  {direction} D={d} {rec['dtype']} "
+                        f"({rec['tiles']} tiles, fresh {sf.num_tiles}): "
+                        f"{KernelCase.summary(rec)}; vs fresh "
+                        f"{rec['fresh_err_scaled']:.2e}, fresh device "
+                        f"{rec['fresh_device_ms']:.4f}ms")
+                    check(rec["fresh_err_scaled"] <= TOL,
+                          f"{name} {direction}: patched vs fresh schedule "
+                          f"{rec['fresh_err_scaled']:.2e} > {TOL}")
+                    del case, case_f
+            if direction == "bwd":
+                # the autograd Function over the patched pair
+                gen = torch.Generator(device=DEVICE).manual_seed(5)
+                fwd = plan2.sched(DEVICE)
+                feat = torch.randn((n, 16), generator=gen, device=DEVICE)
+                cot = torch.randn((n, 16), generator=gen, device=DEVICE)
+                grads = {}
+                for backend in ("cuda", "torch"):
+                    f = feat.clone().requires_grad_(True)
+                    y = aggregate(f, fwd, dt=cfg.dt, backend=backend,
+                                  variant=variant, sched_bwd=sp)
+                    (y * cot).sum().backward()
+                    grads[backend] = f.grad.double()
+                mag_f = group_aggregate_ref(
+                    torch.nn.functional.pad(cot.abs(), (0, 0, 0,
+                                                        sp.padded_src_rows - n)),
+                    sp.nbrs, sp.edge_val.abs(), sp.local_node,
+                    sp.tile_node_block, sp.ont, sp.padded_out_rows,
+                    acc_dtype=torch.float64)[:n]
+                gerr = float(((grads["cuda"] - grads["torch"]).abs()
+                              / (1 + mag_f)).max())
+                h["autograd_feat_err_scaled"] = gerr
+                log(f"  autograd on the patched pair, cuda vs torch: feat "
+                    f"{gerr:.2e}")
+                check(gerr <= TOL, f"{name}: autograd cuda vs torch on the "
+                      f"patched pair {gerr:.2e} > {TOL}")
+            del sp, sf
+            torch.cuda.empty_cache()
+        del plan2, fresh
+    SHARED.pop("reddit_plan", None)
+    detail["dynamic"] = {"host": host, "kernels": records}
+    return records
+
+
+DEVICE = "cuda"          # phases 5c, 6 and 7 build their inputs here
 SCAN_SHAPES = [("reduced", (2, 64, 128, 8)), ("ragged", (3, 40, 20, 4)),
                ("layer-256", (1, 256, 8192, 16)),
                ("timed", (4, 2048, 8192, 16))]
@@ -1683,8 +2104,9 @@ def lm_serving(detail: dict) -> dict:
 
 
 PHASES = {"kernels": kernel_sweeps, "hub": hub_probe, "serving": serving,
-          "edge-grad": edge_grad_checks, "training": training,
-          "sampled": sampled_training, "scan": scan_checks, "lm": lm_serving}
+          "async": async_serving, "edge-grad": edge_grad_checks,
+          "training": training, "sampled": sampled_training,
+          "dynamic": dynamic_plans, "scan": scan_checks, "lm": lm_serving}
 
 
 def main(argv=None) -> int:
@@ -1757,13 +2179,14 @@ def main(argv=None) -> int:
     edge_sweeps, at_training = (done.get("edge-grad", []),
                                 done.get("training", {}))
     at_sampled = done.get("sampled", [])
+    at_dynamic = done.get("dynamic", [])
     for variant, kname in KERNEL_OF_VARIANT.items():
         if kname not in at_serving:
             continue
         rec = at_serving[kname]
         sampled = [r for r in at_sampled if r["variant"] == variant]
-        checks = [r for r in sweeps if r["variant"] == variant] + [rec] + \
-            sampled
+        checks = [r for r in sweeps + at_dynamic
+                  if r["variant"] == variant] + [rec] + sampled
         source, replaces = SOURCES[kname]
         kernels.append({
             "name": kname, "route": "cuda", "source": source,
@@ -1788,7 +2211,9 @@ def main(argv=None) -> int:
             "batches_served": rec["batches_served"],
             **({"launches_sampled": sum(d["launches"].get(kname, 0)
                                         for d in detail["sampled"])}
-               if sampled else {})})
+               if sampled else {}),
+            **({"launches_async": done["async"]["launches"]}
+               if variant == "folded" and "async" in done else {})})
     for variant, rname in EDGE_GRAD_RECORDS.items():
         if rname not in at_training:
             continue

@@ -1,16 +1,17 @@
 """The Plan IR — the one plan object every execution layer consumes.
 
-Port of `src/repro/core/plan.py` (`Plan` with `fingerprint`, `save`,
-`load`, the node-order plumbing and the device schedules).  A `Plan` is
+Port of `src/repro/core/plan.py` (`Plan` with `fingerprint`,
+`apply_delta`, `save`, `load`, the node-order plumbing and the device
+schedules).  A `Plan` is
 the advisor's output and the runtime's input: the static group schedule
 (forward and, optionally, the transposed backward pair), the tuned
 `AggConfig`, the renumber permutation, and the extracted properties that
 justified the choices.
 
 The npz layout is the reference's (schema version 2), so a plan saved by
-either package loads in the other.  `apply_delta` (mutable graphs) and
-`shards` (sharded execution) wait for their slices; PyTorch runs eagerly,
-so the reference's jit-argument convention has no counterpart here.
+either package loads in the other.  `shards` (sharded execution) waits
+for its slice; PyTorch runs eagerly, so the reference's jit-argument
+convention has no counterpart here.
 """
 from __future__ import annotations
 
@@ -50,6 +51,9 @@ class Plan:
     # training backward schedule) + its edge permutation
     partition_bwd: Optional[GroupPartition] = None
     edge_perm_bwd: Optional[np.ndarray] = None
+    # deltas applied since the plan was first built (0 = from scratch);
+    # travels through the npz schema and every cache key that must tell
+    # snapshots of one logical graph apart
     epoch: int = 0
 
     # ---------------- identity / versioning ----------------
@@ -72,6 +76,111 @@ class Plan:
             cached = h.hexdigest()
             self._fingerprint_cache = cached
         return cached
+
+    # ---------------- incremental maintenance ----------------
+
+    def apply_delta(self, delta, *, edge_vals: Optional[np.ndarray] = None,
+                    threshold: float = 0.25):
+        """Apply a `repro_torch.graphs.delta.GraphDelta` and return a NEW
+        plan (epoch + 1) for the mutated graph, re-partitioning only the
+        node blocks the delta dirties (`repro_torch.core.incremental`) —
+        including the paired backward schedule when the plan carries one.  Above a
+        ``threshold`` dirty-block fraction (either direction) the
+        schedules are rebuilt from scratch at the same config instead
+        (``stats["incremental"]`` records which path ran).
+
+        Delta node ids are in the plan's EXTERNAL (pre-renumber) order;
+        new nodes extend the permutation with identity ids.  ``edge_vals``
+        optionally supplies the mutated graph's full (E2,) per-edge values
+        in the new plan-order CSR edge order (the GCN path, whose degree
+        normalization changes on structurally clean rows); by default
+        surviving edges keep their scheduled values and inserted edges
+        take the delta's ``add_val``.  Because the plan-order edge array
+        only exists once the delta has been applied, ``edge_vals`` may
+        also be a CALLABLE ``(mutated plan-order CSRGraph) -> (E2,)`` —
+        the GCN serving and training paths derive A-hat weights from the
+        mutated graph's own degrees this way."""
+        from repro_torch.core import incremental as inc
+        from repro_torch.core.partition import (partition_graph, transpose_graph)
+        from repro_torch.graphs.delta import carry_edge_values
+
+        n = self.graph.num_nodes
+        n2 = n + delta.num_new_nodes
+        perm2 = self.perm
+        if perm2 is not None:
+            perm2 = np.concatenate([perm2,
+                                    np.arange(n, n2, dtype=perm2.dtype)])
+
+            def remap(x):
+                return (None if x is None
+                        else perm2[np.asarray(x, np.int64).ravel()])
+
+            delta = dataclasses.replace(
+                delta, add_src=remap(delta.add_src),
+                add_dst=remap(delta.add_dst),
+                del_src=remap(delta.del_src), del_dst=remap(delta.del_dst),
+                del_nodes=remap(delta.del_nodes))
+        res = self.graph.apply_delta(delta)
+        g2 = res.graph
+
+        if edge_vals is not None:
+            if callable(edge_vals):
+                edge_vals = edge_vals(g2)
+            ev2 = np.asarray(edge_vals, np.float32)
+            if len(ev2) != g2.num_edges:
+                raise ValueError("edge_vals must align with the mutated "
+                                 "graph's plan-order edge array")
+        else:
+            old_vals = self.partition.edge_values_csr()
+            unit = old_vals is None or bool((old_vals == 1.0).all())
+            if unit and delta.add_val is None:
+                # unit-valued plan stays unit-valued: None lets the patch
+                # reuse kept tiles' value slabs instead of re-scattering E
+                ev2 = None
+            elif old_vals is None:
+                ev2 = res.inserted_val.copy()
+            else:
+                ev2 = carry_edge_values(res, old_vals)
+
+        cfg = self.config
+        frac = inc.dirty_block_fraction(res.dirty_rows, n2, cfg.ont)
+        old_to_new = dirty_src = None
+        if self.partition_bwd is not None:
+            old_to_new, dirty_src = inc.bwd_dirty_sources(
+                self.graph, g2, res.edge_origin)
+            frac = max(frac,
+                       inc.dirty_block_fraction(dirty_src, n2, cfg.ont))
+
+        part_bwd = eperm = None
+        if frac > threshold:
+            mode = "fallback"
+            part = partition_graph(g2, gs=cfg.gs, gpt=cfg.gpt, ont=cfg.ont,
+                                   src_win=cfg.src_win, edge_vals=ev2)
+            if self.partition_bwd is not None:
+                gT, ev_t, eperm = transpose_graph(g2, ev2)
+                part_bwd = partition_graph(
+                    gT, gs=cfg.gs, gpt=cfg.gpt, ont=cfg.ont,
+                    src_win=cfg.src_win, edge_vals=ev_t)
+        else:
+            mode = "patched"
+            part = inc.patch_partition(self.partition, g2, res.dirty_rows,
+                                       res.edge_origin, ev2)
+            if self.partition_bwd is not None:
+                part_bwd, eperm = inc.patch_partition_bwd(
+                    self.partition_bwd, self.edge_perm_bwd, self.graph, g2,
+                    old_to_new, dirty_src, ev2)
+
+        plan = Plan(
+            graph=g2, partition=part, config=cfg, graph_props=None,
+            arch=self.arch, perm=perm2, tuner=None,
+            stats={"incremental": mode,
+                   "dirty_fraction": round(float(frac), 6),
+                   "dirty_rows": int(len(res.dirty_rows)),
+                   "tiles": int(part.num_tiles)},
+            reduce_dim_first=self.reduce_dim_first,
+            partition_bwd=part_bwd, edge_perm_bwd=eperm,
+            epoch=self.epoch + 1)
+        return plan
 
     # ---------------- node-order plumbing ----------------
 

@@ -1,1 +1,2 @@
-"""Synthetic graphs, CSR structure and ego-graph extraction (numpy)."""
+"""Synthetic graphs, CSR structure, graph deltas and ego-graph extraction
+(numpy)."""

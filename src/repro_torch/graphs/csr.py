@@ -1,7 +1,6 @@
 """CSR graph structure and synthetic graph generators.
 
-Port of `src/repro/graphs/csr.py` (numpy only, carried over verbatim;
-`apply_delta` waits for the mutable-graph slice).
+Port of `src/repro/graphs/csr.py` (numpy only, carried over verbatim).
 
 Everything here is host-side numpy: graph preprocessing (extraction,
 partitioning, renumbering) is a one-time cost the paper performs on CPU as
@@ -112,6 +111,15 @@ class CSRGraph:
     def to_coo(self) -> tuple[np.ndarray, np.ndarray]:
         rows = np.repeat(np.arange(self.num_nodes, dtype=np.int32), self.degrees)
         return rows, self.indices.copy()
+
+    def apply_delta(self, delta):
+        """Apply a `repro_torch.graphs.delta.GraphDelta`: returns a
+        `DeltaResult` carrying the new CSR (``.graph``), the affected
+        destination rows (``.dirty_rows``), and the per-edge provenance map
+        incremental plan maintenance consumes (``.edge_origin``).  This
+        graph is left untouched."""
+        from repro_torch.graphs.delta import apply_delta
+        return apply_delta(self, delta)
 
 
 def from_edges(num_nodes: int, src: np.ndarray, dst: np.ndarray,

@@ -1,7 +1,6 @@
 """Synthetic replicas of the paper's evaluation datasets (Table 1).
 
-Port of `src/repro/graphs/datasets.py` (numpy only; `interaction_stream`
-waits for the mutable-graph slice).
+Port of `src/repro/graphs/datasets.py` (numpy only, carried over verbatim).
 
 The paper's graphs are not shipped offline, so each entry regenerates a
 synthetic graph matching the published (N, E, D, #classes) and the structural
@@ -30,7 +29,8 @@ import numpy as np
 
 from repro_torch.graphs.csr import CSRGraph, random_community_graph, random_power_law
 
-__all__ = ["DatasetSpec", "PAPER_DATASETS", "make_dataset", "dataset_names"]
+__all__ = ["DatasetSpec", "PAPER_DATASETS", "make_dataset", "dataset_names",
+           "interaction_stream"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -114,3 +114,55 @@ def make_dataset(name: str, *, scale: float = 1.0, max_nodes: int | None = None,
     feat = rng.standard_normal((g.num_nodes, dim)).astype(np.float32)
     return g, spec, feat
 
+
+def interaction_stream(g: CSRGraph, *, num_batches: int,
+                       edges_per_batch: int, feat_dim: int = 0,
+                       new_node_frac: float = 0.05,
+                       delete_frac: float = 0.1, seed: int = 0):
+    """Deterministic synthetic mutation stream against ``g``: yields
+    ``num_batches`` `repro_torch.graphs.delta.GraphDelta`s modelling a
+    production interaction log.
+
+    Endpoints follow a power-law popularity distribution drawn from the
+    SEED graph's degrees (popular nodes keep getting edges — the skew the
+    paper's §4.1.1 input properties describe), ``new_node_frac`` of each
+    batch's insertions attach a fresh node (appended ids, random features
+    when ``feat_dim`` > 0), and ``delete_frac`` of the batch removes
+    edges that existed in the seed snapshot.  The generator tracks the
+    running node count so chained deltas stay id-consistent; it never
+    inspects the mutated graphs, so batches can be pre-drawn or replayed
+    (everything is a pure function of ``seed``).
+    """
+    from repro_torch.graphs.delta import GraphDelta
+
+    rng = np.random.default_rng((seed, 0xD311A))
+    deg = g.degrees.astype(np.float64) + 1.0
+    pop = deg / deg.sum()
+    rows0 = np.repeat(np.arange(g.num_nodes, dtype=np.int64), g.degrees)
+    num_nodes = g.num_nodes
+    for _ in range(num_batches):
+        n_new = int(edges_per_batch * new_node_frac)
+        n_del = min(int(edges_per_batch * delete_frac), g.num_edges)
+        n_add = max(edges_per_batch - n_del, n_new)
+        # popularity-weighted endpoints among the seed nodes; fresh nodes
+        # attach their first interactions to popular endpoints
+        add_src = rng.choice(g.num_nodes, size=n_add, p=pop)
+        add_dst = rng.choice(g.num_nodes, size=n_add, p=pop)
+        if n_new:
+            new_ids = num_nodes + np.arange(n_new, dtype=np.int64)
+            half = rng.random(n_new) < 0.5
+            add_src[:n_new] = np.where(half, new_ids, add_src[:n_new])
+            add_dst[:n_new] = np.where(half, add_dst[:n_new], new_ids)
+        keep = add_src != add_dst
+        add_src, add_dst = add_src[keep], add_dst[keep]
+        if n_del:
+            eid = rng.choice(g.num_edges, size=n_del, replace=False)
+            del_src, del_dst = g.indices[eid].astype(np.int64), rows0[eid]
+        else:
+            del_src = del_dst = None
+        feat = (rng.standard_normal((n_new, feat_dim)).astype(np.float32)
+                if n_new and feat_dim else None)
+        yield GraphDelta(num_new_nodes=n_new, add_src=add_src,
+                         add_dst=add_dst, del_src=del_src, del_dst=del_dst,
+                         node_feat=feat)
+        num_nodes += n_new

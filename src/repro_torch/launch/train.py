@@ -22,6 +22,11 @@ the graph: full-size Type III graphs train where full-batch cannot.
     PYTHONPATH=src python -m repro_torch.launch.train --arch gcn --sampled \
         --dataset reddit --scale 1.0 --fanouts 10,5 --batch-nodes 512
 
+    # ... with an interaction-stream delta (1% of the edges) swapped into
+    # the loader's resident graph every 4 steps
+    PYTHONPATH=src python -m repro_torch.launch.train --arch gcn --sampled \
+        --dataset reddit --stream-deltas 4
+
 Full-graph labels come from a frozen random teacher of the same
 architecture (`models.gnn.planted_labels`), so the task is learnable and
 the loss falls; sampled runs use `structural_labels` (no full-graph
@@ -29,8 +34,9 @@ teacher forward: that is the pass sampling exists to avoid).  Port flags
 beside the reference's: ``--device cuda|cpu`` (default cuda; raises
 without CUDA), ``--backend cuda|torch`` (hand-written kernels or plain
 PyTorch) and ``--variant folded|slot_onehot|direct`` (the gather kernel).
-``--shards``, ``--stream-deltas`` and the LM architectures wait for their
-slices and exit with an error naming the ROADMAP item that ports them.
+``--stream-deltas`` requires ``--sampled``, as in the reference.
+``--shards`` and the LM architectures wait for their slices and exit with
+an error naming the ROADMAP item that ports them.
 """
 from __future__ import annotations
 
@@ -42,6 +48,39 @@ import tempfile
 import time
 
 GNN_ARCHS = ("gcn", "gin", "gat")
+
+
+class _DeltaStream:
+    """Wrap a batch_fn: before step ``k*every`` is served, apply the next
+    `interaction_stream` delta to the loader.  The swap happens at the
+    loader's safe batch boundary; mutated steps resample from the new
+    snapshot.  Restart-safe: a replayed step does not re-apply its delta
+    (the mutation stream is consumed at most once per step)."""
+
+    def __init__(self, batch_fn, loader, stream, every: int):
+        self.batch_fn = batch_fn
+        self.loader = loader
+        self.stream = stream
+        self.every = every
+        self.applied_at: list = []      # steps whose delta was applied
+        self._seen: set = set()
+
+    @property
+    def applied(self) -> int:
+        return len(self.applied_at)
+
+    def __call__(self, step: int):
+        if step and step % self.every == 0 and step not in self._seen:
+            self._seen.add(step)
+            delta = next(self.stream, None)
+            if delta is not None:
+                self.loader.update_graph(delta)
+                self.applied_at.append(step)
+        return self.batch_fn(step)
+
+    def close(self):
+        close = getattr(self.batch_fn, "close", None)
+        (close or self.loader.close)()
 
 
 def parse_args(argv=None) -> argparse.Namespace:
@@ -89,7 +128,11 @@ def parse_args(argv=None) -> argparse.Namespace:
     p.add_argument("--shards", type=int, default=1,
                    help="graph shards (not ported: 1 only)")
     p.add_argument("--stream-deltas", type=int, default=0,
-                   help="graph deltas every N steps (not ported: 0 only)")
+                   help="with --sampled: apply one synthetic interaction-"
+                        "stream delta to the resident graph every N steps")
+    p.add_argument("--stream-edges", type=int, default=0,
+                   help="edges per streamed delta (default ~1%% of the "
+                        "seed graph's edges)")
     p.add_argument("--seed", type=int, default=0)
     args = p.parse_args(argv)
     if args.arch not in GNN_ARCHS:
@@ -99,9 +142,11 @@ def parse_args(argv=None) -> argparse.Namespace:
     if args.sampled and args.arch not in ("gcn", "gin"):
         p.error("--sampled supports gcn/gin only (the reference refuses "
                 "GAT too)")
-    if args.stream_deltas:
-        p.error("--stream-deltas is not ported yet (ROADMAP.md Queue 1, "
-                "item 6: mutable graphs)")
+    if args.stream_deltas < 0 or args.stream_edges < 0:
+        p.error("--stream-deltas and --stream-edges must be >= 0")
+    if args.stream_deltas and not args.sampled:
+        p.error("--stream-deltas requires --sampled (the resident-graph "
+                "loader owns the swap protocol)")
     if args.shards != 1:
         p.error("--shards is not ported yet (ROADMAP.md Queue 1, item 5: "
                 "sharding)")
@@ -245,8 +290,9 @@ def _run_sampled(args) -> dict:
     fanout sampler -> per-block train-ready plan cache -> eager step on
     the entries' executors -> fault-tolerant Trainer loop.  Returns
     ``{"ok", "cfg", "loader", "step_fn", "trainer", "init_params",
-    "history", "first_loss", "last_loss", "avg_step_s", "stats", "doc"}``
-    (``stats`` is the loader's, with ``num_buckets``)."""
+    "history", "first_loss", "last_loss", "avg_step_s", "stats", "doc",
+    "stream"}`` (``stats`` is the loader's, with ``num_buckets``;
+    ``stream`` the `_DeltaStream` under ``--stream-deltas``, else None)."""
     import torch
 
     from repro_torch.device import resolve_device
@@ -283,6 +329,18 @@ def _run_sampled(args) -> dict:
     opt = AdamWConfig(lr=args.lr,
                       schedule=cosine_schedule(args.warmup, args.steps))
     step_fn = SampledTrainStep(cfg, opt)
+    batch_fn, stream = loader, None
+    if args.stream_deltas:
+        from repro_torch.graphs.datasets import interaction_stream
+        eb = args.stream_edges or max(32, g.num_edges // 100)
+        batch_fn = stream = _DeltaStream(
+            loader, loader,
+            interaction_stream(g, num_batches=args.steps // args.stream_deltas
+                               + 1, edges_per_batch=eb, feat_dim=in_dim,
+                               seed=args.seed),
+            args.stream_deltas)
+        print(f"[train] streaming deltas: every {args.stream_deltas} steps, "
+              f"{eb} edges/batch", flush=True)
     params = init_gnn_params(cfg, torch.Generator().manual_seed(args.seed))
     init_params = {k: v.detach().clone() for k, v in params.items()}
     # the parameter shapes and the batch stream both depend on these flags
@@ -291,15 +349,18 @@ def _run_sampled(args) -> dict:
         f"repro_torch_train_sampled_{args.arch}_{args.dataset}"
         f"_n{args.max_nodes}_s{args.scale}_h{args.hidden_dim}"
         f"_f{'-'.join(map(str, fanouts))}_b{args.batch_nodes}"
+        f"_d{args.stream_deltas}x{args.stream_edges}"
         f"_{args.backend}_{args.dtype}_{args.variant}_{args.seed}")
-    res = _train(args, step_fn, loader, (params, adamw_init(params)),
+    res = _train(args, step_fn, batch_fn, (params, adamw_init(params)),
                  ckpt_dir, registry, tracer)
     st = dict(loader.stats(), num_buckets=step_fn.num_buckets)
+    deltas = (f"graph_epoch={st['graph_epoch']} "
+              if st["graph_swaps"] else "")
     print(f"[train] arch={args.arch} backend={args.backend} "
           f"dtype={args.dtype} variant={args.variant} sampled "
           f"fanouts={fanouts} batch={args.batch_nodes} "
           f"steps={len(res['history'])} first_loss={res['first_loss']:.4f} "
-          f"last_loss={res['last_loss']:.4f} "
+          f"last_loss={res['last_loss']:.4f} {deltas}"
           f"avg_step={res['avg_step_s'] * 1e3:.2f}ms "
           f"buckets={step_fn.num_buckets} "
           f"cache_hit_rate={st['cache']['hit_rate']:.2f} "
@@ -307,7 +368,7 @@ def _run_sampled(args) -> dict:
           f"stall_p99={st['prefetch_stall_p99_ms']:.1f}ms "
           f"wall={res['wall_s']:.1f}s", flush=True)
     return dict(res, cfg=cfg, loader=loader, step_fn=step_fn,
-                init_params=init_params, stats=st)
+                init_params=init_params, stats=st, stream=stream)
 
 
 def main(argv=None) -> int:

@@ -1,7 +1,8 @@
 """Mini-batch loader + train step for neighbor-sampled GNN training.
 
 Port of `src/repro/sampling/loader.py` (`sampled_agg_config`,
-`LoaderConfig`, `TrainBatch`, `SampledLoader`, `SampledTrainStep`).
+`LoaderConfig`, `TrainBatch`, `SampledLoader` with its graph swap,
+`SampledTrainStep`).
 `SampledLoader` turns a resident graph + features + labels into a
 deterministic stream of device-ready `TrainBatch`es:
 
@@ -25,9 +26,15 @@ a synchronous copy from pageable host memory, so a batch in the buffer is
 complete on the device before the consumer sees it; a worker exception
 reaches the consumer and no half-built batch is ever buffered.
 
-Left for later slices: ``update_graph`` and its swap machinery (mutable
-graphs, ROADMAP Queue 1 item 6) and ``ShardedSampledTrainStep``
-(sharding, item 5).
+Mutable graphs: `SampledLoader.update_graph` hands a new snapshot to the
+worker, which installs it between batch builds.  A batch built from the
+old snapshot is never handed out once ``update_graph`` has returned:
+buffered batches are dropped, a batch in flight is discarded when it
+finishes, and the consumer waits for the swap before it takes a batch.
+Every batch carries the ``graph_epoch`` it was built from.
+
+Left for a later slice: ``ShardedSampledTrainStep`` (sharding, ROADMAP
+Queue 1 item 5).
 """
 from __future__ import annotations
 
@@ -41,6 +48,7 @@ import torch
 
 from repro_torch.device import resolve_device, set_matmul_precision
 from repro_torch.graphs.csr import CSRGraph
+from repro_torch.graphs.delta import extend_node_features
 from repro_torch.graphs.subgraph import pad_to_nodes
 from repro_torch.models.gnn import GNNConfig, gnn_block_loss
 from repro_torch.obs import MetricsRegistry
@@ -100,6 +108,7 @@ class TrainBatch:
     key: tuple                      # shape-bucket signature (statics + shapes)
     raw_nodes: tuple                # per-block UNPADDED src counts
     raw_edges: tuple                # per-block UNPADDED edge counts
+    graph_epoch: int = 0            # loader graph epoch it was built from
 
 
 class SampledLoader:
@@ -156,6 +165,11 @@ class SampledLoader:
         self._c_resync = self.registry.counter(
             "loader_resyncs_total",
             desc="prefetch-buffer flushes on out-of-order access (restarts)")
+        self._c_swaps = self.registry.counter(
+            "loader_graph_swaps_total",
+            desc="resident-graph replacements applied at batch boundaries")
+        self._g_epoch = self.registry.gauge(
+            "loader_graph_epoch", desc="delta generation of the resident graph")
         # sampled blocks are ephemeral subgraphs keyed EXACTLY in the plan
         # cache; the shape-class fingerprint keeps the config memo hot
         self.cache = PlanCache(
@@ -164,22 +178,32 @@ class SampledLoader:
             variant=loader.variant, with_backward=with_backward,
             config_fn=sampled_agg_config, registry=self.registry)
         self.edge_mode = "gcn" if cfg.arch == "gcn" else "scale"
-        n = len(self.train_nodes)
-        # a ragged last batch is dropped: every batch has the same seeds
-        self.steps_per_epoch = max(n // min(loader.batch_nodes, n), 1)
-        self._epoch_perm_cache: tuple[int, np.ndarray] = (-1, None)
+        self._default_train_nodes = train_nodes is None
+        self.graph_epoch = 0
+        self._set_steps_per_epoch()
         # prefetch state
         self._cond = threading.Condition()
         self._buf: dict[int, TrainBatch] = {}
         self._head = 0                  # next step the worker picks up
         self._inflight: Optional[int] = None  # step the worker is computing
         self._last_req = 0              # most recently requested step
+        self._resume = 0                # the step the consumer needs next
+        self._pending_swap = None       # (g, feat, labels, epoch) installed
+        #                                 at a batch boundary (update_graph)
+        self._update_lock = threading.Lock()  # serializes update_graph
         self._stop = False
         self._err: Optional[BaseException] = None
         self._thread = None
         if start_thread:
             self._thread = threading.Thread(target=self._worker, daemon=True)
             self._thread.start()
+
+    def _set_steps_per_epoch(self) -> None:
+        n = len(self.train_nodes)
+        # a ragged last batch is dropped: every batch has the same seeds
+        self.steps_per_epoch = max(n // max(min(self.lc.batch_nodes, n), 1),
+                                   1)
+        self._epoch_perm_cache: tuple[int, np.ndarray] = (-1, None)
 
     # ---------------- deterministic batch construction ----------------
 
@@ -238,21 +262,99 @@ class SampledLoader:
             key=(cfg.arch, cfg.backend, cfg.feat_dtype, p0,
                  tuple(key_parts)),
             raw_nodes=tuple(b.num_src for b in sb.blocks),
-            raw_edges=tuple(b.graph.num_edges for b in sb.blocks))
+            raw_edges=tuple(b.graph.num_edges for b in sb.blocks),
+            graph_epoch=self.graph_epoch)
         self._h_sample.observe(time.perf_counter() - t0)
         self._c_batches.inc()
         return batch
+
+    # ---------------- graph mutation ----------------
+
+    def update_graph(self, delta) -> None:
+        """Swap the resident graph at the next safe batch boundary.
+
+        ``delta`` is a `repro_torch.graphs.delta.GraphDelta`; the new CSR
+        is built here (caller's thread, ``self._cond`` not held) and handed
+        to the prefetch worker, which installs it between ``batch_for``
+        calls — a batch is never sampled from a half-swapped (graph, feat,
+        labels) triple.  Features for new nodes come from
+        ``delta.node_feat`` (zeros if absent) and labels for them are 0.
+        Deltas compose in call order: a delta given while an earlier swap
+        still waits for the batch in flight is applied to that pending
+        snapshot, and each delta is one graph epoch.  Buffered batches are
+        dropped and rebuilt from the consumer's current step, and a batch
+        in flight on the old snapshot is discarded, so ``loader(step)``
+        stays a pure function of the step index *per graph epoch* (the
+        Trainer restart contract within an epoch of the mutation stream).
+        """
+        with self._update_lock:
+            # only this method sets a pending swap and only its install
+            # changes the resident triple, so the base read here stays
+            # valid while the new snapshot is built outside ``_cond``
+            with self._cond:
+                if self._pending_swap is not None:
+                    g, feat, labels, epoch = self._pending_swap
+                else:
+                    g, feat, labels, epoch = (self.g, self.feat, self.labels,
+                                              self.graph_epoch)
+            g2 = g.apply_delta(delta).graph
+            feat2 = extend_node_features(feat, delta, g2.num_nodes)
+            if g2.num_nodes > labels.shape[0]:
+                labels = np.concatenate(
+                    [labels, np.zeros(g2.num_nodes - labels.shape[0],
+                                      np.int32)])
+            with self._cond:
+                self._pending_swap = (g2, feat2, labels, epoch + 1)
+                if self._thread is None or self._inflight is None:
+                    # no batch is being built: install now (the worker
+                    # only builds with the lock released and `_inflight`
+                    # set)
+                    self._apply_swap_locked()
+                self._cond.notify_all()
+
+    def _apply_swap_locked(self) -> None:
+        """Install a pending swap (``self._cond`` held, no batch in
+        flight)."""
+        if self._pending_swap is None:
+            return
+        self.g, self.feat, self.labels, epoch = self._pending_swap
+        self._pending_swap = None
+        if self._default_train_nodes:
+            self.train_nodes = np.arange(self.g.num_nodes, dtype=np.int64)
+        else:
+            # explicit seed sets survive the mutation minus ids beyond the
+            # node range
+            self.train_nodes = self.train_nodes[
+                self.train_nodes < self.g.num_nodes]
+        self._set_steps_per_epoch()
+        # buffered batches were sampled from the old snapshot: drop them
+        # and restart prefetch at the step the consumer needs next (the
+        # one it is blocked on, or the one after the last it took)
+        self._buf.clear()
+        self._head = self._resume
+        self._c_swaps.inc(epoch - self.graph_epoch)
+        self.graph_epoch = epoch
+        self._g_epoch.set(self.graph_epoch)
 
     # ---------------- prefetching front ----------------
 
     def __call__(self, step: int) -> TrainBatch:
         if self._thread is None:
+            with self._cond:
+                self._apply_swap_locked()
             return self.batch_for(step)
         t0 = time.perf_counter()
         with self._cond:
             if self._err is not None:
                 raise RuntimeError("sample loader worker died") from self._err
-            self._last_req = step
+            self._last_req = self._resume = step
+            # a swap waits for the batch in flight; the worker installs it
+            # (and restarts at this step) as soon as that batch is done
+            while self._pending_swap is not None:
+                if self._err is not None:
+                    raise RuntimeError(
+                        "sample loader worker died") from self._err
+                self._cond.wait(timeout=0.5)
             if (step not in self._buf and step != self._head
                     and step != self._inflight):
                 # restart / out-of-order access (the step is neither
@@ -267,6 +369,7 @@ class SampledLoader:
                         "sample loader worker died") from self._err
                 self._cond.wait(timeout=0.5)
             batch = self._buf.pop(step)
+            self._resume = step + 1
             self._cond.notify_all()
         # stall = how long the step sat waiting on host-side sampling and
         # planning; ~0 means the double buffer is doing its job
@@ -290,9 +393,12 @@ class SampledLoader:
                     self._inflight = None
                     if self._stop:
                         return
-                    # drop the result if a resync moved past it (keeping it
-                    # would pin a never-consumed entry in the buffer)
-                    if step >= self._last_req:
+                    if self._pending_swap is not None:
+                        # built from the old snapshot: never handed out
+                        self._apply_swap_locked()
+                    elif step >= self._last_req:
+                        # (a result a resync moved past is dropped: it
+                        # would pin a never-consumed entry in the buffer)
                         self._buf[step] = batch
                     self._cond.notify_all()
         except BaseException as e:                 # propagate to consumer
@@ -321,6 +427,8 @@ class SampledLoader:
                 "steps_per_epoch": self.steps_per_epoch,
                 "batches_built": int(self._c_batches.value),
                 "resyncs": int(self._c_resync.value),
+                "graph_epoch": self.graph_epoch,
+                "graph_swaps": int(self._c_swaps.value),
                 "sample_p50_ms": self._h_sample.percentile(50) * 1e3,
                 "prefetch_stall_p99_ms": self._h_stall.percentile(99) * 1e3}
 

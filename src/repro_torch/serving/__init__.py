@@ -1,15 +1,25 @@
-"""Synchronous GNN serving: micro-batcher, plan cache, serving engine.
+"""GNN serving: the synchronous tier (micro-batcher, plan cache,
+`ServingEngine`) and the async SLO-aware tier (admission, deadline and
+clock batching, EDF across tenants, `AsyncServingEngine`).
 
-Port of the synchronous tier of `src/repro/serving/`; the async SLO-aware
-tier (admission, deadline batching, sharded serving) waits for its slice.
+Port of `src/repro/serving/`; sharded serving (`make_sharded_serve_fn`)
+waits for its slice.
 """
-from repro_torch.serving.batcher import MicroBatcher, Request
-from repro_torch.serving.engine import ServingConfig, ServingEngine
-from repro_torch.serving.loadgen import zipf_seeds
+from repro_torch.serving.admission import (AdmissionQueue, AsyncRequest,
+                                           SLOClass, slo_classes)
+from repro_torch.serving.batcher import (ClockBatcher, DeadlineBatcher,
+                                         MicroBatcher, Request)
+from repro_torch.serving.engine import (AsyncServingEngine, ServingConfig,
+                                        ServingEngine, TenantSpec)
+from repro_torch.serving.loadgen import (Arrival, LoadSpec, build_schedule,
+                                         run_schedule, zipf_seeds)
 from repro_torch.serving.plan_cache import (CacheEntry, PlanCache,
                                             bucket_pow2, graph_key,
                                             shape_class_fingerprint)
 
-__all__ = ["CacheEntry", "MicroBatcher", "PlanCache", "Request",
-           "ServingConfig", "ServingEngine", "bucket_pow2", "graph_key",
-           "shape_class_fingerprint", "zipf_seeds"]
+__all__ = ["AdmissionQueue", "Arrival", "AsyncRequest", "AsyncServingEngine",
+           "CacheEntry", "ClockBatcher", "DeadlineBatcher", "LoadSpec",
+           "MicroBatcher", "PlanCache", "Request", "SLOClass",
+           "ServingConfig", "ServingEngine", "TenantSpec", "bucket_pow2",
+           "build_schedule", "graph_key", "run_schedule",
+           "shape_class_fingerprint", "slo_classes", "zipf_seeds"]

@@ -20,8 +20,10 @@ partitioning and tile counts are padded to powers of two here, so the
 kernels see a small recurring set of operand shapes.  Padded tiles carry
 all-zero edge values, so they contribute nothing to any output row.
 
-Left for later slices: measured variant selection and keyed invalidation
-of mutated graphs.  The port adds a ``variant`` knob that stamps the
+Mutable graphs: a caller stamps its graph epoch on every lookup
+(`get_or_build(epoch=)`); the epoch is part of the exact key, and
+`invalidate(fingerprint=, before_epoch=)` drops what a mutation made
+stale.  Left for a later slice: measured variant selection.  The port adds a ``variant`` knob that stamps the
 gather kernel onto every plan (the reference reaches other variants only
 through measurement).
 """
@@ -60,9 +62,11 @@ def shape_class_fingerprint(g: CSRGraph, arch_key: tuple = ()) -> tuple:
     to 1/4ths of the working node count (isolated nodes excluded).
     Content-BLIND, which is safe because every planned graph is ephemeral
     and exact-keyed anyway (the serving engine's ego-graph batches, the
-    sampled loader's freshly drawn blocks): the memo only ever transfers a
-    tuned CONFIG, never a plan.  (The
-    reference's content-aware default waits for mutable graphs.)"""
+    sampled loader's freshly drawn blocks, both with the graph epoch in the
+    exact key): the memo only ever transfers a tuned CONFIG, never a plan.
+    The reference's content-aware default, `graph_fingerprint`, serves
+    long-lived mutable graphs planned through the cache; the port plans
+    none (a resident plan takes its deltas through `Plan.apply_delta`)."""
     degs = g.degrees
     degs = degs[degs > 0]
     hist = (np.bincount(np.minimum(np.log2(degs).astype(np.int64), 15),
@@ -91,7 +95,11 @@ class CacheEntry:
     executor: PlanExecutor
     apply_fn: Optional[Callable] = None   # engine-installed forward
     hits: int = 0
+    # keyed-invalidation handles: the fingerprint the entry was built under
+    # and the graph epoch the caller stamped (`get_or_build(epoch=...)`);
+    # `invalidate()` selects on these
     fingerprint: Optional[tuple] = None
+    epoch: int = 0
 
 
 class PlanCache:
@@ -144,6 +152,7 @@ class PlanCache:
         self.misses = 0
         self.evictions = 0
         self.config_evictions = 0
+        self.invalidations = 0
         self.registry = registry if registry is not None else MetricsRegistry()
         self._c_exact = self.registry.counter(
             "plan_cache_exact_hits_total", desc="ready-plan cache hits")
@@ -157,6 +166,9 @@ class PlanCache:
         self._c_cfg_evict = self.registry.counter(
             "plan_cache_config_evictions_total",
             desc="config-memo LRU evictions")
+        self._c_invalidate = self.registry.counter(
+            "plan_cache_invalidations_total",
+            desc="entries dropped by keyed invalidation (graph mutations)")
         self._h_build = self.registry.histogram(
             "plan_cache_build_seconds",
             desc="plan_for + tile padding + executor build on the miss path")
@@ -168,19 +180,26 @@ class PlanCache:
 
     def get_or_build(self, g: CSRGraph, *, arch: str, in_dim: int,
                      hidden_dim: int, num_layers: int,
-                     edge_vals: Optional[np.ndarray] = None) -> CacheEntry:
+                     edge_vals: Optional[np.ndarray] = None,
+                     epoch: Optional[int] = None) -> CacheEntry:
         with self._lock:
             return self._get_or_build_locked(
                 g, arch=arch, in_dim=in_dim, hidden_dim=hidden_dim,
-                num_layers=num_layers, edge_vals=edge_vals)
+                num_layers=num_layers, edge_vals=edge_vals, epoch=epoch)
 
     def _get_or_build_locked(self, g: CSRGraph, *, arch: str, in_dim: int,
                              hidden_dim: int, num_layers: int,
-                             edge_vals: Optional[np.ndarray] = None
+                             edge_vals: Optional[np.ndarray] = None,
+                             epoch: Optional[int] = None
                              ) -> CacheEntry:
         arch_key = (arch, in_dim, hidden_dim, num_layers, self.feat_dtype,
                     self.variant) + (("bwd",) if self.with_backward else ())
-        key = graph_key(g, edge_vals, arch_key)
+        # the graph epoch is part of the EXACT key only: a plan may never
+        # be served across a mutation boundary, but the shape-class config
+        # memo transfers
+        exact_key = arch_key if epoch is None else arch_key + ("epoch",
+                                                               epoch)
+        key = graph_key(g, edge_vals, exact_key)
         ent = self._plans.get(key)
         if ent is not None:
             self._plans.move_to_end(key)
@@ -229,7 +248,7 @@ class PlanCache:
                                        partition_bwd=part_bwd)
         ent = CacheEntry(plan=plan,
                          executor=plan.executor(self.backend, self.device),
-                         fingerprint=fp)
+                         fingerprint=fp, epoch=0 if epoch is None else epoch)
         self._h_build.observe(time.perf_counter() - t_build)
         self.registry.counter(
             "plan_cache_builds_total", labels={"source": source},
@@ -250,6 +269,38 @@ class PlanCache:
                 self._configs.popitem(last=False)
                 self.config_evictions += 1
                 self._c_cfg_evict.inc()
+
+    def invalidate(self, fingerprint: Optional[tuple] = None, *,
+                   before_epoch: Optional[int] = None) -> int:
+        """Keyed invalidation after a graph mutation.
+
+        ``fingerprint``: drop the ready plans built under that fingerprint
+        plus its config-memo entry.  ``before_epoch``: drop every ready
+        plan stamped with an earlier graph epoch (the serving engine's
+        swap protocol: entries for egos of the pre-mutation snapshot); the
+        config memo is kept, a shape-class tuning decision survives
+        content changes.  With neither selector both levels are dropped.
+        Returns the number of entries removed; each removal counts into
+        ``plan_cache_invalidations_total``."""
+        with self._lock:
+            n = 0
+            for key in list(self._plans):
+                ent = self._plans[key]
+                if fingerprint is not None and ent.fingerprint != fingerprint:
+                    continue
+                if before_epoch is not None and ent.epoch >= before_epoch:
+                    continue
+                del self._plans[key]
+                n += 1
+            if fingerprint is not None:
+                if self._configs.pop(fingerprint, None) is not None:
+                    n += 1
+            elif before_epoch is None:
+                n += len(self._configs)
+                self._configs.clear()
+            self.invalidations += n
+            self._c_invalidate.inc(n)
+            return n
 
     @property
     def num_plans(self) -> int:
@@ -275,4 +326,5 @@ class PlanCache:
                 "configs": len(self._configs),
                 "evictions": self.evictions,
                 "config_evictions": self.config_evictions,
+                "invalidations": self.invalidations,
             }

@@ -352,8 +352,7 @@ def test_driver_fail_at_reproduces_clean_run(tmp_path):
 @pytest.mark.parametrize("flags,msg", [
     (["--arch", "gat", "--sampled"], "gcn/gin only"),
     (["--arch", "gcn", "--sampled", "--shards", "2"], "Queue 1, item 5"),
-    (["--arch", "gcn", "--sampled", "--stream-deltas", "2"],
-     "Queue 1, item 6"),
+    (["--arch", "gcn", "--stream-deltas", "2"], "requires --sampled"),
     (["--arch", "gcn", "--shards", "2"], "Queue 1, item 5"),
     (["--arch", "mamba2-130m"], "LM slices"),
 ])
