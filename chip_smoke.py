@@ -15,8 +15,8 @@ Phases, each timed, any failure exits non-zero before the result line:
      `random_community_graph(600, 32)` (7-9 live slots a tile) at D in
      {16, 64} and pinned corners of the tuner's search space on cora
      (`CORNERS`: gs 64, gpt 128, ...) on both one-hot kernels; the full
-     reddit replica at D in {16, 64} on the gather kernel (the analytic
-     tuner's one-hot schedule of full reddit pads to 11.7M tiles); float32
+     reddit replica at D in {16, 64} on the gather kernel (phase 8 times
+     both kernels there); float32
      and bfloat16, each against its plain PyTorch version on the card, and
      each call (every variant) run twice, which must give bit-identical
      output.
@@ -161,7 +161,34 @@ Phases, each timed, any failure exits non-zero before the result line:
      ``repro_torch.launch.serve --arch falcon-mamba-7b --full --batch 4
      --prompt-len 16 --gen-len 32`` and its tok/s.
 
-``--phases`` runs a subset of phases 2-7 (names in `PHASES`); with no
+  8. profile — the profiling tier and the measured tuner on the kernels;
+     launch counts zeroed just before each part and read just after it,
+     the plain version never launched:
+     (A) `obs.profile_plan` on the pubmed replica's train-ready GCN plan
+     (D 16, float32 and bfloat16, folded: a forward and a transposed row)
+     and on phase 2's full-reddit gather plan (D 64, float32; built here
+     when phase 2 did not run): p50 / p90 / device p50, model latency,
+     residual, achieved bytes/s and edges/s, tiles; the attribution error
+     within 0.5, each forward row's device p50 within 1.5x of `time_ms`
+     (device only) on the same executor, and the kernel launched exactly
+     as often as `measure`'s calls; (B) `select_variant_measured` on the
+     smallest and the largest of a gcn-f32 serving run's ego plans at D 16
+     and D 500: each candidate's kernel launched, the winner checked
+     against the plain version and the float64 witness as in phase 2;
+     (C) `measured_tune` (top_k 2) on the pubmed replica at D 500 and on
+     full reddit at D 64, the whole ``{(config, variant): p50}`` table
+     with each partition's exact tiles beside `predict_tiles`; (D)
+     `serve_gnn` at the gcn-f32 widths through a shared
+     `PlanCache(measure_variants=True)`: at least one selection and one
+     memo hit, the served batches launching only the winners' kernels,
+     ``--verify`` and four requests against ``backend="torch"`` at 1e-5;
+     (E) ``--trace-out`` of a synchronous and an async (3 tenants,
+     deadline) `serve_gnn` run and of a 5-step GCN `train` run: each file
+     parses, holds the drivers' ``compute`` / ``train`` spans and a
+     ``thread_name`` event per thread (two threads for the async run).
+     The profiling registry must pass the exposition lint.
+
+``--phases`` runs a subset of phases 2-8 (names in `PHASES`); with no
 arguments every phase runs.  The line before the last is the
 ``{"kernels": [...]}`` record (times are
 medians of 20 CUDA-event-timed calls after 3 warm-up calls, on warm
@@ -180,7 +207,8 @@ edge-gradient kernels, float32; the folded kernel's record adds
 ``launches_sampled``, its launches in phase 5b, and its error maxima
 cover phase 5b's block-shape checks, and ``launches_async`` its launches
 in phase 3b; the gather and folded records' error maxima cover phase
-5c's patched schedules; the scan kernel's record is at the
+5c's patched schedules, and ``launches_profile`` counts each aggregation
+kernel's launches in phase 8; the scan kernel's record is at the
 timed shape, its ``launches`` those of phase 7a's six prefills,
 ``sfu_ms`` the exp/log term beside ``bound_ms``, and ``library_ms``
 null: no one PyTorch call computes a selective scan); the last line is
@@ -2103,16 +2131,520 @@ def lm_serving(detail: dict) -> dict:
     return rec
 
 
+# phase 8: the profiling tier and the measured tuner on the kernels
+PROFILE_ITERS, PROFILE_WARMUP = 10, 3
+RACE_ITERS, RACE_WARMUP = 10, 2
+RACE_DIMS = (16, 500)
+RACE_MARGIN = 0.05           # select_variant_measured's default margin
+ATTRIBUTION_LIMIT = 0.5      # the reference's own limit
+HARNESS_AGREEMENT = 1.5      # measure's device p50 vs time_ms, either way
+PROFILE_BACKEND = "cuda"     # the backend every part of phase 8 runs
+PROFILE_SERVE = SERVE_COMMON + ["--arch", "gcn", "--hidden-dim", "16",
+                                "--variant", "folded"]
+
+
+def run_stats(p) -> dict:
+    """A partition's tiles, runs, and the live slots and tiles of its
+    longest run (by live slots): what `KernelModel` prices."""
+    import numpy as np
+
+    from repro_torch.kernels.ops import run_bounds
+    live = (int(p.edge_slot.max()) // p.gpt + 1) if p.num_edges else 0
+    bounds = run_bounds(np.asarray(p.tile_node_block[:live]))
+    tile_of_edge = np.asarray(p.edge_slot, np.int64) // p.gpt
+    run_of_edge = np.searchsorted(bounds, tile_of_edge, side="right") - 1
+    per_run = np.bincount(run_of_edge, minlength=len(bounds) - 1)
+    h = int(per_run.argmax()) if len(per_run) else 0
+    return {"tiles": int(p.num_tiles), "live_tiles": live,
+            "runs": len(bounds) - 1, "edges": int(p.num_edges),
+            "hub_live_slots": int(per_run[h]) if len(per_run) else 0,
+            "hub_tiles": int(bounds[h + 1] - bounds[h]) if len(per_run)
+            else 0}
+
+
+def _model_row(plan, part, d, variant=None) -> dict:
+    import dataclasses
+
+    from repro_torch.core.extractor import extract_graph_props
+    from repro_torch.core.model import KernelModel
+    cfg = plan.config if variant is None else dataclasses.replace(
+        plan.config, variant=variant)
+    props = plan.graph_props or extract_graph_props(
+        plan.graph, detect_communities=False)
+    return KernelModel().terms(props, d, cfg, tiles=part.num_tiles)
+
+
+COST_FIELDS = ("device_s", "block_s", "slot_s", "live_s")
+
+
+def fit_costs(points: list) -> dict:
+    """Refit `KernelModel`'s measured costs to this run: for each raced
+    kernel, ``device_s``, ``block_s``, ``slot_s`` and ``live_s`` by least
+    squares on log time against the device-only p50s of ``points`` (each
+    ``{"props", "D", "cfg", "tiles", "dev_s", "wall_s"}``), ``chain_s``
+    held at the shipped value (the longest run rarely sets these times);
+    the host's share of a call as the median of wall - device p50.  Both
+    the shipped and the refitted model's ratios (measured / model) are
+    returned beside the constants."""
+    import dataclasses
+    import math
+
+    import numpy as np
+    from scipy.optimize import least_squares
+
+    from repro_torch.core.model import KERNEL_COSTS, KernelModel
+
+    def ratios(v, costs, pts):
+        km = KernelModel(costs={v: costs})
+        return [p["dev_s"] / km.terms(p["props"], p["D"], p["cfg"],
+                                      tiles=p["tiles"])["t_device"]
+                for p in pts]
+
+    out = {"call_s": statistics.median(p["wall_s"] - p["dev_s"]
+                                       for p in points)}
+    for v in ("folded", "direct"):
+        pts = [p for p in points if p["cfg"].variant == v]
+        base = KERNEL_COSTS[v]
+
+        def res(x):
+            c = dataclasses.replace(base, **dict(zip(COST_FIELDS,
+                                                     np.exp(x))))
+            return [math.log(r) for r in ratios(v, c, pts)]
+
+        x = least_squares(res, np.log([getattr(base, f)
+                                       for f in COST_FIELDS])).x
+        fitted = dataclasses.replace(base, **dict(zip(COST_FIELDS,
+                                                      np.exp(x))))
+        out[v] = {"points": len(pts),
+                  "shipped": dataclasses.asdict(base),
+                  "fitted": dataclasses.asdict(fitted),
+                  "ratios_shipped": ratios(v, base, pts),
+                  "ratios_fitted": ratios(v, fitted, pts)}
+    return out
+
+
+def _calls(m, iters: int) -> int:
+    """Calls `measure` made for ``m``: warm-up, wall samples and, on the
+    card, as many device-only samples (checked here)."""
+    check(m.count == iters and len(m.device_samples) == (
+        iters if DEVICE == "cuda" else 0),
+          f"measure took {m.count} wall and {len(m.device_samples)} device "
+          f"samples, expected {iters} each")
+    return m.warmup + m.count + len(m.device_samples)
+
+
+def _check_counts(counts: dict, want: dict, what: str) -> None:
+    """Every count in ``counts`` equals ``want``'s (missing keys: 0)."""
+    for k, v in counts.items():
+        check(v == want.get(k, 0), f"{what}: {k} launched {v} times, "
+              f"expected {want.get(k, 0)} (all counts {counts})")
+
+
+def _trace_check(path: str, span: str, min_threads: int) -> dict:
+    """A written Chrome trace parses and holds complete events whose names
+    include ``span`` and a ``thread_name`` event for every thread that
+    recorded one."""
+    with open(path) as f:
+        doc = json.load(f)
+    evs = doc["traceEvents"]
+    spans = [e for e in evs if e["ph"] == "X"]
+    named = {e["tid"] for e in evs if e.get("name") == "thread_name"}
+    tids = {e["tid"] for e in spans}
+    check(any(span in e["name"].split("/") for e in spans),
+          f"{path}: no '{span}' span among "
+          f"{sorted({e['name'] for e in spans})}")
+    check(tids <= named, f"{path}: threads {sorted(tids - named)} have no "
+          f"thread_name event")
+    check(len(tids) >= min_threads, f"{path}: {len(tids)} thread tracks, "
+          f"expected at least {min_threads}")
+    check(bool(doc.get("otherData", {}).get("git_sha")),
+          f"{path}: no run context in otherData")
+    return {"events": len(spans), "threads": len(tids),
+            "names": sorted({e["name"] for e in spans})}
+
+
+def profiling(detail: dict) -> dict:
+    """Phase 8: `profile_plan`, `select_variant_measured`, `measured_tune`,
+    serving through a `PlanCache(measure_variants=True)` and the drivers'
+    ``--trace-out``, all on the hand-written kernels; the launch counts are
+    zeroed just before each part and read just after it."""
+    import tempfile
+    from unittest import mock
+
+    import numpy as np
+    import torch
+
+    from repro_torch.core import tuner as tuner_mod
+    from repro_torch.core.advisor import plan_for
+    import dataclasses
+
+    from repro_torch.core.extractor import extract_graph_props
+    from repro_torch.core.model import KernelModel, predict_tiles
+    from repro_torch.core.tuner import measured_tune, select_variant_measured
+    from repro_torch.graphs.csr import random_power_law
+    from repro_torch.graphs.datasets import make_dataset
+    from repro_torch.kernels import group_aggregate as ga
+    from repro_torch.launch import serve_gnn, train
+    from repro_torch.models.gnn import gcn_edge_values
+    from repro_torch.obs import (MetricsRegistry, lint_prometheus,
+                                 profile_plan, to_prometheus_text)
+    from repro_torch.obs import profile as profile_mod
+    from repro_torch.serving import PlanCache
+
+    out = {"launches": {}}
+    reg = MetricsRegistry()
+
+    def tally():
+        for k, v in ga.launches.items():
+            out["launches"][k] = out["launches"].get(k, 0) + v
+
+    # A. profile_plan: pubmed train-ready GCN plans (f32, bf16, folded) and
+    # phase 2's full-reddit gather plan (D 64, f32)
+    t0 = time.time()
+    pubmed, vals_p = gcn_edge_values(random_power_law(19717, 4.5, seed=0))
+    if "reddit" in SHARED:
+        _, reddit, vals_r = SHARED["reddit"]
+    else:
+        reddit, vals_r = gcn_edge_values(make_dataset("reddit",
+                                                      max_dim=1)[0])
+        SHARED["reddit"] = (None, reddit, vals_r)
+    plan_r = SHARED.get("reddit_plan") or plan_for(
+        reddit, arch="gcn", in_dim=64, hidden_dim=64, edge_vals=vals_r,
+        tune_iters=4, variant="direct")
+    SHARED["reddit_plan"] = plan_r
+    cases = [(f"pubmed-{dt}", plan_for(
+        pubmed, arch="gcn", in_dim=16, hidden_dim=16, edge_vals=vals_p,
+        tune_iters=4, variant="folded", with_backward=True, feat_dtype=dt),
+        16) for dt in ("float32", "bfloat16")] + [("reddit-float32", plan_r,
+                                                   64)]
+    log(f"profile: plans ready ({time.time() - t0:.1f}s)")
+    rows, points = [], []
+    for name, plan, d in cases:
+        cfg = plan.config
+        kname = ga.KERNEL_OF_VARIANT[cfg.variant]
+        ga.reset_launches()
+        rep = profile_plan(plan, dim=d, backend=PROFILE_BACKEND, device=DEVICE,
+                           iters=PROFILE_ITERS, warmup=PROFILE_WARMUP,
+                           registry=reg, label=f"{name}/")
+        counts = dict(ga.launches)
+        tally()
+        # each row's calls, and the total's: every schedule once a call
+        n_sched = len(rep.schedules)
+        _check_counts(counts, {kname: sum(
+            _calls(s.measured, PROFILE_ITERS) for s in rep.schedules)
+            + n_sched * _calls(rep.total, PROFILE_ITERS)},
+                      f"profile {name}")
+        err = rep.attribution_error()
+        check(err <= ATTRIBUTION_LIMIT, f"profile {name}: attribution error "
+              f"{err:.3f} > {ATTRIBUTION_LIMIT}")
+        # the same executor under the other harness (time_ms, device only)
+        ex = plan.executor(PROFILE_BACKEND, DEVICE)
+        feat = torch.as_tensor(np.random.default_rng(0).standard_normal(
+            (plan.graph.num_nodes, d)).astype(np.float32)).to(
+            DEVICE, getattr(torch, cfg.feat_dtype))
+        t_dev = time_ms(lambda: ex(feat), device_only=True)
+        parts = {"forward": plan.partition, "backward": plan.partition_bwd}
+        for s in rep.schedules:
+            which = s.schedule.rsplit("/", 1)[1]
+            m = s.measured
+            row = dict(s.to_row(), case=name, variant=cfg.variant,
+                       dtype=cfg.feat_dtype, D=d, config=cfg.astuple(),
+                       dev_p50_us=m.device_p50 * 1e6,
+                       **run_stats(parts[which]),
+                       model=_model_row(plan, parts[which], d))
+            if which == "forward":
+                row["time_ms_device"] = t_dev
+                ratio = m.device_p50 * 1e3 / t_dev
+                row["harness_ratio"] = ratio
+                check(1 / HARNESS_AGREEMENT <= ratio <= HARNESS_AGREEMENT,
+                      f"profile {name}: measure's device p50 "
+                      f"{m.device_p50 * 1e3:.4f} ms vs time_ms "
+                      f"{t_dev:.4f} ms (ratio {ratio:.2f})")
+            rows.append(row)
+            points.append({"props": plan.graph_props, "D": d, "cfg": cfg,
+                           "tiles": parts[which].num_tiles,
+                           "dev_s": m.device_p50, "wall_s": m.p50})
+            log(f"  {s.schedule} [{cfg.variant} {cfg.feat_dtype} D={d} "
+                f"{cfg.astuple()}]: p50={row['p50_us']:.1f}us "
+                f"p90={row['p90_us']:.1f}us dev p50={row['dev_p50_us']:.1f}us"
+                f" model={row['model_latency_us']:.1f}us residual="
+                f"{row['residual']:.3f} bytes/s="
+                f"{row['achieved_bytes_per_s']:.3e} edges/s="
+                f"{row['achieved_edges_per_s']:.3e} model device="
+                f"{row['model']['t_device'] * 1e6:.1f}us tiles={row['tiles']} "
+                f"runs={row['runs']} hub={row['hub_live_slots']} slots"
+                + (f" time_ms(device)={t_dev * 1e3:.1f}us" if which ==
+                   "forward" else ""))
+        log(f"  {name}: total p50={rep.total.p50 * 1e6:.1f}us attribution "
+            f"error={err:.3f}")
+        rows.append({"case": name, "schedule": f"{name}/total",
+                     "p50_us": rep.total.p50 * 1e6, "attribution_error": err})
+        del ex, feat
+    out["profile_rows"] = rows
+    torch.cuda.empty_cache()
+
+    # B. select_variant_measured on pubmed serving plans (ego batches of
+    # phase 3's gcn-f32 widths) at D 16 and D 500
+    t0 = time.time()
+    measured = []
+    real_measure = profile_mod.measure
+
+    def recording(*a, **k):
+        m = real_measure(*a, **k)
+        measured.append(m)
+        return m
+
+    res = serve_gnn.run(PROFILE_SERVE + ["--requests", "64"])
+    check(res["ok"], "profile: the serving run for the race plans failed")
+    ents = sorted(res["engine"].cache._plans.values(),
+                  key=lambda e: e.plan.partition.num_tiles)
+    race_plans = [ents[0], ents[-1]] if len(ents) > 1 else ents
+    races = []
+    for ent in race_plans:
+        plan = ent.plan
+        stats = run_stats(plan.partition)
+        for d in RACE_DIMS:
+            ga.reset_launches()
+            measured.clear()
+            with mock.patch.object(profile_mod, "measure", recording):
+                best, p50s = select_variant_measured(
+                    plan, backend=PROFILE_BACKEND, device=DEVICE, dim=d,
+                    iters=RACE_ITERS, warmup=RACE_WARMUP, registry=reg)
+            counts = dict(ga.launches)
+            tally()
+            _check_counts(counts, {ga.KERNEL_OF_VARIANT[v]: _calls(m, RACE_ITERS)
+                                   for v, m in zip(p50s, measured)},
+                          f"race D={d}")
+            check(p50s[best] <= p50s["folded"] * (1 + RACE_MARGIN),
+                  f"race D={d}: winner {best} slower than folded {p50s}")
+            case = KernelCase(ent.executor.sched, plan.graph,
+                              plan.partition.edge_values_csr(), d,
+                              torch.float32, best, plan.config.dt, seed=d,
+                              device=DEVICE)
+            rec = case.check()
+            KernelCase.holds(rec, f"race winner {best} at D={d}")
+            del case
+            for v, m in zip(p50s, measured):
+                points.append({"props": plan.graph_props, "D": d,
+                               "cfg": dataclasses.replace(plan.config,
+                                                          variant=v),
+                               "tiles": plan.partition.num_tiles,
+                               "dev_s": m.device_p50, "wall_s": m.p50})
+            race = {"D": d, "winner": best, "config": plan.config.astuple(),
+                    "race_p50_us": {v: p * 1e6 for v, p in p50s.items()},
+                    "p50_us": {v: m.p50 * 1e6
+                               for v, m in zip(p50s, measured)},
+                    "dev_p50_us": {v: m.device_p50 * 1e6
+                                   for v, m in zip(p50s, measured)},
+                    "model_us": {v: _model_row(plan, plan.partition, d,
+                                               v)["t_device"] * 1e6
+                                 for v in p50s},
+                    "winner_err_scaled": rec["max_err_scaled"],
+                    "winner_over_bound": rec["over_bound"], **stats}
+            races.append(race)
+            log(f"  race D={d} on {stats['tiles']} tiles ({stats['edges']} "
+                f"edges, {stats['runs']} runs): winner {best}; " + ", ".join(
+                    f"{v} p50 {race['p50_us'][v]:.1f}us dev "
+                    f"{race['dev_p50_us'][v]:.1f}us model device "
+                    f"{race['model_us'][v]:.1f}us" for v in p50s)
+                + f"; winner vs plain {rec['max_err_scaled']:.2e}")
+    out["races"] = races
+    del res, ents, race_plans
+    torch.cuda.empty_cache()
+    log(f"profile: races done ({time.time() - t0:.1f}s)")
+
+    # C. measured_tune: the pubmed replica at D 500, full reddit at D 64
+    tunes = []
+    for name, g, vals, d in (("pubmed", pubmed, vals_p, 500),
+                             ("reddit", reddit, vals_r, 64)):
+        t0 = time.time()
+        parts = {}
+        real_partition = tuner_mod.partition_graph
+
+        def capturing(*a, **k):
+            p = real_partition(*a, **k)
+            parts[(k["gs"], k["gpt"], k["src_win"])] = run_stats(p)
+            return p
+
+        ga.reset_launches()
+        measured.clear()
+        with mock.patch.object(tuner_mod, "partition_graph", capturing), \
+                mock.patch.object(profile_mod, "measure", recording):
+            res = measured_tune(
+                g, d, top_k=2, backend=PROFILE_BACKEND, device=DEVICE, iters=4,
+                measure_iters=RACE_ITERS, warmup=RACE_WARMUP,
+                edge_vals=vals,
+                props=(plan_r.graph_props if name == "reddit" else None))
+        counts = dict(ga.launches)
+        tally()
+        want = {}
+        for (_, v), m in zip(res.measured, measured):
+            k = ga.KERNEL_OF_VARIANT[v]
+            want[k] = want.get(k, 0) + _calls(m, RACE_ITERS)
+        _check_counts(counts, want, f"measured_tune {name}")
+        props = (plan_r.graph_props if name == "reddit" and
+                 plan_r.graph_props is not None
+                 else extract_graph_props(g, detect_communities=False))
+        table = []
+        for ((cfg, v), p50), m in zip(res.measured.items(), measured):
+            st = parts[(cfg.gs, cfg.gpt, cfg.src_win)]
+            c_v = dataclasses.replace(cfg, variant=v)
+            points.append({"props": props, "D": d, "cfg": c_v,
+                           "tiles": st["tiles"], "dev_s": m.device_p50,
+                           "wall_s": m.p50})
+            table.append({"config": cfg.astuple(), "variant": v,
+                          "race_p50_us": p50 * 1e6, "p50_us": m.p50 * 1e6,
+                          "dev_p50_us": m.device_p50 * 1e6,
+                          "predict_tiles": predict_tiles(props, cfg),
+                          "model_us": KernelModel().terms(
+                              props, d, c_v, tiles=st["tiles"])["t_device"]
+                          * 1e6, **st})
+        best = res.best
+        tunes.append({"graph": name, "D": d, "best": best.astuple(),
+                      "best_variant": best.variant,
+                      "best_p50_us": res.best_score * 1e6, "table": table,
+                      "seconds": time.time() - t0})
+        log(f"  measured_tune {name} D={d}: best {best.astuple()} "
+            f"{best.variant} p50 {res.best_score * 1e6:.1f}us "
+            f"({time.time() - t0:.1f}s)")
+        for r in table:
+            log(f"    {r['config']} {r['variant']}: p50 {r['p50_us']:.1f}us "
+                f"dev {r['dev_p50_us']:.1f}us model device "
+                f"{r['model_us']:.1f}us "
+                f"tiles {r['tiles']} (predict_tiles "
+                f"{r['predict_tiles']:.0f}) runs {r['runs']} hub "
+                f"{r['hub_live_slots']} slots")
+        del res
+        torch.cuda.empty_cache()
+    out["tunes"] = tunes
+
+    # the repriced model against the races on the pubmed replica: wherever
+    # the two kernels' measured p50s differ by more than the race's margin,
+    # the model must rank them in the measured order
+    pairs = [(f"race D={r['D']} {r['tiles']} tiles", r["race_p50_us"],
+              r["model_us"]) for r in races]
+    for t in tunes:
+        if t["graph"] != "pubmed":
+            continue
+        for cfg in dict.fromkeys(r["config"] for r in t["table"]):
+            rs = {r["variant"]: r for r in t["table"] if r["config"] == cfg}
+            pairs.append((f"measured_tune pubmed D={t['D']} {cfg}",
+                          {v: r["race_p50_us"] for v, r in rs.items()},
+                          {v: r["model_us"] for v, r in rs.items()}))
+    ranking = []
+    for what, meas, model in pairs:
+        f, g = meas["folded"], meas["direct"]
+        decided = abs(f - g) > RACE_MARGIN * max(f, g)
+        agrees = (model["folded"] < model["direct"]) == (f < g)
+        ranking.append({"what": what, "measured_us": meas, "model_us": model,
+                        "decided": decided, "agrees": agrees})
+        log(f"  ranking {what}: measured folded {f:.1f} / direct {g:.1f}us,"
+            f" model {model['folded']:.1f} / {model['direct']:.1f}us"
+            + ("" if decided else " (within the margin)"))
+        check(agrees or not decided, f"KernelModel ranks {what} against the "
+              f"measured order: measured {meas}, model {model}")
+    out["ranking"] = ranking
+    fit = fit_costs(points)
+    out["fit"] = fit
+    log(f"  host share of a call (median wall - device p50): "
+        f"{fit['call_s'] * 1e6:.1f}us")
+    for v in ("folded", "direct"):
+        fv = fit[v]
+        log(f"  {v} costs over {fv['points']} points: shipped "
+            + ", ".join(f"{k} {fv['shipped'][k]:.4g}" for k in COST_FIELDS)
+            + "; refitted " + ", ".join(f"{k} {fv['fitted'][k]:.4g}"
+                                        for k in COST_FIELDS)
+            + f"; measured/model shipped {min(fv['ratios_shipped']):.2f}-"
+            f"{max(fv['ratios_shipped']):.2f}, refitted "
+            f"{min(fv['ratios_fitted']):.2f}-{max(fv['ratios_fitted']):.2f}")
+
+    # D. serving through a shared PlanCache(measure_variants=True)
+    t0 = time.time()
+    cache = PlanCache(measure_variants=True, backend=PROFILE_BACKEND, device=DEVICE,
+                      tune_iters=4, seed=0, registry=reg)
+    ga.reset_launches()
+    res = serve_gnn.run(PROFILE_SERVE + ["--requests", "128"], cache=cache)
+    counts = dict(ga.launches)
+    tally()
+    st = cache.stats()
+    eng = res["engine"]
+    winners = set(cache._variants.values())
+    # each selection: warmup 2 + wall (and on the card device) samples of
+    # each candidate
+    measured_calls = st["variant_selections"] * (
+        2 + cache.variant_measure_iters * (2 if DEVICE == "cuda" else 1))
+    served = {v: counts[ga.KERNEL_OF_VARIANT[v]] - (
+        measured_calls if v in tuner_mod.MEASURED_VARIANTS else 0)
+        for v in ga.VARIANTS}
+    log(f"  measured serving: stats {st} winners {sorted(winners)} launches "
+        f"{ {k: v for k, v in counts.items() if v} } served {served} "
+        f"req/s={res['summary']['req_per_s']:.1f} "
+        f"verify={res['verify_err']:.2e}")
+    check(res["ok"], f"measured serving: verify/cache check failed "
+          f"({res['verify_err']})")
+    check(st["variant_selections"] >= 1 and st["variant_memo_hits"] >= 1,
+          f"measured serving: selections/memo hits {st}")
+    check(counts[ga.PLAIN] == 0, f"measured serving: plain ran "
+          f"{counts[ga.PLAIN]} times")
+    for v, n in served.items():
+        check((n > 0) == (v in winners) and n >= 0,
+              f"measured serving: {v} served {n} launches, winners "
+              f"{sorted(winners)}")
+    done_reqs = [r for r in res["requests"] if r.status == "done"][:4]
+    terr = _engine_err(eng, done_reqs, backend="torch")
+    check(terr <= TOL, f"measured serving vs torch engine {terr:.2e}")
+    out["measured_serving"] = {
+        "stats": st, "winners": sorted(winners), "launches": counts,
+        "served_launches": served, "verify_err": res["verify_err"],
+        "torch_engine_err": terr, "req_per_s": res["summary"]["req_per_s"],
+        "seconds": time.time() - t0}
+    del res, eng, cache
+    torch.cuda.empty_cache()
+
+    # E. --trace-out on serve_gnn (sync and async) and train
+    t0 = time.time()
+    tdir = tempfile.mkdtemp(prefix="chip_smoke_traces_")
+    traces = {}
+    runs = [("serve-sync", lambda p: serve_gnn.run(
+                PROFILE_SERVE + ["--requests", "32", "--trace-out", p]),
+             "compute", 1),
+            ("serve-async", lambda p: serve_gnn.run(
+                PROFILE_SERVE + ["--requests", "24", "--tenants", "3",
+                                 "--policy", "deadline", "--rate", "30",
+                                 "--trace-out", p]), "compute", 2),
+            ("train", lambda p: train.run(
+                ["--arch", "gcn", "--variant", "folded", "--ckpt-dir",
+                 os.path.join(tdir, "ckpt")] + TRAIN_COMMON
+                + ["--steps", "5", "--trace-out", p]), "train", 1)]
+    for name, fn, span, threads in runs:
+        path = os.path.join(tdir, f"{name}.json")
+        res = fn(path)
+        check(res["ok"], f"trace run {name} failed")
+        traces[name] = _trace_check(path, span, threads)
+        log(f"  --trace-out {name}: {traces[name]['events']} spans on "
+            f"{traces[name]['threads']} threads: "
+            f"{traces[name]['names'][:6]}")
+        del res
+    out["traces"] = traces
+    log(f"profile: traces done ({time.time() - t0:.1f}s)")
+
+    problems = lint_prometheus(to_prometheus_text(reg))
+    check(not problems, f"profile registry does not lint: {problems[:3]}")
+    detail["profile"] = out
+    return out
+
+
 PHASES = {"kernels": kernel_sweeps, "hub": hub_probe, "serving": serving,
           "async": async_serving, "edge-grad": edge_grad_checks,
           "training": training, "sampled": sampled_training,
-          "dynamic": dynamic_plans, "scan": scan_checks, "lm": lm_serving}
+          "dynamic": dynamic_plans, "profile": profiling, "scan": scan_checks,
+          "lm": lm_serving}
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--phases", default=",".join(PHASES),
-                    help="comma-separated subset of phases 2-7 to run "
+                    help="comma-separated subset of phases 2-8 to run "
                          f"({', '.join(PHASES)}; default all); the device "
                          "phase always runs")
     ap.add_argument("--scan-variants", default="",
@@ -2213,7 +2745,9 @@ def main(argv=None) -> int:
                                         for d in detail["sampled"])}
                if sampled else {}),
             **({"launches_async": done["async"]["launches"]}
-               if variant == "folded" and "async" in done else {})})
+               if variant == "folded" and "async" in done else {}),
+            **({"launches_profile": done["profile"]["launches"].get(kname, 0)}
+               if "profile" in done else {})})
     for variant, rname in EDGE_GRAD_RECORDS.items():
         if rname not in at_training:
             continue

@@ -8,10 +8,13 @@ cotangent over the transposed schedule (see `repro_torch.kernels.ops`).
 """
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
 from repro_torch.core.plan import Plan
 from repro_torch.device import resolve_device
+from repro_torch.kernels.ops import DeviceSchedule
 from repro_torch.kernels.ops import aggregate as _kernel_aggregate
 
 __all__ = ["PlanExecutor"]
@@ -37,6 +40,39 @@ class PlanExecutor:
         self.variant = plan.config.variant
         # outputs follow the plan's dtype policy (f32 accumulation inside)
         self.out_dtype = getattr(torch, plan.config.feat_dtype)
+
+    @classmethod
+    def from_schedule(cls, sched: DeviceSchedule, *, dt: int, variant: str,
+                      backend: str = "cuda", device="cuda",
+                      sched_bwd: Optional[DeviceSchedule] = None,
+                      out_dtype="float32") -> "PlanExecutor":
+        """Plan-less executor over a bare schedule (the reference's
+        `PlanExecutor.from_schedule`): the measured tuner runs one schedule
+        under several gather variants, and `profile_plan` the transposed
+        schedule alone, without building new plans.
+
+        sched : a `DeviceSchedule` on ``device``.
+        dt : dim-tile width handed to the kernel (clamped to the feature
+            width at call time).
+        variant : "folded" | "slot_onehot" | "direct".
+        sched_bwd : optional TRANSPOSED-graph schedule; with it the
+            executor is differentiable on every backend.
+        out_dtype : dtype (name) of the outputs — the plan's
+            ``AggConfig.feat_dtype`` policy; accumulation is f32 always.
+        """
+        ex = cls.__new__(cls)
+        ex.plan = None
+        ex.device = resolve_device(device)
+        if sched.device != ex.device:
+            raise ValueError(f"schedule is on {sched.device}, executor on "
+                             f"{ex.device}")
+        ex.sched = sched
+        ex.sched_bwd = sched_bwd
+        ex.backend = backend
+        ex.dt = dt
+        ex.variant = variant
+        ex.out_dtype = getattr(torch, out_dtype)
+        return ex
 
     def __call__(self, feat: torch.Tensor) -> torch.Tensor:
         """feat: (N, D) in the plan's (renumbered) node order -> (N, D) in

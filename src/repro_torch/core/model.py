@@ -5,9 +5,10 @@ Port of `src/repro/core/model.py`.  Two model layers:
   1. `paper_eq2_latency` — the literal Eq. 2 latency surrogate from the
      paper (gs -> gs, tpb -> gpt, dw -> dt), unchanged.
 
-  2. `KernelModel` — a white-box three-term model of the port's CUDA
-     kernels: tile counts predicted from input statistics (unchanged), then
-     priced with the `H100_SXM` constants per gather variant.  Eq. 4 is a
+  2. `KernelModel` — a white-box model of the port's CUDA kernels: tile
+     counts predicted from input statistics (the reference's estimator,
+     unchanged), then priced by the work each kernel's live-slot walk does,
+     with costs measured on the card per gather variant.  Eq. 4 is a
      shared-memory bound again, as in the paper: `smem_working_set` is
      exactly what one thread block of the port's kernels allocates
      (`repro_torch.kernels.group_aggregate.launch_geometry`), and
@@ -21,9 +22,9 @@ import math
 from repro_torch.core.extractor import GraphProps
 from repro_torch.hw import H100_SXM, GPUSpec
 
-__all__ = ["AggConfig", "paper_eq2_latency", "KernelModel", "smem_working_set",
-           "config_infeasibility", "feat_dtype_align", "feat_dtype_bytes",
-           "predict_tiles"]
+__all__ = ["AggConfig", "paper_eq2_latency", "KernelModel", "KernelCosts",
+           "KERNEL_COSTS", "smem_working_set", "config_infeasibility",
+           "feat_dtype_align", "feat_dtype_bytes", "predict_tiles"]
 
 # The end-to-end dtype policy's vocabulary: bytes per element and the
 # dim-tile alignment unit.  The unit is one 32-byte memory sector (8 f32 or
@@ -161,64 +162,124 @@ def config_infeasibility(cfg: AggConfig, *,
     return None
 
 
+@dataclasses.dataclass(frozen=True)
+class KernelCosts:
+    """Measured costs (seconds) of one gather kernel's executor call.
+
+    ``device_s``: the device's fixed time of one call (the padding copy,
+    the launch, the output slice); ``block_s``: one thread block's fixed
+    chain of dependent round trips (the run's setup, the last flush, the
+    final sum of the warps' partials); ``slot_s``: one slot of the run's
+    tiles walked by a block, live or padded (its metadata read and the
+    live test); ``live_s``: one live slot's row read and multiply-add in a
+    block, per column of the block's slice; ``chain_s``: one live slot of
+    the longest run, per column of the block's slice, on that block's
+    serial walk."""
+
+    device_s: float
+    block_s: float
+    slot_s: float
+    live_s: float
+    chain_s: float
+
+
+# Fitted by least squares on log time to the device-only p50s of
+# `obs.profile.measure` over `chip_smoke.py` phase 8's schedules (two runs,
+# before and after this pricing moved the tuner's picks: the pubmed
+# replica's train-ready plans at D 16, serving ego plans at D 16 and 500,
+# the measured tuner's candidates on the pubmed replica at D 500 and on
+# full reddit at D 64, full reddit's gather plan at D 64; 24 points a
+# kernel) on one NVIDIA H100 80GB HBM3 at a 700 W power limit; every
+# point lands within 0.7-1.35x of the model.  ``chain_s``: the one-hot
+# kernel's longest run alone (phase 2b: 30.5 us for 2,820 live slots at
+# D 16) and the gather kernel's longest run at 128 columns (29.2 ns a
+# live slot); the fit does not move it, since the longest run sets none
+# of these times.  Phase 8 prints a refit of every run beside these.
+# slot_onehot runs the one-hot kernel's walk and is priced as folded (it
+# is not raced, so not fitted).
+KERNEL_COSTS = {
+    "folded": KernelCosts(device_s=5.24e-6, block_s=7.74e-6,
+                          slot_s=2.29e-9, live_s=0.584e-9,
+                          chain_s=0.59e-9),
+    "direct": KernelCosts(device_s=8.30e-6, block_s=3.90e-6,
+                          slot_s=1.64e-9, live_s=0.346e-9,
+                          chain_s=0.228e-9),
+}
+KERNEL_COSTS["slot_onehot"] = KERNEL_COSTS["folded"]
+# the host's share of one executor call (checks, padding, the launch):
+# the median of wall p50 - device p50 over the same measurements
+CALL_S = 83.5e-6
+# both kernels run 256 threads a block at up to 64 registers a thread
+# (ptxas), so the register file holds 4 blocks an SM
+_BLOCKS_PER_SM = 4
+
+
 @dataclasses.dataclass
 class KernelModel:
-    """Three-term latency model of the port's group-aggregation kernels.
+    """Latency model of the port's group-aggregation kernels, priced by the
+    work their live-slot walks do on the card.
 
-    Both kernels run on the CUDA cores in f32 (plain FMA), so compute is
-    priced at ``peak_flops_f32`` for every feature dtype; the feature dtype
-    only changes the bytes.  Blocks = runs (~node blocks) x column slices;
-    the per-block overhead is the spec's ASSUMED ``block_overhead_s``,
-    charged per wave of ``num_sms`` blocks, until it is measured.
+    Both kernels give a thread block to each run of tiles sharing a node
+    block and each column slice of ``dc`` columns (`launch_geometry`), and
+    each block's 8 warps walk every slot of the run's tiles, gathering the
+    live ones' rows.  So a call costs ``call_s`` of host work plus the
+    kernel's ``device_s`` plus the largest of
 
-    Both terms price the kernels' earlier designs, not the live-slot walks
-    that replaced them: the one-hot term a dense walk over each tile's
-    whole window in group chunks ``gc``, the direct term a row read for
-    every slot, padded or not, with a block per dim tile.  Repricing them
-    would change the tuner's picks, so it waits for the measured tuner
-    stage.
+      * the work term: every block's fixed chain (``block_s``), every slot
+        walked (``slot_s``) and every live slot's row slice (``live_s`` a
+        column), over all column slices, shared by the blocks the card
+        holds at once (SMs x blocks an SM, by shared memory and
+        registers);
+      * the chain term: the longest run's block alone, ``block_s`` plus
+        its live slots' serial walk (``chain_s`` a slot and column; the
+        gather kernel launches its runs longest first so that this is a
+        floor, not a tail);
+      * the memory term: every slot's metadata, each group's row index,
+        each source row once and each output row once, over the memory
+        rate; and the FMA term, 2 FLOP per live slot and column.
+
+    The longest run's live slots are estimated from the degree statistics
+    (the highest-degree node and its node block's mean degrees), the runs
+    as the node blocks (at most the tiles).  Constants: `KERNEL_COSTS`,
+    `CALL_S`; pass ``costs`` / ``call_s`` to price other measurements.
     """
 
     hw: GPUSpec = H100_SXM
+    costs: dict = dataclasses.field(default_factory=lambda: dict(KERNEL_COSTS))
+    call_s: float = CALL_S
 
     def terms(self, props: GraphProps, dim: int, cfg: AggConfig,
               *, tiles: float | None = None) -> dict:
         from repro_torch.kernels.group_aggregate import launch_geometry
-        bytes_feat = cfg.bytes_feat
+        c = self.costs[cfg.variant]
         T = float(tiles if tiles is not None else predict_tiles(props, cfg))
         dt = min(cfg.dt, -(-max(dim, 1) // 8) * 8)
         geo = launch_geometry(cfg.variant, gs=cfg.gs, gpt=cfg.gpt,
                               ont=cfg.ont, dt=dt)
+        n = props.num_nodes
         slots = T * cfg.gpt * cfg.gs
-        n_blocks = max(props.num_nodes / cfg.ont, 1.0)
-        if cfg.variant == "direct":
-            flops = 2.0 * slots * dim
-            # every slot reads one row slice of the feature operand (the
-            # earlier gather design; the kernel reads live slots only)
-            bytes_feat_total = slots * dim * bytes_feat
-            cols = dt
-        else:
-            rows = cfg.gpt * (cfg.gs if cfg.variant == "slot_onehot" else 1)
-            # dense product over the whole window + the W build compares
-            flops = 2.0 * T * rows * cfg.src_win * dim \
-                + T * cfg.gpt * cfg.gs * cfg.src_win * math.ceil(dim / geo.dc)
-            # the window is staged once per group chunk
-            chunks = math.ceil(cfg.gpt / max(geo.gc, 1))
-            bytes_feat_total = T * chunks * cfg.src_win * dim * bytes_feat
-            cols = geo.dc
-        bytes_meta = slots * 8 + T * cfg.gpt * 4
-        bytes_out = n_blocks * cfg.ont * dim * 4
-        total_bytes = bytes_feat_total + bytes_meta + bytes_out
+        live = min(float(props.num_edges), slots)
+        runs = min(T, math.ceil(n / cfg.ont))
+        slices = math.ceil(max(dim, 1) / geo.dc)
+        hub = min(live, props.max_degree + (cfg.ont - 1) * props.avg_degree)
+        resident = self.hw.num_sms * max(1, min(
+            _BLOCKS_PER_SM, self.hw.smem_per_sm // geo.smem_bytes))
+        t_work = slices * (runs * c.block_s + slots * c.slot_s
+                           + live * geo.dc * c.live_s) / resident
+        t_chain = c.block_s + hub * geo.dc * c.chain_s
+        flops = 2.0 * live * dim
+        total_bytes = (slots * 8 + T * cfg.gpt * 4
+                       + n * dim * (cfg.bytes_feat + 4))
         t_compute = flops / self.hw.peak_flops_f32
         t_memory = total_bytes / self.hw.hbm_bw
-        blocks = n_blocks * math.ceil(dim / cols)
-        t_overhead = math.ceil(blocks / self.hw.num_sms) * self.hw.block_overhead_s
+        t_device = c.device_s + max(t_work, t_chain, t_memory, t_compute)
         return {
-            "tiles": T, "blocks": blocks, "flops": flops,
+            "tiles": T, "blocks": runs * slices, "flops": flops,
             "bytes": total_bytes, "smem_bytes": geo.smem_bytes,
             "t_compute": t_compute, "t_memory": t_memory,
-            "t_overhead": t_overhead,
-            "latency": max(t_compute, t_memory) + t_overhead,
+            "t_work": t_work, "t_chain": t_chain,
+            "t_overhead": self.call_s + c.device_s,
+            "t_device": t_device, "latency": self.call_s + t_device,
         }
 
     def latency(self, props: GraphProps, dim: int, cfg: AggConfig, **kw) -> float:

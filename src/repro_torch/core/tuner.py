@@ -1,10 +1,12 @@
 """Estimating (paper §7.2) — hyper-parameter search.
 
 Port of `src/repro/core/tuner.py` (`SEARCH_SPACE`, `evolve`, `tune`,
-`TunerResult`); the search is unchanged, the model and the feasibility
-bound are the port's (`core/model.py`, priced for `H100_SXM`).  The
-measured stage (`select_variant_measured`, `measured_tune`) and the
-community-profiling score wait for a later slice.
+`TunerResult` and the measured stage: `plan_facing_dim`,
+`select_variant_measured`, `measured_tune`); the search is unchanged, the
+model and the feasibility bound are the port's (`core/model.py`, priced
+for `H100_SXM`).  The measured stage races the gather kernels on the
+card through `obs.profile.measure`.  The community-profiling score waits
+for a later slice.
 
 Implements the paper's three-step strategy:
 
@@ -25,7 +27,7 @@ per-block shared memory).
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Optional
+from typing import Callable, Optional, Sequence
 
 import numpy as np
 
@@ -36,7 +38,15 @@ from repro_torch.core.partition import partition_graph
 from repro_torch.graphs.csr import CSRGraph
 from repro_torch.hw import H100_SXM, GPUSpec
 
-__all__ = ["TunerResult", "evolve", "tune", "SEARCH_SPACE"]
+__all__ = ["TunerResult", "evolve", "tune", "SEARCH_SPACE",
+           "select_variant_measured", "measured_tune", "MEASURED_VARIANTS",
+           "plan_facing_dim"]
+
+# gather kernels the measured stage races by default: the folded one-hot
+# kernel (the default) vs the gather kernel.  slot_onehot computes what
+# folded computes with one more multiply a slot, so it is not raced
+# unless a caller asks.
+MEASURED_VARIANTS = ("folded", "direct")
 
 SEARCH_SPACE = {
     "gs": [4, 8, 16, 32, 64],
@@ -52,8 +62,11 @@ class TunerResult:
     best_score: float
     history: list  # (iteration, best_score)
     evaluations: int  # UNIQUE score-fn evaluations (duplicates are memoized)
-    # best-first (score, config) over every UNIQUE config scored
+    # best-first (score, config) over every UNIQUE config scored — the
+    # candidate list the measured stage (`measured_tune`) races on the card
     top: list = dataclasses.field(default_factory=list)
+    # (config, variant) -> measured p50 seconds, filled by `measured_tune`
+    measured: dict = dataclasses.field(default_factory=dict)
 
 
 def _random_config(rng: np.random.Generator,
@@ -203,3 +216,153 @@ def tune(g: CSRGraph, dim: int, *, props: GraphProps | None = None,
         raise ValueError(mode)
     return evolve(score, pop=pop, iters=iters, seed=seed, base=base,
                   infeasibility_fn=lambda c: config_infeasibility(c, hw=hw))
+
+
+# ---------------------------------------------------------------------------
+# Measured stage — close the loop GNNAdvisor §5 only seeds analytically.
+# ---------------------------------------------------------------------------
+
+def plan_facing_dim(plan, default: int = 64) -> int:
+    """The feature width the KERNEL actually sees for a plan: after the
+    §4.2 dimension-reduced placement the aggregation runs at hidden_dim,
+    otherwise at in_dim.  This is the dim the measured selector races at
+    and the dim bucket `PlanCache` memoizes variant decisions under."""
+    arch = getattr(plan, "arch", None)
+    if arch is None:
+        return default
+    return arch.hidden_dim if plan.reduce_dim_first else arch.in_dim
+
+
+def _device_features(num_nodes: int, dim: int, seed: int, feat_dtype: str,
+                     device):
+    """Deterministic (num_nodes, dim) features from
+    ``np.random.default_rng(seed)``, moved to ``device`` once."""
+    import torch
+    feat = np.random.default_rng(seed).standard_normal(
+        (num_nodes, dim)).astype(np.float32)
+    return torch.as_tensor(feat).to(device=device,
+                                    dtype=getattr(torch, feat_dtype))
+
+
+def _race_p50(m) -> float:
+    """The p50 a race compares: device-only where measured, else wall."""
+    return m.device_p50 if m.device_samples else m.p50
+
+
+def select_variant_measured(plan, *, backend: str = "cuda", device="cuda",
+                            variants: Sequence[str] = MEASURED_VARIANTS,
+                            dim: int | None = None, iters: int = 3,
+                            warmup: int | None = 2, seed: int = 0,
+                            margin: float = 0.05,
+                            registry=None) -> tuple[str, dict]:
+    """Race the gather kernels on one PLANNED schedule and pick the winner.
+
+    Runs the plan's forward schedule under each candidate variant through
+    `repro_torch.obs.profile.measure` (synchronize-honest, warmup absorbed)
+    on deterministic features at the plan's kernel-facing dim, and returns
+    ``(best_variant, {variant: p50_seconds})``.  On the card the p50 is
+    the device-only one (`Measurement.device_p50`): the host's share of a
+    call is the same Python for every variant, so on the wall clock it
+    only adds its jitter to a difference the kernels make (off the card,
+    the wall p50).
+
+    Candidate ORDER is a preference: a later candidate only unseats an
+    earlier one by beating its p50 by more than ``margin`` (relative), so
+    measurement noise — including the ``"torch"`` backend, where every
+    variant runs the same plain version — resolves to the FIRST candidate
+    (the default).  The selector only moves away from the default on a
+    strict, beyond-noise win; it never picks a variant measurably slower
+    than the default.
+
+    The measurement is per (schedule, dim) — callers memoize it per
+    workload shape class (`PlanCache` keys on the fingerprint + pow2 dim
+    bucket) rather than per graph.
+    """
+    from repro_torch.core.aggregate import PlanExecutor
+    from repro_torch.device import resolve_device
+    from repro_torch.obs.profile import measure
+
+    variants = tuple(variants)
+    if not variants:
+        raise ValueError("need at least one candidate variant")
+    cfg = plan.config
+    dev = resolve_device(device)
+    d = int(dim) if dim is not None else plan_facing_dim(plan)
+    feat = _device_features(plan.graph.num_nodes, d, seed, cfg.feat_dtype,
+                            dev)
+    sched = plan.sched(dev)
+    p50s: dict = {}
+    for v in variants:
+        ex = PlanExecutor.from_schedule(
+            sched, dt=cfg.dt, variant=v, backend=backend, device=dev,
+            out_dtype=cfg.feat_dtype)
+        p50s[v] = _race_p50(measure(ex, feat, warmup=warmup, iters=iters))
+    best = variants[0]
+    for v in variants[1:]:
+        if p50s[v] < p50s[best] * (1.0 - margin):
+            best = v
+    if registry is not None:
+        for v, p50 in p50s.items():
+            registry.gauge(
+                "variant_measured_p50_seconds", labels={"variant": str(v)},
+                desc="measured p50 of the planned schedule per gather "
+                     "variant (select_variant_measured)").set(p50)
+        registry.counter(
+            "variant_selected_total", labels={"variant": str(best)},
+            desc="measured gather-variant selections, by winner").inc()
+    return best, p50s
+
+
+def measured_tune(g: CSRGraph, dim: int, *, top_k: int = 2,
+                  variants: Sequence[str] = MEASURED_VARIANTS,
+                  backend: str = "cuda", device="cuda", mode: str = "model",
+                  iters: int = 12, pop: int = 16, seed: int = 0,
+                  feat_dtype: str = "float32", hw: GPUSpec = H100_SXM,
+                  measure_iters: int = 3, warmup: int | None = 2,
+                  props: GraphProps | None = None,
+                  edge_vals: Optional[np.ndarray] = None) -> TunerResult:
+    """Analytical search, then measure the top-k candidates per variant.
+
+    Step 1 is the plain `tune` (the paper's evolutionary search over the
+    white-box model); step 2 builds REAL partitions for the ``top_k`` best
+    unique configs, races each under every candidate gather variant through
+    `repro_torch.obs.profile.measure`, and returns a `TunerResult` whose
+    ``best`` is the measured winner (variant stamped into the config) and
+    whose ``best_score`` is its measured p50 in seconds.  The full
+    measurement table lands in ``TunerResult.measured`` as
+    ``{(config, variant): p50}`` (device-only p50s on the card, as in
+    `select_variant_measured`).  ``edge_vals`` (port addition, default
+    None = the partitioner's unit values) gives the schedules the caller's
+    edge weights; the time does not depend on them.
+    """
+    from repro_torch.core.aggregate import PlanExecutor
+    from repro_torch.device import resolve_device
+    from repro_torch.kernels.ops import DeviceSchedule
+    from repro_torch.obs.profile import measure
+
+    analytic = tune(g, dim, props=props, mode=mode, iters=iters, pop=pop,
+                    seed=seed, feat_dtype=feat_dtype, hw=hw)
+    candidates = ([c for _, c in analytic.top[:max(top_k, 1)]]
+                  or [analytic.best])
+    dev = resolve_device(device)
+    feat = _device_features(g.num_nodes, dim, seed, feat_dtype, dev)
+
+    table: dict = {}
+    for cfg in candidates:
+        p = partition_graph(g, gs=cfg.gs, gpt=cfg.gpt, ont=cfg.ont,
+                            src_win=cfg.src_win, edge_vals=edge_vals)
+        sched = DeviceSchedule(p, dev)
+        for v in variants:
+            ex = PlanExecutor.from_schedule(
+                sched, dt=cfg.dt, variant=v, backend=backend, device=dev,
+                out_dtype=feat_dtype)
+            table[(cfg, v)] = _race_p50(measure(ex, feat, warmup=warmup,
+                                                iters=measure_iters))
+        del sched
+    (best_cfg, best_variant), best_p50 = min(table.items(),
+                                             key=lambda kv: kv[1])
+    best = dataclasses.replace(best_cfg, variant=best_variant)
+    return TunerResult(best=best, best_score=best_p50,
+                       history=analytic.history,
+                       evaluations=analytic.evaluations,
+                       top=analytic.top, measured=table)

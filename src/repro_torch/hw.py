@@ -29,10 +29,7 @@ class GPUSpec:
     # exp/log results per second on the special-function units: results
     # per clock per SM x SMs x boost clock
     peak_sfu: float
-    # fixed cost of scheduling one thread block (launch slot, index loads,
-    # accumulator zero and flush); an ASSUMPTION, not yet measured on the
-    # card — the kernel model prices it per wave of blocks
-    block_overhead_s: float
+    smem_per_sm: int            # bytes of shared memory one SM holds
 
 
 H100_SXM = GPUSpec(
@@ -47,5 +44,6 @@ H100_SXM = GPUSpec(
     # (CUDA C++ Programming Guide, "Arithmetic Instructions" throughput
     # table), over 132 SMs at the 1.98 GHz boost clock: 4.18e12 per second
     peak_sfu=16 * 132 * 1.98e9,
-    block_overhead_s=2e-6,
+    # 228 KB a multiprocessor (Hopper tuning guide)
+    smem_per_sm=233_472,
 )

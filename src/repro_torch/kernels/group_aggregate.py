@@ -84,10 +84,6 @@ _ONEHOT_WARPS = 8              # warps per block (kWarps; no other count)
 _ONEHOT_STAGE_UNITS = 4        # least units of whole groups per metadata stage
 _ONEHOT_STAGES = 2             # metadata ring depth per warp (kStages)
 _ONEHOT_LIST = 128             # live-slot list entries per warp (kListCap)
-# the group chunk KernelModel's one-hot term prices (the earlier
-# dense-window design)
-_FOLDED_GROUPS = 32            # groups per chunk, folded
-_SLOT_ROWS = 128               # W rows per chunk, slot_onehot (gc * gs)
 _GATHER_WARPS = 8              # warps per block, direct (kWarps)
 _GATHER_COLS = 4               # neighbouring columns a lane loads (kCols)
 _GATHER_LIST = 128             # live-slot list entries per warp (kListCap)
@@ -115,11 +111,8 @@ def _check_aligned(**tensors: torch.Tensor) -> None:
 class Geometry:
     """Launch geometry of one kernel call: columns per block ``dc``, warps
     per block and dynamic shared memory bytes; for the one-hot kernels also
-    ``stage_units`` per metadata stage (0 for ``direct``).
-    ``gc`` is the group chunk of the earlier dense-window design, which
-    `core.model.KernelModel` still prices; no kernel reads it."""
+    ``stage_units`` per metadata stage (0 for ``direct``)."""
 
-    gc: int
     dc: int
     warps: int
     stage_units: int
@@ -161,20 +154,16 @@ def launch_geometry(variant: str, *, gs: int, gpt: int, ont: int,
     _check_variant(variant)
     if variant == "direct":
         dc = min(dt, 32 * _GATHER_COLS)
-        return Geometry(gc=0, dc=dc, warps=_GATHER_WARPS, stage_units=0,
+        return Geometry(dc=dc, warps=_GATHER_WARPS, stage_units=0,
                         smem_bytes=_gather_smem(ont, dc))
     dc = min(dt, _ONEHOT_COLS)
-    if variant == "folded":
-        gc = min(gpt, _FOLDED_GROUPS)
-    else:
-        gc = max(1, min(gpt, _SLOT_ROWS // gs))
     # units per metadata stage: at least _ONEHOT_STAGE_UNITS, and a number
     # whose group rows span a multiple of 16 bytes, as TMA 1-D copies need
     groups = ((32 // gs) * gs if gs <= 32 else gs) // gs
     step = 4 // math.gcd(4, groups)
     warps = _ONEHOT_WARPS
     units = -(-_ONEHOT_STAGE_UNITS // step) * step
-    return Geometry(gc=gc, dc=dc, warps=warps, stage_units=units,
+    return Geometry(dc=dc, warps=warps, stage_units=units,
                     smem_bytes=_onehot_smem(gs, ont, dc, warps, units))
 
 

@@ -32,11 +32,18 @@ chunk: earlier ones answered against earlier snapshots) and checks
 ``max|batched - single| / (1 + |single|)`` against 1e-5 (float32) or
 2e-2 (bfloat16); exit code 1 on failure.
 
+``--trace-out PATH`` writes the run's span records (the engine's
+``serve_batch`` / ``extract`` / ``plan`` / ``compute`` spans, one track
+per thread: the async tier's worker is its own) as a Chrome/Perfetto
+trace with `run_context()` in ``otherData``.
+
 Port flags beside the reference's: ``--device cuda|cpu`` (default cuda;
 raises without CUDA), ``--backend cuda|torch`` (hand-written kernels or
 plain PyTorch) and ``--variant folded|slot_onehot|direct`` (the gather
 kernel).  ``--shards > 1`` is refused until sharding is ported (ROADMAP
-Queue 1 item 5) and ``--trace-out`` until the profiling tier is (item 7).
+Queue 1 item 5).  `run` also takes a shared `PlanCache` (``cache=``), for
+example one built with ``measure_variants=True``, whose measured kernel
+then overrides ``--variant``.
 """
 from __future__ import annotations
 
@@ -129,7 +136,8 @@ def parse_args(argv=None) -> argparse.Namespace:
                         "the resident graph, interleaved with the request "
                         "replay")
     p.add_argument("--trace-out", default=None,
-                   help="Chrome trace output (not ported yet: refused)")
+                   help="write the run's span records as a Chrome/Perfetto "
+                        "trace JSON (open in ui.perfetto.dev)")
     p.add_argument("--smoke", action="store_true",
                    help="tiny CI-sized run (overrides --num-nodes, "
                         "--requests, --batch-window, --tune-iters)")
@@ -144,9 +152,6 @@ def parse_args(argv=None) -> argparse.Namespace:
                 "(ROADMAP Queue 1 item 5)")
     if args.shards < 1:
         p.error("--shards must be >= 1")
-    if args.trace_out:
-        p.error("--trace-out: the Chrome-trace exporter is not ported yet "
-                "(ROADMAP Queue 1 item 7)")
     args.use_async = (args.policy in ("deadline", "clock")
                       or args.tenants > 1 or args.slo_ms is not None)
     if args.use_async and args.policy == "micro":
@@ -181,7 +186,16 @@ def _write_metrics(args, registry, tracer) -> None:
               f"{args.metrics_out}")
 
 
-def _serve_async(args, g, feat, cfg, registry, tracer) -> dict:
+def _write_trace(args, tracer) -> None:
+    """--trace-out: span records as a Chrome/Perfetto trace JSON."""
+    if not args.trace_out:
+        return
+    from repro_torch.obs import run_context, write_chrome_trace
+    write_chrome_trace(args.trace_out, tracer, context=run_context())
+    print(f"[serve_gnn] wrote Chrome trace -> {args.trace_out}")
+
+
+def _serve_async(args, g, feat, cfg, registry, tracer, cache=None) -> dict:
     """Replay the trace through the async SLO-aware tier; returns the
     same keys as `run` plus ``async_engine``, ``all_requests``,
     ``accounting``, ``throughput_rps``, ``updates`` and
@@ -198,7 +212,7 @@ def _serve_async(args, g, feat, cfg, registry, tracer) -> dict:
 
     t0 = time.time()
     sync = ServingEngine(g, feat, cfg, serving=_serving_config(args),
-                         registry=registry, tracer=tracer)
+                         cache=cache, registry=registry, tracer=tracer)
     serve_fn = sync.serve_batch
     # warm the pow-2 batch-size buckets so measured batches replay cached
     # plans instead of paying plan builds
@@ -283,6 +297,7 @@ def _serve_async(args, g, feat, cfg, registry, tracer) -> dict:
               f"attainment={st['slo_attainment']:.3f} "
               f"mean-batch={st['mean_batch']:.1f}")
     _write_metrics(args, registry, tracer)
+    _write_trace(args, tracer)
 
     ok = ok and res["drained"] and acc["outstanding"] == 0
     ok = ok and acc["submitted"] == acc["completed"] + acc["rejected"]
@@ -311,11 +326,12 @@ def _serve_async(args, g, feat, cfg, registry, tracer) -> dict:
             "verify_err": err, "doc": doc}
 
 
-def run(argv=None) -> dict:
+def run(argv=None, *, cache=None) -> dict:
     """Build the engine, replay the trace, verify; returns ``{"ok",
     "engine", "requests", "summary", "verify_err", "doc"}`` (the engine
     stays usable for further checks; the async tier adds the keys
-    `_serve_async` names)."""
+    `_serve_async` names).  ``cache``: an optional shared `PlanCache`
+    for the engine (its backend, device and dtype must be the run's)."""
     args = parse_args(argv)
 
     import numpy as np
@@ -337,10 +353,10 @@ def run(argv=None) -> dict:
                     num_layers=args.layers, backend=args.backend,
                     feat_dtype=args.dtype, device=args.device)
     if args.use_async:
-        return _serve_async(args, g, feat, cfg, registry, tracer)
+        return _serve_async(args, g, feat, cfg, registry, tracer, cache)
 
     engine = ServingEngine(g, feat, cfg, serving=_serving_config(args),
-                           registry=registry, tracer=tracer)
+                           cache=cache, registry=registry, tracer=tracer)
     print(f"[serve_gnn] graph n={g.num_nodes} e={g.num_edges} arch={args.arch} "
           f"backend={args.backend} device={engine.device} "
           f"variant={args.variant} dtype={args.dtype} hops={engine.hops} "
@@ -371,6 +387,7 @@ def run(argv=None) -> dict:
           f"p50={s['p50_ms']:.2f}ms p99={s['p99_ms']:.2f}ms "
           f"hit-rate={c['hit_rate']:.2f}")
     _write_metrics(args, registry, tracer)
+    _write_trace(args, tracer)
 
     ok, err = True, None
     if args.verify > 0:

@@ -35,6 +35,10 @@ beside the reference's: ``--device cuda|cpu`` (default cuda; raises
 without CUDA), ``--backend cuda|torch`` (hand-written kernels or plain
 PyTorch) and ``--variant folded|slot_onehot|direct`` (the gather kernel).
 ``--stream-deltas`` requires ``--sampled``, as in the reference.
+``--trace-out PATH`` (both branches) writes the Trainer's span records
+(``train`` / ``train/step`` / ``train/step/batch`` /
+``train/checkpoint``) as a Chrome/Perfetto trace with `run_context()` in
+``otherData``.
 ``--shards`` and the LM architectures wait for their slices and exit with
 an error naming the ROADMAP item that ports them.
 """
@@ -119,6 +123,9 @@ def parse_args(argv=None) -> argparse.Namespace:
                    help="write the run's metrics registry to this path")
     p.add_argument("--metrics-format", default="json",
                    choices=["json", "prom"])
+    p.add_argument("--trace-out", default=None,
+                   help="write the Trainer's span records as a Chrome/"
+                        "Perfetto trace JSON (open in ui.perfetto.dev)")
     p.add_argument("--sampled", action="store_true",
                    help="neighbor-sampled mini-batch training (gcn/gin)")
     p.add_argument("--fanouts", default="10,5",
@@ -159,12 +166,13 @@ def _train(args, step_fn, batch_fn, state, ckpt_dir, registry,
            tracer) -> dict:
     """The Trainer loop of both branches: ``args.steps`` steps from
     ``state`` (resuming from ``ckpt_dir``, failures injected at
-    ``--fail-at``), the batch source closed after, ``--metrics-out``
-    written.  Returns ``{"ok", "trainer", "history", "first_loss",
-    "last_loss", "avg_step_s", "wall_s", "doc"}``."""
+    ``--fail-at``), the batch source closed after, ``--metrics-out`` and
+    ``--trace-out`` written.  Returns ``{"ok", "trainer", "history",
+    "first_loss", "last_loss", "avg_step_s", "wall_s", "doc"}``."""
     import numpy as np
 
-    from repro_torch.obs import registry_to_json, run_context, write_metrics
+    from repro_torch.obs import (registry_to_json, run_context,
+                                 write_chrome_trace, write_metrics)
     from repro_torch.runtime.trainer import (FailureInjector, Trainer,
                                              TrainerConfig)
 
@@ -186,6 +194,9 @@ def _train(args, step_fn, batch_fn, state, ckpt_dir, registry,
                       tracer=tracer, context=run_context())
         print(f"[train] wrote metrics ({args.metrics_format}) -> "
               f"{args.metrics_out}")
+    if args.trace_out:
+        write_chrome_trace(args.trace_out, tracer, context=run_context())
+        print(f"[train] wrote Chrome trace -> {args.trace_out}")
     return {"ok": all(np.isfinite(m["loss"]) for m in hist),
             "trainer": trainer, "history": hist,
             "first_loss": hist[0]["loss"] if hist else float("nan"),

@@ -23,9 +23,15 @@ all-zero edge values, so they contribute nothing to any output row.
 Mutable graphs: a caller stamps its graph epoch on every lookup
 (`get_or_build(epoch=)`); the epoch is part of the exact key, and
 `invalidate(fingerprint=, before_epoch=)` drops what a mutation made
-stale.  Left for a later slice: measured variant selection.  The port adds a ``variant`` knob that stamps the
-gather kernel onto every plan (the reference reaches other variants only
-through measurement).
+stale.
+
+Gather kernel: the port's ``variant`` knob stamps one kernel onto every
+plan (the pin `chip_smoke.py`'s per-kernel phases use).  With
+``measure_variants=True`` the cache races the kernels on each newly
+planned schedule (`core.tuner.select_variant_measured`) and the measured
+winner overrides the pin, as the reference's measurement overrides its
+default ``folded``; decisions are memoized per (fingerprint, pow2 bucket
+of the kernel-facing dim).
 """
 from __future__ import annotations
 
@@ -106,7 +112,8 @@ class PlanCache:
     """LRU plan cache + fingerprint->config memo (see module docstring).
 
     ``max_plans`` LRU-bounds the ready-plan level (None = unbounded) and
-    ``max_configs`` the config memo; evictions show in `stats()`.
+    ``max_configs`` the config memo and the measured-variant memo;
+    evictions show in `stats()`.
     ``backend`` / ``device`` are where every built executor runs;
     ``variant`` is stamped onto every plan's config.  ``registry``:
     optional shared `MetricsRegistry` (hit/miss/eviction counters, build
@@ -121,6 +128,13 @@ class PlanCache:
     consulted on a fingerprint miss in place of the tuner (its
     ``feat_dtype`` forced to the cache's); the build counts under
     ``plan_cache_builds_total{source="heuristic"}``.
+
+    ``measure_variants``: race ``variant_candidates`` (default
+    `core.tuner.MEASURED_VARIANTS`) on each newly built plan's forward
+    schedule, ``variant_measure_iters`` timed calls each, and stamp the
+    winner into the plan's config (see the module docstring); each
+    measurement or memo reuse counts in `stats()` as
+    ``variant_selections`` / ``variant_memo_hits``.
     """
 
     def __init__(self, *, backend: str = "cuda", device="cuda",
@@ -131,6 +145,9 @@ class PlanCache:
                  feat_dtype: str = "float32", variant: str = "folded",
                  with_backward: bool = False,
                  config_fn: Optional[Callable[[CSRGraph], AggConfig]] = None,
+                 measure_variants: bool = False,
+                 variant_candidates: Optional[tuple] = None,
+                 variant_measure_iters: int = 3,
                  registry: Optional[MetricsRegistry] = None):
         self.backend = backend
         self.device = device
@@ -144,6 +161,16 @@ class PlanCache:
         self.seed = seed
         self.with_backward = with_backward
         self.config_fn = config_fn
+        # measured variant selection (off by default: a measurement costs
+        # a few kernel launches per new shape class, and on the "torch"
+        # backend every variant runs the same plain version, so its races
+        # only measure noise)
+        self.measure_variants = measure_variants
+        self.variant_candidates = variant_candidates
+        self.variant_measure_iters = variant_measure_iters
+        self._variants: "OrderedDict[tuple, str]" = OrderedDict()
+        self.variant_selections = 0
+        self.variant_memo_hits = 0
         self._lock = threading.RLock()
         self._plans: "OrderedDict[tuple, CacheEntry]" = OrderedDict()
         self._configs: "OrderedDict[tuple, AggConfig]" = OrderedDict()
@@ -246,6 +273,8 @@ class PlanCache:
                     part_bwd, bucket_pow2(part_bwd.num_tiles))
             plan = dataclasses.replace(plan, partition=part,
                                        partition_bwd=part_bwd)
+        if self.measure_variants:
+            plan = self._apply_measured_variant(plan, fp)
         ent = CacheEntry(plan=plan,
                          executor=plan.executor(self.backend, self.device),
                          fingerprint=fp, epoch=0 if epoch is None else epoch)
@@ -259,6 +288,41 @@ class PlanCache:
             self.evictions += 1
             self._c_evict.inc()
         return ent
+
+    def _apply_measured_variant(self, plan: Plan, fp: tuple) -> Plan:
+        """Stamp the measured-winner gather kernel into a freshly built
+        plan (runs inside the cache lock — measurement serializes with
+        builds: one thread measures, everyone reuses).
+
+        The memo key is (fingerprint, pow2 bucket of the kernel-facing
+        dim): the variant tradeoff depends on the schedule's shape class
+        and the feature width the kernel runs at, not on the exact
+        subgraph."""
+        from repro_torch.core.tuner import (plan_facing_dim,
+                                            select_variant_measured)
+
+        vkey = fp + (bucket_pow2(plan_facing_dim(plan)),)
+        variant = self._variants.get(vkey)
+        if variant is not None:
+            self._variants.move_to_end(vkey)
+            self.variant_memo_hits += 1
+        else:
+            kwargs = {} if self.variant_candidates is None else {
+                "variants": self.variant_candidates}
+            variant, _ = select_variant_measured(
+                plan, backend=self.backend, device=self.device,
+                seed=self.seed, iters=self.variant_measure_iters,
+                registry=self.registry, **kwargs)
+            self._variants[vkey] = variant
+            self.variant_selections += 1
+            # bound alongside the config memo (same workload-class growth)
+            while (self.max_configs is not None
+                   and len(self._variants) > self.max_configs):
+                self._variants.popitem(last=False)
+        if variant != plan.config.variant:
+            plan = dataclasses.replace(
+                plan, config=dataclasses.replace(plan.config, variant=variant))
+        return plan
 
     def _set_config(self, fp: tuple, config: AggConfig) -> None:
         with self._lock:
@@ -275,11 +339,13 @@ class PlanCache:
         """Keyed invalidation after a graph mutation.
 
         ``fingerprint``: drop the ready plans built under that fingerprint
-        plus its config-memo entry.  ``before_epoch``: drop every ready
-        plan stamped with an earlier graph epoch (the serving engine's
-        swap protocol: entries for egos of the pre-mutation snapshot); the
-        config memo is kept, a shape-class tuning decision survives
-        content changes.  With neither selector both levels are dropped.
+        plus its config-memo and measured-variant entries.
+        ``before_epoch``: drop every ready plan stamped with an earlier
+        graph epoch (the serving engine's swap protocol: entries for egos
+        of the pre-mutation snapshot), plus ALL measured-variant entries
+        (they were measured on pre-mutation schedules); the config memo is
+        kept, a shape-class tuning decision survives content changes.
+        With neither selector all three levels are dropped.
         Returns the number of entries removed; each removal counts into
         ``plan_cache_invalidations_total``."""
         with self._lock:
@@ -295,9 +361,17 @@ class PlanCache:
             if fingerprint is not None:
                 if self._configs.pop(fingerprint, None) is not None:
                     n += 1
-            elif before_epoch is None:
-                n += len(self._configs)
+                for vk in list(self._variants):
+                    if vk[:-1] == fingerprint:
+                        del self._variants[vk]
+                        n += 1
+            elif before_epoch is not None:
+                n += len(self._variants)
+                self._variants.clear()
+            else:
+                n += len(self._configs) + len(self._variants)
                 self._configs.clear()
+                self._variants.clear()
             self.invalidations += n
             self._c_invalidate.inc(n)
             return n
@@ -327,4 +401,6 @@ class PlanCache:
                 "evictions": self.evictions,
                 "config_evictions": self.config_evictions,
                 "invalidations": self.invalidations,
+                "variant_selections": self.variant_selections,
+                "variant_memo_hits": self.variant_memo_hits,
             }

@@ -428,7 +428,6 @@ def test_driver_async_deadline_tenants_stream_deltas():
 
 @pytest.mark.parametrize("flags,msg", [
     (["--shards", "2"], "Queue 1 item 5"),
-    (["--trace-out", "t.json"], "Queue 1 item 7"),
 ])
 def test_driver_refuses_unported_flags(flags, msg, capsys):
     with pytest.raises(SystemExit):
