@@ -2174,53 +2174,19 @@ def _model_row(plan, part, d, variant=None) -> dict:
     return KernelModel().terms(props, d, cfg, tiles=part.num_tiles)
 
 
-COST_FIELDS = ("device_s", "block_s", "slot_s", "live_s")
-
-
-def fit_costs(points: list) -> dict:
-    """Refit `KernelModel`'s measured costs to this run: for each raced
-    kernel, ``device_s``, ``block_s``, ``slot_s`` and ``live_s`` by least
-    squares on log time against the device-only p50s of ``points`` (each
-    ``{"props", "D", "cfg", "tiles", "dev_s", "wall_s"}``), ``chain_s``
-    held at the shipped value (the longest run rarely sets these times);
-    the host's share of a call as the median of wall - device p50.  Both
-    the shipped and the refitted model's ratios (measured / model) are
-    returned beside the constants."""
-    import dataclasses
-    import math
-
-    import numpy as np
-    from scipy.optimize import least_squares
-
-    from repro_torch.core.model import KERNEL_COSTS, KernelModel
-
-    def ratios(v, costs, pts):
-        km = KernelModel(costs={v: costs})
-        return [p["dev_s"] / km.terms(p["props"], p["D"], p["cfg"],
-                                      tiles=p["tiles"])["t_device"]
-                for p in pts]
-
-    out = {"call_s": statistics.median(p["wall_s"] - p["dev_s"]
-                                       for p in points)}
-    for v in ("folded", "direct"):
-        pts = [p for p in points if p["cfg"].variant == v]
-        base = KERNEL_COSTS[v]
-
-        def res(x):
-            c = dataclasses.replace(base, **dict(zip(COST_FIELDS,
-                                                     np.exp(x))))
-            return [math.log(r) for r in ratios(v, c, pts)]
-
-        x = least_squares(res, np.log([getattr(base, f)
-                                       for f in COST_FIELDS])).x
-        fitted = dataclasses.replace(base, **dict(zip(COST_FIELDS,
-                                                      np.exp(x))))
-        out[v] = {"points": len(pts),
-                  "shipped": dataclasses.asdict(base),
-                  "fitted": dataclasses.asdict(fitted),
-                  "ratios_shipped": ratios(v, base, pts),
-                  "ratios_fitted": ratios(v, fitted, pts)}
-    return out
+def _point(what: str, props, d: int, cfg, tiles: int, m) -> dict:
+    """One measured point in the form `tools/fit_kernel_costs.py` reads,
+    with the shipped model's device time beside it."""
+    from repro_torch.core.model import KernelModel
+    return {"what": what, "variant": cfg.variant, "D": d,
+            "config": list(cfg.astuple()), "feat_dtype": cfg.feat_dtype,
+            "tiles": int(tiles), "dev_s": m.device_p50, "wall_s": m.p50,
+            "model_dev_s": KernelModel().terms(props, d, cfg,
+                                               tiles=tiles)["t_device"],
+            "props": {"num_nodes": props.num_nodes,
+                      "num_edges": props.num_edges,
+                      "avg_degree": props.avg_degree,
+                      "max_degree": props.max_degree}}
 
 
 def _calls(m, iters: int) -> int:
@@ -2361,9 +2327,9 @@ def profiling(detail: dict) -> dict:
                       f"{m.device_p50 * 1e3:.4f} ms vs time_ms "
                       f"{t_dev:.4f} ms (ratio {ratio:.2f})")
             rows.append(row)
-            points.append({"props": plan.graph_props, "D": d, "cfg": cfg,
-                           "tiles": parts[which].num_tiles,
-                           "dev_s": m.device_p50, "wall_s": m.p50})
+            points.append(_point(f"profile_plan {s.schedule}",
+                                 plan.graph_props, d, cfg,
+                                 parts[which].num_tiles, m))
             log(f"  {s.schedule} [{cfg.variant} {cfg.feat_dtype} D={d} "
                 f"{cfg.astuple()}]: p50={row['p50_us']:.1f}us "
                 f"p90={row['p90_us']:.1f}us dev p50={row['dev_p50_us']:.1f}us"
@@ -2425,11 +2391,10 @@ def profiling(detail: dict) -> dict:
             KernelCase.holds(rec, f"race winner {best} at D={d}")
             del case
             for v, m in zip(p50s, measured):
-                points.append({"props": plan.graph_props, "D": d,
-                               "cfg": dataclasses.replace(plan.config,
-                                                          variant=v),
-                               "tiles": plan.partition.num_tiles,
-                               "dev_s": m.device_p50, "wall_s": m.p50})
+                points.append(_point(
+                    "race", plan.graph_props, d,
+                    dataclasses.replace(plan.config, variant=v),
+                    plan.partition.num_tiles, m))
             race = {"D": d, "winner": best, "config": plan.config.astuple(),
                     "race_p50_us": {v: p * 1e6 for v, p in p50s.items()},
                     "p50_us": {v: m.p50 * 1e6
@@ -2455,8 +2420,7 @@ def profiling(detail: dict) -> dict:
 
     # C. measured_tune: the pubmed replica at D 500, full reddit at D 64
     tunes = []
-    for name, g, vals, d in (("pubmed", pubmed, vals_p, 500),
-                             ("reddit", reddit, vals_r, 64)):
+    for name, g, d in (("pubmed", pubmed, 500), ("reddit", reddit, 64)):
         t0 = time.time()
         parts = {}
         real_partition = tuner_mod.partition_graph
@@ -2473,7 +2437,6 @@ def profiling(detail: dict) -> dict:
             res = measured_tune(
                 g, d, top_k=2, backend=PROFILE_BACKEND, device=DEVICE, iters=4,
                 measure_iters=RACE_ITERS, warmup=RACE_WARMUP,
-                edge_vals=vals,
                 props=(plan_r.graph_props if name == "reddit" else None))
         counts = dict(ga.launches)
         tally()
@@ -2489,9 +2452,8 @@ def profiling(detail: dict) -> dict:
         for ((cfg, v), p50), m in zip(res.measured.items(), measured):
             st = parts[(cfg.gs, cfg.gpt, cfg.src_win)]
             c_v = dataclasses.replace(cfg, variant=v)
-            points.append({"props": props, "D": d, "cfg": c_v,
-                           "tiles": st["tiles"], "dev_s": m.device_p50,
-                           "wall_s": m.p50})
+            points.append(_point(f"measured_tune {name}", props, d, c_v,
+                                 st["tiles"], m))
             table.append({"config": cfg.astuple(), "variant": v,
                           "race_p50_us": p50 * 1e6, "p50_us": m.p50 * 1e6,
                           "dev_p50_us": m.device_p50 * 1e6,
@@ -2544,19 +2506,17 @@ def profiling(detail: dict) -> dict:
         check(agrees or not decided, f"KernelModel ranks {what} against the "
               f"measured order: measured {meas}, model {model}")
     out["ranking"] = ranking
-    fit = fit_costs(points)
-    out["fit"] = fit
+    # the shipped costs against this run's points (`tools/fit_kernel_costs.py`
+    # refits them from ``profile.points`` of the detail file)
+    out["points"] = points
+    host = statistics.median(p["wall_s"] - p["dev_s"] for p in points)
     log(f"  host share of a call (median wall - device p50): "
-        f"{fit['call_s'] * 1e6:.1f}us")
+        f"{host * 1e6:.1f}us")
     for v in ("folded", "direct"):
-        fv = fit[v]
-        log(f"  {v} costs over {fv['points']} points: shipped "
-            + ", ".join(f"{k} {fv['shipped'][k]:.4g}" for k in COST_FIELDS)
-            + "; refitted " + ", ".join(f"{k} {fv['fitted'][k]:.4g}"
-                                        for k in COST_FIELDS)
-            + f"; measured/model shipped {min(fv['ratios_shipped']):.2f}-"
-            f"{max(fv['ratios_shipped']):.2f}, refitted "
-            f"{min(fv['ratios_fitted']):.2f}-{max(fv['ratios_fitted']):.2f}")
+        rs = [p["dev_s"] / p["model_dev_s"] for p in points
+              if p["variant"] == v]
+        log(f"  {v}: device measured / model over {len(rs)} points "
+            f"{min(rs):.2f}-{max(rs):.2f}")
 
     # D. serving through a shared PlanCache(measure_variants=True)
     t0 = time.time()

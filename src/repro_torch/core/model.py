@@ -183,18 +183,18 @@ class KernelCosts:
     chain_s: float
 
 
-# Fitted by least squares on log time to the device-only p50s of
-# `obs.profile.measure` over `chip_smoke.py` phase 8's schedules (two runs,
-# before and after this pricing moved the tuner's picks: the pubmed
-# replica's train-ready plans at D 16, serving ego plans at D 16 and 500,
-# the measured tuner's candidates on the pubmed replica at D 500 and on
-# full reddit at D 64, full reddit's gather plan at D 64; 24 points a
-# kernel) on one NVIDIA H100 80GB HBM3 at a 700 W power limit; every
-# point lands within 0.7-1.35x of the model.  ``chain_s``: the one-hot
-# kernel's longest run alone (phase 2b: 30.5 us for 2,820 live slots at
-# D 16) and the gather kernel's longest run at 128 columns (29.2 ns a
-# live slot); the fit does not move it, since the longest run sets none
-# of these times.  Phase 8 prints a refit of every run beside these.
+# Fitted by least squares on log time (`tools/fit_kernel_costs.py`) to the
+# 42 device-only p50s of `obs.profile.measure` in
+# `tools/kernel_cost_points.json`: 24 of the one-hot kernel, 18 of the
+# gather kernel, from two runs of `chip_smoke.py --phases hub,profile` on
+# one NVIDIA H100 80GB HBM3 at a 700 W power limit (phase 8's schedules:
+# the pubmed replica's train-ready plans at D 16, ego-batch plans at D 16
+# and 500, the measured tuner's candidates on the pubmed replica at D 500
+# and on full reddit at D 64, full reddit's gather plan at D 64).  Every
+# point lands within 0.71-1.34x of the model.  ``chain_s`` is held out of
+# the fit: the one-hot kernel's longest run alone (the hub probe of the
+# first of those runs: 30.5 us for 2,820 live slots at D 16) and the
+# gather kernel's longest run at 128 columns (29.2 ns a live slot).
 # slot_onehot runs the one-hot kernel's walk and is priced as folded (it
 # is not raced, so not fitted).
 KERNEL_COSTS = {
@@ -206,8 +206,8 @@ KERNEL_COSTS = {
                           chain_s=0.228e-9),
 }
 KERNEL_COSTS["slot_onehot"] = KERNEL_COSTS["folded"]
-# the host's share of one executor call (checks, padding, the launch):
-# the median of wall p50 - device p50 over the same measurements
+# the host's share of one executor call (checks, padding, the launch): the
+# median of wall p50 - device p50 over the same 42 points, same card
 CALL_S = 83.5e-6
 # both kernels run 256 threads a block at up to 64 registers a thread
 # (ptxas), so the register file holds 4 blocks an SM
@@ -222,7 +222,7 @@ class KernelModel:
     Both kernels give a thread block to each run of tiles sharing a node
     block and each column slice of ``dc`` columns (`launch_geometry`), and
     each block's 8 warps walk every slot of the run's tiles, gathering the
-    live ones' rows.  So a call costs ``call_s`` of host work plus the
+    live ones' rows.  So a call costs `CALL_S` of host work plus the
     kernel's ``device_s`` plus the largest of
 
       * the work term: every block's fixed chain (``block_s``), every slot
@@ -241,17 +241,15 @@ class KernelModel:
     The longest run's live slots are estimated from the degree statistics
     (the highest-degree node and its node block's mean degrees), the runs
     as the node blocks (at most the tiles).  Constants: `KERNEL_COSTS`,
-    `CALL_S`; pass ``costs`` / ``call_s`` to price other measurements.
+    `CALL_S`.
     """
 
     hw: GPUSpec = H100_SXM
-    costs: dict = dataclasses.field(default_factory=lambda: dict(KERNEL_COSTS))
-    call_s: float = CALL_S
 
     def terms(self, props: GraphProps, dim: int, cfg: AggConfig,
               *, tiles: float | None = None) -> dict:
         from repro_torch.kernels.group_aggregate import launch_geometry
-        c = self.costs[cfg.variant]
+        c = KERNEL_COSTS[cfg.variant]
         T = float(tiles if tiles is not None else predict_tiles(props, cfg))
         dt = min(cfg.dt, -(-max(dim, 1) // 8) * 8)
         geo = launch_geometry(cfg.variant, gs=cfg.gs, gpt=cfg.gpt,
@@ -278,8 +276,8 @@ class KernelModel:
             "bytes": total_bytes, "smem_bytes": geo.smem_bytes,
             "t_compute": t_compute, "t_memory": t_memory,
             "t_work": t_work, "t_chain": t_chain,
-            "t_overhead": self.call_s + c.device_s,
-            "t_device": t_device, "latency": self.call_s + t_device,
+            "t_overhead": CALL_S + c.device_s,
+            "t_device": t_device, "latency": CALL_S + t_device,
         }
 
     def latency(self, props: GraphProps, dim: int, cfg: AggConfig, **kw) -> float:

@@ -319,8 +319,7 @@ def measured_tune(g: CSRGraph, dim: int, *, top_k: int = 2,
                   iters: int = 12, pop: int = 16, seed: int = 0,
                   feat_dtype: str = "float32", hw: GPUSpec = H100_SXM,
                   measure_iters: int = 3, warmup: int | None = 2,
-                  props: GraphProps | None = None,
-                  edge_vals: Optional[np.ndarray] = None) -> TunerResult:
+                  props: GraphProps | None = None) -> TunerResult:
     """Analytical search, then measure the top-k candidates per variant.
 
     Step 1 is the plain `tune` (the paper's evolutionary search over the
@@ -331,9 +330,7 @@ def measured_tune(g: CSRGraph, dim: int, *, top_k: int = 2,
     whose ``best_score`` is its measured p50 in seconds.  The full
     measurement table lands in ``TunerResult.measured`` as
     ``{(config, variant): p50}`` (device-only p50s on the card, as in
-    `select_variant_measured`).  ``edge_vals`` (port addition, default
-    None = the partitioner's unit values) gives the schedules the caller's
-    edge weights; the time does not depend on them.
+    `select_variant_measured`).
     """
     from repro_torch.core.aggregate import PlanExecutor
     from repro_torch.device import resolve_device
@@ -350,7 +347,7 @@ def measured_tune(g: CSRGraph, dim: int, *, top_k: int = 2,
     table: dict = {}
     for cfg in candidates:
         p = partition_graph(g, gs=cfg.gs, gpt=cfg.gpt, ont=cfg.ont,
-                            src_win=cfg.src_win, edge_vals=edge_vals)
+                            src_win=cfg.src_win)
         sched = DeviceSchedule(p, dev)
         for v in variants:
             ex = PlanExecutor.from_schedule(

@@ -326,3 +326,32 @@ def test_executor_from_schedule_matches_reference(variant, feat_dtype):
                                      out_dtype=feat_dtype)
     assert torch.equal(own, fwd(torch.as_tensor(x).to(
         getattr(torch, feat_dtype))))
+
+
+def test_kernel_costs_are_the_fit_of_their_recorded_points():
+    """`KERNEL_COSTS` and `CALL_S` are what `tools/fit_kernel_costs.py`
+    fits to the measurements in `tools/kernel_cost_points.json` (shipped to
+    three significant figures: rtol 5e-3), and the shipped costs price
+    every point within the 0.71-1.34x that `core/model.py` states."""
+    import importlib.util
+    import os
+
+    from repro_torch.core.model import CALL_S, KERNEL_COSTS
+    tools = os.path.join(os.path.dirname(__file__), "..", "tools")
+    spec = importlib.util.spec_from_file_location(
+        "fit_kernel_costs", os.path.join(tools, "fit_kernel_costs.py"))
+    fkc = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(fkc)
+
+    pts = fkc.load_points([os.path.join(tools, "kernel_cost_points.json")])
+    res = fkc.fit(pts)
+    assert len(pts) == 42
+    np.testing.assert_allclose(res["call_s"], CALL_S, rtol=5e-3)
+    for v, n in (("folded", 24), ("direct", 18)):
+        assert res[v]["points"] == n
+        for f in fkc.FITTED:
+            np.testing.assert_allclose(getattr(res[v]["fitted"], f),
+                                       getattr(KERNEL_COSTS[v], f),
+                                       rtol=5e-3, err_msg=f"{v} {f}")
+        rs = res[v]["ratios_shipped"]
+        assert 0.71 <= min(rs) and max(rs) <= 1.34, (v, rs)
