@@ -160,7 +160,6 @@ Phases, each timed, any failure exits non-zero before the result line:
      plain version's prefill and a prefill in TF32 read beside it; (d)
      ``repro_torch.launch.serve --arch falcon-mamba-7b --full --batch 4
      --prompt-len 16 --gen-len 32`` and its tok/s.
-
   8. profile — the profiling tier and the measured tuner on the kernels;
      launch counts zeroed just before each part and read just after it,
      the plain version never launched:
@@ -187,8 +186,32 @@ Phases, each timed, any failure exits non-zero before the result line:
      parses, holds the drivers' ``compute`` / ``train`` spans and a
      ``thread_name`` event per thread (two threads for the async run).
      The profiling registry must pass the exposition lint.
+  9. lm-hybrid — the attention + MoE LM stack.  Jamba-v0.1 at full width,
+     one period (`jamba_v0_1_52b.full()` cut to 8 layers: 7 Mamba slots,
+     one GQA attention slot, 4 MoE and 4 GLU FFNs; 13,295,235,072
+     parameters, bf16, seeded random weights): (a)
+     ``make_prefill_step(backend="cuda")`` at B 4, S 2048, 1 warm-up + 5
+     timed prefills (host clock, synchronized), exactly 7
+     ``selective_scan`` launches a prefill and no plain call or other
+     kernel, finite logits, the attention slot's ``kvs`` (1, 4, 2048, 8,
+     128), peak memory, each MoE layer's dropped share (warm-up run), one
+     prefill and one decode step under `torch.profiler`; (b) cuda vs torch
+     at B 4, S 256: every Mamba layer's scan operands also through the
+     plain version and the float64 witness, ``<= 1e-5``, the free-running
+     logits read beside; (c) float32 with the capacity factor at
+     n_experts / topk (no token drops in prefill or decode), weight seeds
+     1-3, B 2: each layer alone, its prefill forward vs 64 decode steps
+     from step 0 on the same input, within 1e-4 (the whole model's
+     last-token logits, kernel and plain, read beside: the random
+     fan-in-2 FFNs amplify float32 rounding through the period to about
+     1e-4); (d) ``repro_torch.launch.serve --arch gemma2-2b --full --batch
+     4 --prompt-len 16 --gen-len 32`` (26 layers, bf16) and its tok/s,
+     then gemma2-2b in float32 at full width and depth with the local
+     layers' window cut to 16 (the ring wraps): prefill at B 2, S 64 vs
+     64 decode steps within 1e-4, each layer alone read beside.
 
-``--phases`` runs a subset of phases 2-8 (names in `PHASES`); with no
+
+``--phases`` runs a subset of phases 2-9 (names in `PHASES`); with no
 arguments every phase runs.  The line before the last is the
 ``{"kernels": [...]}`` record (times are
 medians of 20 CUDA-event-timed calls after 3 warm-up calls, on warm
@@ -210,6 +233,7 @@ in phase 3b; the gather and folded records' error maxima cover phase
 5c's patched schedules, and ``launches_profile`` counts each aggregation
 kernel's launches in phase 8; the scan kernel's record is at the
 timed shape, its ``launches`` those of phase 7a's six prefills,
+``launches_hybrid`` those of phase 9a's six,
 ``sfu_ms`` the exp/log term beside ``bound_ms``, and ``library_ms``
 null: no one PyTorch call computes a selective scan); the last line is
 ``{"ok": true, "device": {...}}``.  Details of every check go to
@@ -1872,6 +1896,12 @@ def _reset_counts() -> None:
     ss.reset_launches()
 
 
+def positions(B: int, S: int) -> "torch.Tensor":
+    """Prefill positions 0..S-1 for every row, (B, S) on the card."""
+    import torch
+    return torch.arange(S, device=DEVICE).expand(B, S)
+
+
 def _profile(fn) -> dict:
     """One call of ``fn`` under `torch.profiler`: device time by kernel
     name (top 12) and the device-busy share of the host-clock wall time."""
@@ -1939,6 +1969,7 @@ def lm_serving(detail: dict) -> dict:
     rng = np.random.default_rng(0)
     tokens = torch.as_tensor(rng.integers(0, cfg.vocab, (LM_BATCH, LM_SEQ)),
                              device=DEVICE)
+    pos = positions(LM_BATCH, LM_SEQ)
     prefill = make_prefill_step(cfg, backend="cuda")
     torch.cuda.reset_peak_memory_stats()
     times = []
@@ -1946,7 +1977,7 @@ def lm_serving(detail: dict) -> dict:
     for i in range(LM_WARMUP + LM_ITERS):
         torch.cuda.synchronize()
         t1 = time.perf_counter()
-        logits, _ = prefill(model.params, tokens)
+        logits, _ = prefill(model.params, tokens, pos)
         torch.cuda.synchronize()
         if i >= LM_WARMUP:
             times.append((time.perf_counter() - t1) * 1e3)
@@ -1973,11 +2004,11 @@ def lm_serving(detail: dict) -> dict:
     # one prefill and one decode step (B 4, bf16) under the profiler
     cache = init_lm_cache(cfg, LM_BATCH, device=DEVICE)
     decode = make_decode_step(cfg)
-    decode(model.params, cache, tokens[:, 0])
+    decode(model.params, cache, tokens[:, 0], 0)
     for what, fn in (
-            ("prefill", lambda: prefill(model.params, tokens)),
+            ("prefill", lambda: prefill(model.params, tokens, pos)),
             ("decode step", lambda: decode(model.params, cache,
-                                           tokens[:, 1]))):
+                                           tokens[:, 1], 1))):
         prof = _profile(fn)
         rec[f"profile_{what.split()[0]}"] = prof
         log(f"lm {what} profile: wall {prof['wall_ms']:.2f} ms, device "
@@ -2001,6 +2032,7 @@ def lm_serving(detail: dict) -> dict:
     tokens = torch.as_tensor(rng.integers(0, cfg.vocab,
                                           (LM_BATCH, LM_CMP_SEQ)),
                              device=DEVICE)
+    pos = positions(LM_BATCH, LM_CMP_SEQ)
     layer_errs, variant_errs = [], {v: [] for v in SCAN_VARIANTS}
 
     def probe(*args):
@@ -2015,16 +2047,18 @@ def lm_serving(detail: dict) -> dict:
 
     _reset_counts()
     with mock.patch.object(mamba_mod, "selective_scan", probe):
-        a, _ = make_prefill_step(cfg, backend="cuda")(model.params, tokens)
+        a, _ = make_prefill_step(cfg, backend="cuda")(model.params, tokens,
+                                                      pos)
     counts = _all_counts()
     check(counts[ss.KERNEL] == cfg.n_layers
           and counts[ss.PLAIN] == cfg.n_layers
           and len(layer_errs) == cfg.n_layers,
           f"backend comparison counts {counts}, {len(layer_errs)} layers")
-    b, _ = make_prefill_step(cfg, backend="torch")(model.params, tokens)
+    b, _ = make_prefill_step(cfg, backend="torch")(model.params, tokens, pos)
     chunked = dataclasses.replace(cfg, mamba=dataclasses.replace(
         cfg.mamba, fused_scan="off"))
-    c, _ = make_prefill_step(chunked, backend="torch")(model.params, tokens)
+    c, _ = make_prefill_step(chunked, backend="torch")(model.params, tokens,
+                                                       pos)
     plain_errs = [e[0] for e in layer_errs]
     f64_errs = [e[1] for e in layer_errs]
     rec.update(layer_scan_errs=plain_errs, layer_scan_errs_f64=f64_errs,
@@ -2061,22 +2095,23 @@ def lm_serving(detail: dict) -> dict:
     tokens = torch.as_tensor(rng.integers(0, cfg.vocab,
                                           (LM_BATCH, LM_DECODE_SEQ)),
                              device=DEVICE)
+    pos = positions(LM_BATCH, LM_DECODE_SEQ)
 
     def decoded(params):
         cache = init_lm_cache(cfg32, LM_BATCH, dtype=torch.float32,
                               device=DEVICE)
         decode = make_decode_step(cfg32)
         for t in range(LM_DECODE_SEQ):
-            got, cache = decode(params, cache, tokens[:, t])
+            got, cache = decode(params, cache, tokens[:, t], t)
         return got
 
     def prefilled(params, backend="cuda", tf32=False):
         step = make_prefill_step(cfg32, backend=backend)  # sets float32
         if not tf32:
-            return step(params, tokens)[0]
+            return step(params, tokens, pos)[0]
         torch.set_float32_matmul_precision("high")       # TF32 products
         try:
-            return step(params, tokens)[0]
+            return step(params, tokens, pos)[0]
         finally:
             set_matmul_precision()
 
@@ -2128,6 +2163,306 @@ def lm_serving(detail: dict) -> dict:
         f"for {res['steps']} steps; {rec['serve_s']:.1f}s with init)")
     torch.cuda.empty_cache()
     detail["lm"] = rec
+    return rec
+
+
+# phase 9: the attention + MoE LM stack, Jamba's hybrid prefill on the scan
+# kernel at full width, gemma2-2b through the serve CLI
+HYBRID_LAYERS = 8                    # one Jamba period: 7 Mamba slots, 1 attn
+HYBRID_PARAMS = 13_295_235_072       # the JAX package's count at that depth
+HYBRID_SEEDS = (1, 2, 3)             # 9c's weight seeds
+HYBRID_F32_BATCH = 2
+GEMMA_SERVE_ARGV = ["--arch", "gemma2-2b", "--full", "--batch", "4",
+                    "--prompt-len", "16", "--gen-len", "32"]
+GEMMA_F32_WINDOW = 16                # 9d: the ring of the local layers wraps
+
+
+def _decode_all(cfg, params, inputs, max_seq):
+    """Last-token logits of ``inputs.shape[1]`` decode steps from step 0
+    (float32 cache)."""
+    import torch
+
+    from repro_torch.models.lm import make_decode_step
+    from repro_torch.nn.transformer import init_lm_cache
+    cache = init_lm_cache(cfg, inputs.shape[0], max_seq=max_seq,
+                          dtype=torch.float32, device=DEVICE)
+    decode = make_decode_step(cfg)
+    for t in range(inputs.shape[1]):
+        got, cache = decode(params, cache, inputs[:, t], t)
+    return got
+
+
+def _layer_errs(cfg, params, inputs, pos) -> list:
+    """Each layer held alone: its prefill forward over the sequence
+    against its decode step run from step 0 over the same input hidden
+    states (float32 caches), ``max|a-b|/(1+max|b|)`` over every position.
+    The input of layer l is the prefill's output of layer l-1."""
+    import torch
+
+    from repro_torch.nn import transformer as tf
+    from repro_torch.nn.attention import init_cache
+    from repro_torch.nn.mamba import init_mamba_state
+
+    B, S = inputs.shape[:2]
+    errs = []
+    with torch.no_grad():
+        x = tf._embed_in(cfg, params, inputs, pos)
+        for slots in params["blocks"]:
+            for spec, bp in zip(cfg.period, slots):
+                want, _, _ = tf._slot_forward(cfg, spec, bp, x, pos,
+                                              backend="cuda")
+                cache = (init_cache(B, cfg.attn_params(spec), S,
+                                    torch.float32, device=DEVICE)
+                         if spec.kind == "attn" else
+                         init_mamba_state(B, cfg.d_model, cfg.mamba,
+                                          torch.float32, device=DEVICE))
+                got = torch.cat([tf._slot_decode(
+                    cfg, spec, bp, cache, x[:, t:t + 1], t,
+                    pos[:, t:t + 1]) for t in range(S)], dim=1)
+                errs.append(_nerr(got, want))
+                x = want
+    return errs
+
+
+def lm_hybrid(detail: dict) -> dict:
+    """Phase 9: Jamba-v0.1 at full width, one period (bf16, random
+    weights): prefill through the scan kernel, cuda vs torch, prefill vs
+    decode in float32; gemma2-2b through the serve CLI and prefill vs
+    decode in float32 with a wrapping ring."""
+    import dataclasses
+    from unittest import mock
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import gemma2_2b, jamba_v0_1_52b
+    from repro_torch.kernels import selective_scan as ss
+    from repro_torch.kernels.ref import selective_scan_ref
+    from repro_torch.launch import serve
+    from repro_torch.models.lm import (LMModel, make_decode_step,
+                                       make_prefill_step)
+    from repro_torch.nn import mamba as mamba_mod
+    from repro_torch.nn import transformer as tf_mod
+    from repro_torch.nn.transformer import init_lm_cache
+
+    rec = {}
+    cfg = dataclasses.replace(jamba_v0_1_52b.full(), n_layers=HYBRID_LAYERS)
+    scans = sum(s.kind == "mamba" for s in cfg.period) * cfg.repeats
+    attn_slot = [s.kind for s in cfg.period].index("attn")
+    t0 = time.time()
+    model = LMModel.create(cfg, seed=0, device=DEVICE)
+    torch.cuda.synchronize()
+    rec.update(n_params=model.n_params, init_s=time.time() - t0)
+    log(f"lm-hybrid: {cfg.name} {cfg.n_layers} layers (one period), "
+        f"{model.n_params:,} params in {cfg.dtype}, init "
+        f"{rec['init_s']:.1f}s, {torch.cuda.memory_allocated() / 1e9:.2f} GB "
+        f"allocated")
+    check(model.n_params == HYBRID_PARAMS, f"one Jamba period holds "
+          f"{model.n_params} parameters, not {HYBRID_PARAMS:,}")
+
+    # (a) prefill, the main path; the warm-up run also records every MoE
+    # layer's dropped share
+    rng = np.random.default_rng(0)
+    tokens = torch.as_tensor(rng.integers(0, cfg.vocab, (LM_BATCH, LM_SEQ)),
+                             device=DEVICE)
+    pos = positions(LM_BATCH, LM_SEQ)
+    prefill = make_prefill_step(cfg, backend="cuda")
+    drops, moe_apply = [], tf_mod.moe_apply
+
+    def moe_probe(*args, **kw):
+        out, aux, dropped = moe_apply(*args, **kw)
+        drops.append(dropped)
+        return out, aux, dropped
+
+    torch.cuda.reset_peak_memory_stats()
+    times = []
+    _reset_counts()
+    for i in range(LM_WARMUP + LM_ITERS):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        if i < LM_WARMUP:
+            with mock.patch.object(tf_mod, "moe_apply", moe_probe):
+                logits, kvs = prefill(model.params, tokens, pos)
+        else:
+            logits, kvs = prefill(model.params, tokens, pos)
+        torch.cuda.synchronize()
+        if i >= LM_WARMUP:
+            times.append((time.perf_counter() - t1) * 1e3)
+    counts = _all_counts()
+    runs = LM_WARMUP + LM_ITERS
+    want = {k: 0 for k in counts}
+    want[ss.KERNEL] = runs * scans
+    check(counts == want, f"hybrid prefill launch counts {counts} != {want}")
+    check(bool(torch.isfinite(logits).all())
+          and logits.shape == (LM_BATCH, cfg.vocab),
+          f"hybrid prefill logits bad: shape {tuple(logits.shape)}")
+    kv_shape = (cfg.repeats, LM_BATCH, LM_SEQ, cfg.n_kv, cfg.head_dim)
+    check(all((kv is None) == (s.kind == "mamba")
+              for s, kv in zip(cfg.period, kvs))
+          and all(tuple(t.shape) == kv_shape for t in kvs[attn_slot]),
+          f"hybrid kvs: attention slot {attn_slot} "
+          f"{[tuple(t.shape) for t in kvs[attn_slot]]} != {kv_shape}")
+    ms = statistics.median(times)
+    rec.update(prefill_ms=ms, prefill_ms_all=times,
+               prompt_tok_per_s=LM_BATCH * LM_SEQ / (ms / 1e3),
+               peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+               launches=counts[ss.KERNEL], prefills=runs,
+               launches_per_prefill=counts[ss.KERNEL] / runs,
+               plain_calls=counts[ss.PLAIN],
+               moe_dropped=[float(d) for d in drops])
+    log(f"lm-hybrid prefill B={LM_BATCH} S={LM_SEQ}: {ms:.1f} ms (median of "
+        f"{LM_ITERS}; {', '.join(f'{t:.1f}' for t in times)}), "
+        f"{rec['prompt_tok_per_s']:.0f} prompt tok/s, peak "
+        f"{rec['peak_gb']:.2f} GB, selective_scan launches "
+        f"{counts[ss.KERNEL]} over {runs} prefills, plain "
+        f"{counts[ss.PLAIN]}; MoE dropped share by layer "
+        + ", ".join(f"{d:.4f}" for d in rec["moe_dropped"]))
+    cache = init_lm_cache(cfg, LM_BATCH, max_seq=LM_SEQ, device=DEVICE)
+    decode = make_decode_step(cfg)
+    decode(model.params, cache, tokens[:, 0], 0)
+    for what, fn in (
+            ("prefill", lambda: prefill(model.params, tokens, pos)),
+            ("decode step", lambda: decode(model.params, cache,
+                                           tokens[:, 1], 1))):
+        prof = _profile(fn)
+        rec[f"profile_{what.split()[0]}"] = prof
+        log(f"lm-hybrid {what} profile: wall {prof['wall_ms']:.2f} ms, "
+            f"device {prof['device_ms']:.2f} ms, idle share "
+            f"{prof['idle_share']}, launch queue full "
+            f"{prof['queue_full_ms']:.1f} ms; top: "
+            + "; ".join(f"{r['name'][:40]} {r['ms']:.2f}ms x{r['count']}"
+                        for r in prof["top"][:8]))
+    del logits, kvs, cache, tokens
+
+    # (b) cuda vs torch: inside one cuda-backend prefill every Mamba
+    # layer's scan operands also go through the plain version and the
+    # float64 witness (as 7b); the free-running logits of both backends
+    # are read beside
+    t0 = time.time()
+    tokens = torch.as_tensor(rng.integers(0, cfg.vocab,
+                                          (LM_BATCH, LM_CMP_SEQ)),
+                             device=DEVICE)
+    pos = positions(LM_BATCH, LM_CMP_SEQ)
+    layer_errs = []
+
+    def probe(*args):
+        y = ss.selective_scan(*args)
+        layer_errs.append((
+            _nerr(y, ss.selective_scan_plain(*args)),
+            _nerr(y, selective_scan_ref(*args, acc_dtype=torch.float64))))
+        return y
+
+    _reset_counts()
+    with mock.patch.object(mamba_mod, "selective_scan", probe):
+        a, _ = make_prefill_step(cfg, backend="cuda")(model.params, tokens,
+                                                      pos)
+    counts = _all_counts()
+    check(counts[ss.KERNEL] == scans and counts[ss.PLAIN] == scans
+          and len(layer_errs) == scans,
+          f"hybrid backend comparison counts {counts}, {len(layer_errs)} "
+          f"layers")
+    b, _ = make_prefill_step(cfg, backend="torch")(model.params, tokens, pos)
+    plain_errs = [e[0] for e in layer_errs]
+    f64_errs = [e[1] for e in layer_errs]
+    rec.update(layer_scan_errs=plain_errs, layer_scan_errs_f64=f64_errs,
+               backend_err=max(plain_errs), backend_err_f64=max(f64_errs),
+               logits_err=_nerr(a, b))
+    log(f"lm-hybrid cuda vs torch, B={LM_BATCH} S={LM_CMP_SEQ}: every Mamba "
+        f"layer's scan output, kernel vs plain max {max(plain_errs):.3e}, vs "
+        f"float64 max {max(f64_errs):.3e}; free-running last-token logits "
+        f"{rec['logits_err']:.3e} (max|b| {float(b.abs().max()):.3f}) "
+        f"({time.time() - t0:.1f}s)")
+    check(max(plain_errs) <= TOL, f"hybrid cuda vs torch scan output "
+          f"{max(plain_errs):.3e} > {TOL}")
+    check(max(f64_errs) <= TOL, f"hybrid cuda scan output vs float64 "
+          f"{max(f64_errs):.3e} > {TOL}")
+    del model, a, b, tokens, prefill
+    torch.cuda.empty_cache()
+
+    # (c) float32, prefill (kernel) vs decode from step 0, at a capacity
+    # factor of n_experts / topk so that neither drops a token (prefill
+    # routes B*S tokens at once, decode B: at the shipped 1.25 prefill
+    # drops choices decode keeps).  The check holds each layer alone (its
+    # prefill forward vs its decode steps on the same input): the random
+    # weights' fan-in-2 FFNs and experts amplify float32 rounding through
+    # the period, so the whole model's last-token logits part by about
+    # 1e-4 on the plain version as on the kernel (both read beside)
+    t0 = time.time()
+    cfg32 = dataclasses.replace(cfg, dtype=torch.float32,
+                                moe=dataclasses.replace(
+                                    cfg.moe, capacity_factor=cfg.moe.n_experts
+                                    / cfg.moe.topk))
+    tokens = torch.as_tensor(rng.integers(0, cfg.vocab, (HYBRID_F32_BATCH,
+                                                         LM_DECODE_SEQ)),
+                             device=DEVICE)
+    pos = positions(HYBRID_F32_BATCH, LM_DECODE_SEQ)
+    errs, plain_errs, layer_worst = {}, {}, {}
+    for seed in HYBRID_SEEDS:
+        m32 = LMModel.create(cfg32, seed=seed, device=DEVICE)
+        got = _decode_all(cfg32, m32.params, tokens, LM_DECODE_SEQ)
+        errs[seed] = _nerr(got, make_prefill_step(cfg32, backend="cuda")(
+            m32.params, tokens, pos)[0])
+        plain_errs[seed] = _nerr(got, make_prefill_step(
+            cfg32, backend="torch")(m32.params, tokens, pos)[0])
+        layer_worst[seed] = max(_layer_errs(cfg32, m32.params, tokens, pos))
+        del m32, got
+        torch.cuda.empty_cache()
+    rec.update(prefill_vs_decode_errs=errs,
+               plain_prefill_vs_decode_errs=plain_errs,
+               layer_prefill_vs_decode_errs=layer_worst,
+               prefill_vs_decode_err=max(layer_worst.values()))
+    log(f"lm-hybrid prefill vs decode, float32, B={HYBRID_F32_BATCH}, "
+        f"{LM_DECODE_SEQ} tokens, capacity factor "
+        f"{cfg32.moe.capacity_factor}, by weight seed: "
+        + ", ".join(f"{k}: worst layer alone {layer_worst[k]:.3e}; whole "
+                    f"model {v:.3e} (plain {plain_errs[k]:.3e})"
+                    for k, v in errs.items())
+        + f" ({time.time() - t0:.1f}s)")
+    for seed, err in layer_worst.items():
+        check(err <= F32_DECODE_TOL, f"hybrid prefill vs decode, a layer "
+              f"alone at seed {seed}: {err:.3e} > {F32_DECODE_TOL}")
+
+    # (d) gemma2-2b, whole, through the serve CLI; then in float32 with its
+    # local window cut to 16, prefill vs decode from step 0
+    t0 = time.time()
+    res = serve.run(GEMMA_SERVE_ARGV)
+    g_cfg = res["cfg"]
+    toks = res["tokens"]
+    check(toks.shape == (4, 32) and bool((toks >= 0).all())
+          and bool((toks < g_cfg.vocab).all()), f"gemma serve tokens "
+          f"{toks.shape}")
+    rec.update(gemma_decode_tok_per_s=res["tok_per_s"],
+               gemma_decode_s=res["seconds"], gemma_serve_s=time.time() - t0)
+    log(f"lm-hybrid gemma2-2b serve CLI ({g_cfg.n_layers} layers, "
+        f"{g_cfg.dtype}): {res['tok_per_s']:.1f} tok/s "
+        f"({res['seconds']:.2f}s for {res['steps']} steps; "
+        f"{rec['gemma_serve_s']:.1f}s with init)")
+    torch.cuda.empty_cache()
+    t0 = time.time()
+    g32 = dataclasses.replace(gemma2_2b.full(), dtype=torch.float32,
+                              period=tuple(dataclasses.replace(
+                                  s, window=GEMMA_F32_WINDOW if s.window
+                                  else None) for s in gemma2_2b.full().period))
+    m32 = LMModel.create(g32, seed=1, device=DEVICE)
+    tokens = torch.as_tensor(rng.integers(0, g32.vocab, (HYBRID_F32_BATCH,
+                                                         LM_DECODE_SEQ)),
+                             device=DEVICE)
+    pos = positions(HYBRID_F32_BATCH, LM_DECODE_SEQ)
+    got = _decode_all(g32, m32.params, tokens, LM_DECODE_SEQ)
+    err = _nerr(got, make_prefill_step(g32)(m32.params, tokens, pos)[0])
+    layer_err = max(_layer_errs(g32, m32.params, tokens, pos))
+    rec.update(gemma_prefill_vs_decode_err=err,
+               gemma_layer_prefill_vs_decode_err=layer_err,
+               gemma_f32_params=m32.n_params)
+    log(f"lm-hybrid gemma2-2b float32 ({m32.n_params:,} params, local "
+        f"window {GEMMA_F32_WINDOW}), prefill vs decode over {LM_DECODE_SEQ} "
+        f"tokens: {err:.3e} (worst layer alone {layer_err:.3e}) "
+        f"({time.time() - t0:.1f}s)")
+    check(err <= F32_DECODE_TOL, f"gemma2-2b prefill vs decode {err:.3e} > "
+          f"{F32_DECODE_TOL}")
+    del m32, got
+    torch.cuda.empty_cache()
+    detail["lm_hybrid"] = rec
     return rec
 
 
@@ -2598,13 +2933,13 @@ PHASES = {"kernels": kernel_sweeps, "hub": hub_probe, "serving": serving,
           "async": async_serving, "edge-grad": edge_grad_checks,
           "training": training, "sampled": sampled_training,
           "dynamic": dynamic_plans, "profile": profiling, "scan": scan_checks,
-          "lm": lm_serving}
+          "lm": lm_serving, "lm-hybrid": lm_hybrid}
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--phases", default=",".join(PHASES),
-                    help="comma-separated subset of phases 2-8 to run "
+                    help="comma-separated subset of phases 2-9 to run "
                          f"({', '.join(PHASES)}; default all); the device "
                          "phase always runs")
     ap.add_argument("--scan-variants", default="",
@@ -2755,7 +3090,8 @@ def main(argv=None) -> int:
             "phase": "scan (timed shape); lm prefill (launches)",
             "shape": {k: rec[k] for k in ("B", "S", "d_inner", "N")},
             "launches_per_prefill": lm.get("launches_per_prefill"),
-            "prefill_ms": lm.get("prefill_ms")})
+            "prefill_ms": lm.get("prefill_ms"),
+            "launches_hybrid": done.get("lm-hybrid", {}).get("launches")})
     detail["kernels"] = kernels
     out_dir = os.path.join(ROOT, "chiprun_out")
     if os.path.isdir(out_dir):

@@ -1,8 +1,9 @@
 """Architecture records and the assigned input shapes.
 
-Port of `src/repro/configs/base.py`: `ShapeDef`, `SHAPES` and `ArchDef`.
-`full()` is the published configuration, `reduced()` a same-family small
-one for CPU tests.  The reference's `input_specs` / `abstract_cache`
+Port of `src/repro/configs/base.py`: `ShapeDef`, `SHAPES`, `ArchDef` with
+`supports_long` (:53) and `cell_is_runnable` (:65).  `full()` is the
+published configuration, `reduced()` a same-family small one for CPU
+tests.  The reference's `input_specs` / `abstract_cache`
 (shape stand-ins for the JAX dry-run) have no counterpart: the port builds
 a full-size model without allocating on the ``meta`` device
 (`repro_torch.models.lm.LMModel.create(device="meta")`).
@@ -14,7 +15,7 @@ from typing import Callable
 
 from repro_torch.nn.transformer import LMConfig
 
-__all__ = ["ArchDef", "ShapeDef", "SHAPES"]
+__all__ = ["ArchDef", "ShapeDef", "SHAPES", "cell_is_runnable"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -41,3 +42,19 @@ class ArchDef:
     reduced: Callable[[], LMConfig]
     source: str = ""
     notes: str = ""
+
+    def supports_long(self) -> bool:
+        """long_500k needs a sub-quadratic decode: an SSM state or a
+        sliding window on some attention slot.  Archs whose period has
+        only unwindowed attention are skipped."""
+        period = self.full().period
+        return any(s.kind == "mamba" or (s.kind == "attn"
+                                         and s.window is not None)
+                   for s in period)
+
+
+def cell_is_runnable(arch: ArchDef, shape_name: str) -> tuple:
+    if shape_name == "long_500k" and not arch.supports_long():
+        return False, ("pure full-attention arch: no sub-quadratic mechanism "
+                       "for 524288-token decode (skip per assignment)")
+    return True, ""

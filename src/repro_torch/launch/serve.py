@@ -1,28 +1,34 @@
-"""LM serving driver: batched greedy (or sampled) decoding with an SSM cache.
+"""LM serving driver: batched greedy (or sampled) decoding with a KV/SSM
+cache, for every architecture in `repro_torch.configs`.
 
 Port of `src/repro/launch/serve.py`:
 
     PYTHONPATH=src python -m repro_torch.launch.serve \
-        --arch falcon-mamba-7b --full --batch 4 --prompt-len 16 --gen-len 32
+        --arch gemma2-2b --full --batch 4 --prompt-len 16 --gen-len 32
 
     # on a machine without a card
     PYTHONPATH=src python -m repro_torch.launch.serve \
-        --arch falcon-mamba-7b --reduced --device cpu
+        --arch olmoe-1b-7b --reduced --device cpu
 
-Decodes from step 0, as the reference does: the prompt tokens go through
-the same decode step (prefill-by-decode), so the cache is built by the
-recurrence and no prefill hand-off exists.  Random weights from a
-`torch.Generator` seeded with ``--seed``; the prompt from numpy's
-``default_rng(--seed)``, as in the reference; sampling at ``--temperature
-> 0`` from a `torch.Generator` seeded with ``--seed + 1``.  Prints the
-reference's ``[serve] ... tok/s=`` line (batch x steps over the host
-clock around the loop, which ends on the last step's tokens on the host).
+Decodes from step 0, as the reference does: the prompt goes through the
+same decode step (prefill-by-decode), so one code path covers pure-SSM,
+hybrid, sliding-window and global-attention archs; the cache holds
+``prompt_len + gen_len`` positions and step ``t`` is passed to each
+decode call (M-RoPE archs take their three position streams from it).
+Random weights from a `torch.Generator` seeded with ``--seed``; the
+prompt from numpy's ``default_rng(--seed)``, as in the reference: token
+ids for a token frontend; for an ``embeds`` frontend (musicgen,
+qwen2-vl) standard-normal frames, then a fixed random codebook drawn
+from the same generator after them, which re-embeds each generated id.
+Sampling at ``--temperature > 0`` from a `torch.Generator` seeded with
+``--seed + 1``.  Prints the reference's ``[serve] ... tok/s=`` line
+(batch x steps over the host clock around the loop, which ends on the
+last step's tokens on the host).
 
 The port's one flag beside the reference's: ``--device cuda|cpu``
 (default cuda; raises without CUDA).  There is no ``--backend``: decode
 runs no kernel, so there is nothing to choose; prefill's choice is
-`repro_torch.models.lm.make_prefill_step(backend=)`.  Only the ported
-architectures are accepted (`repro_torch.configs`).
+`repro_torch.models.lm.make_prefill_step(backend=)`.
 """
 from __future__ import annotations
 
@@ -65,22 +71,33 @@ def run(argv=None, *, params=None, keep_logits: bool = False) -> dict:
     if params is None:
         params = LMModel.create(cfg, args.seed, device=dev).params
     max_seq = args.prompt_len + args.gen_len
-    cache = init_lm_cache(cfg, args.batch,
+    cache = init_lm_cache(cfg, args.batch, max_seq=max_seq,
                           dtype=torch.float32 if cfg.dtype == torch.float32
                           else torch.bfloat16, device=dev)
     decode = make_decode_step(cfg)
 
     rng = np.random.default_rng(args.seed)
-    prompt = torch.as_tensor(
-        rng.integers(0, cfg.vocab, size=(args.batch, args.prompt_len)),
-        device=dev)
+    if cfg.frontend == "tokens":
+        prompt = torch.as_tensor(
+            rng.integers(0, cfg.vocab, size=(args.batch, args.prompt_len)),
+            device=dev)
+        codebook = None
+    else:
+        prompt = torch.as_tensor(rng.standard_normal(
+            (args.batch, args.prompt_len, cfg.d_model)).astype(np.float32),
+            device=dev)
+        codebook = torch.as_tensor(rng.standard_normal(
+            (cfg.vocab, cfg.d_model)).astype(np.float32), device=dev)
     gen = torch.Generator(device=dev).manual_seed(args.seed + 1)
     out_tokens, logits_seen = [], []
     prev = torch.zeros((args.batch,), dtype=torch.long, device=dev)
     t0 = time.time()
     for t in range(max_seq):
-        tok = prompt[:, t] if t < args.prompt_len else prev
-        logits, cache = decode(params, cache, tok)
+        if t < args.prompt_len:
+            tok = prompt[:, t]
+        else:
+            tok = prev if codebook is None else codebook[prev]
+        logits, cache = decode(params, cache, tok, t)
         if args.temperature > 0:
             probs = torch.softmax(logits / args.temperature, dim=-1)
             prev = torch.multinomial(probs, 1, generator=gen)[:, 0]

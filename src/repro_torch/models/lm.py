@@ -2,16 +2,18 @@
 the serving driver consumes.
 
 Port of `src/repro/models/lm.py`: `LMModel` (:38), `make_prefill_step`
-(:135) and `make_decode_step` (:184), without the mesh and sharding
-arguments (sharding waits for ROADMAP Queue 1 items 5 and 9) and without
-the train step (the reference trains through its XLA path; a backward of
-the scan kernel does not exist there either).  The step functions run
-under `torch.no_grad()`.
+(:135) and `make_decode_step` (:184), with the reference's step
+signatures, ``prefill(params, inputs, pos)`` and ``decode(params, cache,
+tok, t)``, and without the mesh and sharding arguments (sharding waits
+for ROADMAP Queue 1 item 5) and the train step (the LM training slice,
+item 9b).  The step functions run under `torch.no_grad()`.
 
-``backend="cuda"`` prefills through the hand-written scan kernel,
-``"torch"`` through its plain version (on the card too, for the agreement
-checks); decode runs the O(1) recurrence, no kernel.
-`lm_params_from_jax` carries a reference parameter pytree across.
+``backend="cuda"`` prefills the Mamba slots through the hand-written scan
+kernel, ``"torch"`` through its plain version (on the card too, for the
+agreement checks); attention and MoE run in plain PyTorch either way (the
+reference computes them outside any Pallas kernel); decode runs no
+kernel.  `lm_params_from_jax` carries a reference parameter pytree
+across, for every architecture.
 """
 from __future__ import annotations
 
@@ -57,27 +59,29 @@ class LMModel:
 
 
 def make_prefill_step(cfg: LMConfig, *, backend: str = "cuda"):
-    """Prefill: (params, tokens) -> (last-token logits, kvs)."""
+    """Prefill: (params, inputs, pos) -> (last-token logits, kvs).
+    ``inputs`` tokens (B, S) or embeds (B, S, d); ``pos`` (B, S), or (B,
+    3, S) for mrope."""
     if backend not in BACKENDS:
         raise ValueError(f"backend must be one of {BACKENDS}, got {backend!r}")
     set_matmul_precision()
 
     @torch.no_grad()
-    def prefill(params, tokens):
-        return lm_prefill(params, cfg, tokens, backend=backend)
+    def prefill(params, inputs, pos):
+        return lm_prefill(params, cfg, inputs, pos, backend=backend)
 
     return prefill
 
 
 def make_decode_step(cfg: LMConfig):
-    """Decode: (params, cache, token) -> (logits, cache), the cache
-    updated in place.  The recurrence runs no kernel, so there is no
-    backend to choose."""
+    """Decode: (params, cache, token_or_embed, t) -> (logits, cache), the
+    cache updated in place; ``t`` the step's position (an int).  Decode
+    runs no kernel, so there is no backend to choose."""
     set_matmul_precision()
 
     @torch.no_grad()
-    def decode(params, cache, tok):
-        return lm_decode_step(params, cfg, cache, tok)
+    def decode(params, cache, tok, t):
+        return lm_decode_step(params, cfg, cache, tok, t)
 
     return decode
 
@@ -100,8 +104,10 @@ def lm_params_from_jax(params_np: dict, cfg: LMConfig,
                        device: Optional[str] = "cuda") -> dict:
     """The reference's LM parameter pytree (numpy arrays, or anything
     `np.asarray` takes) as the port's parameters on ``device``: the same
-    keys, dtypes and values, with the blocks' leading ``(R,)`` layer axis
-    unstacked into one dict per layer."""
+    keys, dtypes and values (tied tables without ``unembed``, float32
+    routers, biases, LayerNorm ``b``, fused or separate QKV alike), with
+    the blocks' leading ``(R,)`` layer axis unstacked into one dict per
+    layer."""
     dev = resolve_device(device)
     out = {k: _map(v, lambda a: _to_torch(a, dev))
            for k, v in params_np.items() if k != "blocks"}

@@ -1,18 +1,34 @@
-"""Parameter initializer and RMS norm of the LM layers.
+"""Parameter initializer and the dense layers of the LM stack.
 
-Port of `src/repro/nn/layers.py`: `Initializer.weight` (:102), `rmsnorm`
-(:136) and `apply_rmsnorm` (:141).  The reference's sharding rules have no
-counterpart here (sharding waits for its slice), so a weight is a tensor
-alone, not a (tensor, spec) pair.
+Port of `src/repro/nn/layers.py`: `Initializer.weight` (:102), `linear` /
+`apply_linear` (:119, :129), `rmsnorm` / `apply_rmsnorm` (:136, :141),
+`layernorm` / `apply_layernorm` (:148, :154), `glu_mlp` / `apply_glu_mlp`
+(:171, :178) and `mlp` / `apply_mlp` (:184, :194).  The reference's
+sharding rules have no counterpart here (sharding waits for its slice),
+so a weight is a tensor alone, not a (tensor, spec) pair.
+
+Rounding points follow the reference as XLA compiles it: the projections
+run in the activation's dtype (each weight cast to it); the norms, and
+the elementwise chain after a projection (bias, activation, gate), run
+in float32 and round once to the activation's dtype, as an XLA fusion of
+bf16 elementwise ops does.  ``act`` defaults to the reference's: `F.silu`
+for the gated MLP and the tanh GELU (`jax.nn.gelu`'s default) for the
+plain one.
 """
 from __future__ import annotations
 
+import functools
 import math
-from typing import Optional
+from typing import Callable, Optional
 
 import torch
+import torch.nn.functional as F
 
-__all__ = ["Initializer", "rmsnorm", "apply_rmsnorm"]
+__all__ = ["Initializer", "linear", "apply_linear", "rmsnorm",
+           "apply_rmsnorm", "layernorm", "apply_layernorm", "glu_mlp",
+           "apply_glu_mlp", "mlp", "apply_mlp", "gelu_tanh"]
+
+gelu_tanh = functools.partial(F.gelu, approximate="tanh")
 
 
 class Initializer:
@@ -20,10 +36,10 @@ class Initializer:
 
     ``shape[-2]`` is the fan-in (``shape[-1]`` for a vector), as in the
     reference; ``scale`` overrides ``1/sqrt(fan_in)``, ``zero=True`` gives
-    zeros.  The draw is float32, then cast to ``dtype``.  On the ``meta``
-    device every weight is a shape alone and nothing is drawn or
-    allocated.  Same shapes and scales as the reference; the numbers
-    differ (another generator)."""
+    zeros, ``dtype`` overrides the initializer's.  The draw is float32,
+    then cast.  On the ``meta`` device every weight is a shape alone and
+    nothing is drawn or allocated.  Same shapes and scales as the
+    reference; the numbers differ (another generator)."""
 
     def __init__(self, generator: Optional[torch.Generator], *,
                  device: torch.device, dtype: torch.dtype = torch.float32):
@@ -32,14 +48,31 @@ class Initializer:
         self.dtype = dtype
 
     def weight(self, shape, *, scale: Optional[float] = None,
-               zero: bool = False) -> torch.Tensor:
+               zero: bool = False,
+               dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+        dtype = dtype or self.dtype
         if zero or self.device.type == "meta":
-            return torch.zeros(shape, dtype=self.dtype, device=self.device)
+            return torch.zeros(shape, dtype=dtype, device=self.device)
         fan_in = shape[-2] if len(shape) >= 2 else shape[-1]
         s = scale if scale is not None else 1.0 / math.sqrt(max(fan_in, 1))
         w = torch.randn(shape, generator=self.gen, dtype=torch.float32,
                         device=self.device)
-        return (w * s).to(self.dtype)
+        return (w * s).to(dtype)
+
+
+def linear(init: Initializer, in_dim: int, out_dim: int,
+           bias: bool = False) -> dict:
+    p = {"w": init.weight((in_dim, out_dim))}
+    if bias:
+        p["b"] = init.weight((out_dim,), zero=True)
+    return p
+
+
+def apply_linear(p: dict, x: torch.Tensor) -> torch.Tensor:
+    y = x @ p["w"].to(x.dtype)
+    if "b" in p:
+        y = y + p["b"].to(x.dtype)
+    return y
 
 
 def rmsnorm(init: Initializer, dim: int) -> dict:
@@ -52,3 +85,49 @@ def apply_rmsnorm(p: dict, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
     var = torch.mean(x32 * x32, dim=-1, keepdim=True)
     y = x32 * torch.rsqrt(var + eps) * (1.0 + p["g"].float())
     return y.to(x.dtype)
+
+
+def layernorm(init: Initializer, dim: int) -> dict:
+    """``(1 + g)`` gain and a bias, both zero-initialized."""
+    return {"g": init.weight((dim,), zero=True),
+            "b": init.weight((dim,), zero=True)}
+
+
+def apply_layernorm(p: dict, x: torch.Tensor,
+                    eps: float = 1e-5) -> torch.Tensor:
+    x32 = x.float()
+    mu = x32.mean(dim=-1, keepdim=True)
+    var = ((x32 - mu) ** 2).mean(dim=-1, keepdim=True)
+    y = ((x32 - mu) * torch.rsqrt(var + eps) * (1.0 + p["g"].float())
+         + p["b"].float())
+    return y.to(x.dtype)
+
+
+def glu_mlp(init: Initializer, dim: int, hidden: int) -> dict:
+    """Gated MLP (SwiGLU / GeGLU): ``wi`` (dim, 2, hidden), so its fan-in
+    is 2, as in the reference."""
+    return {"wi": init.weight((dim, 2, hidden)),
+            "wo": init.weight((hidden, dim))}
+
+
+def apply_glu_mlp(p: dict, x: torch.Tensor,
+                  act: Callable = F.silu) -> torch.Tensor:
+    wi = p["wi"].to(x.dtype)
+    d, _, hidden = wi.shape
+    h = (x @ wi.reshape(d, 2 * hidden)).unflatten(-1, (2, hidden))
+    gated = (act(h[..., 0, :].float()) * h[..., 1, :].float()).to(x.dtype)
+    return gated @ p["wo"].to(x.dtype)
+
+
+def mlp(init: Initializer, dim: int, hidden: int) -> dict:
+    """Plain 2-layer MLP with biases (starcoder2 style)."""
+    return {"w1": init.weight((dim, hidden)),
+            "b1": init.weight((hidden,), zero=True),
+            "w2": init.weight((hidden, dim)),
+            "b2": init.weight((dim,), zero=True)}
+
+
+def apply_mlp(p: dict, x: torch.Tensor,
+              act: Callable = gelu_tanh) -> torch.Tensor:
+    h = act((x @ p["w1"].to(x.dtype)).float() + p["b1"].float())
+    return h.to(x.dtype) @ p["w2"].to(x.dtype) + p["b2"].to(x.dtype)

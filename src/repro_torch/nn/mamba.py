@@ -1,4 +1,4 @@
-"""Mamba-1 selective SSM block (the falcon-mamba layers).
+"""Mamba-1 selective SSM block (the falcon-mamba and jamba Mamba layers).
 
 Port of `src/repro/nn/mamba.py`: `MambaParams` (:29), `mamba_init` (:42),
 `_causal_conv` (:70), `_ssm_inputs` (:81), `_chunk_scan` (:94),

@@ -1,23 +1,29 @@
-"""LM assembly, the pure-Mamba subset (falcon-mamba).
+"""LM assembly: one definition covering all ten architectures (dense GQA,
+local/global alternation, sliding windows, logit softcaps, MoE,
+Mamba-only, Mamba+attention hybrid, the M-RoPE VLM backbone, the audio
+LM).
 
-Port of `src/repro/nn/transformer.py` (:192-490): `LayerSpec`, `LMConfig`
-(the fields a pure-Mamba stack reads; the reference's ``d_ff``, ``rope``,
-``act``, ``loss_chunk`` and ``max_seq`` feed only its FFN, attention and
-training-loss code and have no counterpart), `lm_init`, `param_count`,
-`_embed_in`, `lm_forward`, `lm_prefill`, `init_lm_cache`, `_slot_decode`
-and `lm_decode_step`.  Attention, FFN and MoE slots, other norms and
-tied embeddings wait for ROADMAP Queue 1 item 9; a config that asks for
-them raises `NotImplementedError`.  Mamba layers read no positions, so
-the port's functions take none (the reference's ``pos`` / ``t``).
+Port of `src/repro/nn/transformer.py`: `LayerSpec` / `LMConfig` (:51-136,
+every field, the training-only ones too), `lm_init` (:192), `param_count`,
+`_sinusoidal` (:228), `_slot_forward` (:236), `_embed_in` (:302),
+`_unembed_w` (:314), `lm_forward` (:320), `init_lm_cache` (:397),
+`lm_prefill` (:415), `_slot_decode` (:432) and `lm_decode_step` (:457).
+`lm_loss` comes with the LM training slice (ROADMAP Queue 1 item 9b).
 
 Layout.  The reference stacks every slot's weights on a leading
 ``(repeats,)`` axis and runs one `lax.scan` over it; the port keeps one
 dict per layer, ``params["blocks"][r][s]`` for repeat ``r`` and period
-slot ``s``, and runs a Python loop over layers in the same order.  The
-decode cache keeps the reference's layout: a tuple over period slots of
-``{"h": (R, B, d_inner, N) f32, "conv": (R, B, d_conv-1, d_inner)}``;
-`lm_decode_step` writes each step's states into it in place (saving a
-second copy of the cache) and returns it.
+slot ``s``, and runs a Python loop over the layers in the same order.
+Prefill's ``kvs`` and the decode cache keep the reference's stacked
+layout: a tuple over period slots, an attention slot's ``(k, v)`` /
+``{"k", "v"}`` of shape ``(R, B, S, K, hd)``, a Mamba slot's ``None`` /
+``{"h": (R, B, d_inner, N) f32, "conv": (R, B, d_conv-1, d_inner)}``.
+`lm_decode_step` updates the cache in place and returns it.
+
+``backend`` picks the Mamba slots' scan: ``"cuda"`` the hand-written
+kernel (CUDA tensors only), ``"torch"`` its plain version.  Attention
+and MoE run in plain PyTorch on either backend: the reference computes
+them outside any Pallas kernel.
 """
 from __future__ import annotations
 
@@ -26,15 +32,21 @@ import math
 from typing import Optional
 
 import torch
+import torch.nn.functional as F
 
-from repro_torch.nn.layers import Initializer, apply_rmsnorm, rmsnorm
+from repro_torch.nn.attention import (AttnParams, attention_decode,
+                                      attention_forward, attention_init,
+                                      init_cache)
+from repro_torch.nn.layers import (Initializer, apply_glu_mlp,
+                                   apply_layernorm, apply_mlp, apply_rmsnorm,
+                                   gelu_tanh, glu_mlp, layernorm, mlp,
+                                   rmsnorm)
 from repro_torch.nn.mamba import (MambaParams, init_mamba_state, mamba_decode,
                                   mamba_forward, mamba_init)
+from repro_torch.nn.moe import MoEParams, moe_apply, moe_init
 
 __all__ = ["LayerSpec", "LMConfig", "lm_init", "lm_forward", "lm_prefill",
            "lm_decode_step", "init_lm_cache", "param_count"]
-
-_NOT_PORTED = "not ported yet (ROADMAP Queue 1 item 9)"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -43,6 +55,7 @@ class LayerSpec:
 
     kind: str = "attn"            # "attn" | "mamba"
     mlp: str = "glu"              # "glu" | "mlp" | "moe" | "none"
+    window: Optional[int] = None  # sliding-window width for this slot
 
 
 @dataclasses.dataclass(frozen=True)
@@ -51,25 +64,49 @@ class LMConfig:
     n_layers: int
     d_model: int
     vocab: int
+    # attention (ignored by pure-mamba archs)
+    n_heads: int = 0
+    n_kv: int = 0
+    head_dim: int = 0
+    # dense FFN width (per-expert width for MoE slots comes from `moe`)
+    d_ff: int = 0
     period: tuple = (LayerSpec(),)
-    norm: str = "rms"
+    # positional / attention details
+    rope: str = "rope"            # "rope" | "mrope" | "none"
+    rope_theta: float = 10000.0
+    posemb: str = "none"          # "none" | "sinusoidal" (musicgen)
+    mrope_sections: tuple = (16, 24, 24)
+    attn_softcap: Optional[float] = None
+    final_softcap: Optional[float] = None
+    qk_norm: bool = False
+    attn_bias: bool = False
+    query_scale: Optional[float] = None
+    fused_qkv: bool = False
+    # norms / activations
+    norm: str = "rms"             # "rms" | "ln"
+    post_norm: bool = False       # gemma2-style post-block norms
+    act: str = "silu"             # "silu" | "gelu" (tanh approximation)
+    # sub-block params
+    moe: Optional[MoEParams] = None
     mamba: Optional[MambaParams] = None
+    # embedding
+    embed_scale: float = 1.0      # gemma: sqrt(d_model)
     tie_embeddings: bool = False
+    frontend: str = "tokens"      # "tokens" | "embeds" (audio/vlm stubs)
+    # training details (read by the LM training slice)
+    aux_loss_weight: float = 0.01
+    z_loss: float = 1e-4
     dtype: torch.dtype = torch.bfloat16
+    remat: str = "full"           # "full" | "dots" | "none"
+    seq_shard_carry: bool = False
+    q_chunk: int = 512
+    kv_chunk: int = 512
+    causal_mode: str = "flash"    # | "masked_full" | "triangle"
+    loss_chunk: int = 512
+    # serving
+    max_seq: int = 4096
 
     def __post_init__(self):
-        for spec in self.period:
-            if spec.kind != "mamba" or spec.mlp != "none":
-                raise NotImplementedError(
-                    f"{self.name}: slot {spec} — attention, FFN and MoE "
-                    f"slots are {_NOT_PORTED}")
-        if self.norm != "rms" or self.tie_embeddings:
-            raise NotImplementedError(
-                f"{self.name}: norm={self.norm!r} tie_embeddings="
-                f"{self.tie_embeddings} — only RMS norms and a separate "
-                f"unembedding are ported; the rest is {_NOT_PORTED}")
-        if self.mamba is None:
-            raise ValueError(f"{self.name}: Mamba slots need `mamba`")
         if self.n_layers % len(self.period):
             raise ValueError(f"{self.name}: n_layers {self.n_layers} is not "
                              f"a multiple of the period {len(self.period)}")
@@ -78,26 +115,74 @@ class LMConfig:
     def repeats(self) -> int:
         return self.n_layers // len(self.period)
 
+    def attn_params(self, spec: LayerSpec) -> AttnParams:
+        return AttnParams(
+            n_heads=self.n_heads, n_kv=self.n_kv, head_dim=self.head_dim,
+            rope=self.rope, rope_theta=self.rope_theta,
+            mrope_sections=self.mrope_sections, window=spec.window,
+            softcap=self.attn_softcap, qk_norm=self.qk_norm,
+            bias=self.attn_bias, query_scale=self.query_scale,
+            fused_qkv=self.fused_qkv)
 
-def _slot_init(cfg: LMConfig, init: Initializer) -> dict:
-    return {"norm1": rmsnorm(init, cfg.d_model),
-            "mamba": mamba_init(init, cfg.d_model, cfg.mamba)}
+    @property
+    def activation(self):
+        return F.silu if self.act == "silu" else gelu_tanh
+
+
+def _norm_init(cfg: LMConfig, init: Initializer, dim: int) -> dict:
+    return rmsnorm(init, dim) if cfg.norm == "rms" else layernorm(init, dim)
+
+
+def _apply_norm(cfg: LMConfig, p: dict, x: torch.Tensor) -> torch.Tensor:
+    return apply_rmsnorm(p, x) if cfg.norm == "rms" else apply_layernorm(p, x)
+
+
+# ---------------------------------------------------------------------------
+# init
+# ---------------------------------------------------------------------------
+
+def _slot_init(cfg: LMConfig, spec: LayerSpec, init: Initializer) -> dict:
+    p = {"norm1": _norm_init(cfg, init, cfg.d_model)}
+    if spec.kind == "attn":
+        p["attn"] = attention_init(init, cfg.d_model, cfg.attn_params(spec))
+    else:
+        p["mamba"] = mamba_init(init, cfg.d_model, cfg.mamba)
+    if cfg.post_norm:
+        p["post1"] = _norm_init(cfg, init, cfg.d_model)
+    if spec.mlp != "none":
+        p["norm2"] = _norm_init(cfg, init, cfg.d_model)
+        if spec.mlp == "glu":
+            p["ffn"] = glu_mlp(init, cfg.d_model, cfg.d_ff)
+        elif spec.mlp == "mlp":
+            p["ffn"] = mlp(init, cfg.d_model, cfg.d_ff)
+        elif spec.mlp == "moe":
+            p["ffn"] = moe_init(init, cfg.d_model, cfg.moe)
+        else:
+            raise ValueError(spec.mlp)
+        if cfg.post_norm:
+            p["post2"] = _norm_init(cfg, init, cfg.d_model)
+    return p
 
 
 def lm_init(cfg: LMConfig, generator: Optional[torch.Generator], *,
-            device) -> dict:
-    """The whole LM's parameters in ``cfg.dtype`` on ``device``
-    (``"meta"`` builds shapes alone).  ``generator`` lives on ``device``
-    (unused on ``meta``)."""
-    init = Initializer(generator, device=device, dtype=cfg.dtype)
-    return {
-        "embed": init.weight((cfg.vocab, cfg.d_model), scale=1.0),
-        "unembed": init.weight((cfg.d_model, cfg.vocab),
-                               scale=1.0 / math.sqrt(cfg.d_model)),
-        "final_norm": rmsnorm(init, cfg.d_model),
-        "blocks": [tuple(_slot_init(cfg, init) for _ in cfg.period)
-                   for _ in range(cfg.repeats)],
-    }
+            device, dtype: Optional[torch.dtype] = None) -> dict:
+    """The whole LM's parameters in ``dtype`` (default ``cfg.dtype``; MoE
+    routers float32) on ``device`` (``"meta"`` builds shapes alone).
+    ``generator`` lives on ``device`` (unused on ``meta``).  Tied
+    embeddings (token frontend) draw the table at 1/sqrt(d) and keep no
+    ``unembed``."""
+    init = Initializer(generator, device=device, dtype=dtype or cfg.dtype)
+    p = {}
+    if cfg.frontend == "tokens":
+        e_scale = 1.0 / math.sqrt(cfg.d_model) if cfg.tie_embeddings else 1.0
+        p["embed"] = init.weight((cfg.vocab, cfg.d_model), scale=e_scale)
+    if not (cfg.tie_embeddings and cfg.frontend == "tokens"):
+        p["unembed"] = init.weight((cfg.d_model, cfg.vocab),
+                                   scale=1.0 / math.sqrt(cfg.d_model))
+    p["final_norm"] = _norm_init(cfg, init, cfg.d_model)
+    p["blocks"] = [tuple(_slot_init(cfg, spec, init) for spec in cfg.period)
+                   for _ in range(cfg.repeats)]
+    return p
 
 
 def _leaves(tree):
@@ -115,73 +200,181 @@ def param_count(params: dict) -> int:
     return sum(x.numel() for x in _leaves(params))
 
 
-def _embed_in(cfg: LMConfig, params: dict, tokens: torch.Tensor
-              ) -> torch.Tensor:
-    return params["embed"][tokens.long()].to(cfg.dtype)
+# ---------------------------------------------------------------------------
+# forward
+# ---------------------------------------------------------------------------
+
+def _sinusoidal(pos: torch.Tensor, dim: int) -> torch.Tensor:
+    """pos (B, S) -> (B, S, dim) float32 sinusoidal embedding."""
+    half = dim // 2
+    freq = torch.exp(-math.log(10000.0) * torch.arange(
+        half, dtype=torch.float32, device=pos.device) / half)
+    ang = pos[..., None].float() * freq
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
 
 
-def _logits(params: dict, last: torch.Tensor) -> torch.Tensor:
-    return last.float() @ params["unembed"].float()
+def _ffn(cfg: LMConfig, spec: LayerSpec, bp: dict, x: torch.Tensor):
+    """The slot's FFN half (pre-norm, FFN, post-norm, residual); returns
+    (x, aux)."""
+    if spec.mlp == "none":
+        return x, None
+    aux = None
+    h = _apply_norm(cfg, bp["norm2"], x)
+    if spec.mlp == "glu":
+        h = apply_glu_mlp(bp["ffn"], h, act=cfg.activation)
+    elif spec.mlp == "mlp":
+        h = apply_mlp(bp["ffn"], h, act=cfg.activation)
+    else:
+        h, aux, _dropped = moe_apply(bp["ffn"], h, cfg.moe)
+    if cfg.post_norm:
+        h = _apply_norm(cfg, bp["post2"], h)
+    return x + h, aux
 
 
-def _slot_forward(cfg: LMConfig, bp: dict, x: torch.Tensor, *,
-                  backend: str) -> torch.Tensor:
-    h = apply_rmsnorm(bp["norm1"], x)
-    return x + mamba_forward(bp["mamba"], h, cfg.mamba, backend=backend)
+def _slot_forward(cfg: LMConfig, spec: LayerSpec, bp: dict, x: torch.Tensor,
+                  pos: torch.Tensor, *, backend: str):
+    """One layer forward.  Returns (x, aux, kv): ``kv`` the attention
+    slot's (k, v), None for a Mamba slot; ``aux`` the MoE load-balance
+    loss, None without MoE."""
+    h = _apply_norm(cfg, bp["norm1"], x)
+    kv = None
+    if spec.kind == "attn":
+        h, kv = attention_forward(bp["attn"], cfg.attn_params(spec), h, pos,
+                                  q_chunk=cfg.q_chunk, kv_chunk=cfg.kv_chunk,
+                                  causal_mode=cfg.causal_mode, return_kv=True)
+    else:
+        h = mamba_forward(bp["mamba"], h, cfg.mamba, backend=backend)
+    if cfg.post_norm:
+        h = _apply_norm(cfg, bp["post1"], h)
+    x, aux = _ffn(cfg, spec, bp, x + h)
+    return x, aux, kv
 
 
-def lm_forward(params: dict, cfg: LMConfig, tokens: torch.Tensor, *,
-               backend: str = "cuda") -> torch.Tensor:
-    """Run the trunk: tokens (B, S) int -> hidden (B, S, d_model)."""
-    x = _embed_in(cfg, params, tokens)
+def _embed_in(cfg: LMConfig, params: dict, inputs: torch.Tensor,
+              pos: torch.Tensor) -> torch.Tensor:
+    if cfg.frontend == "tokens":
+        x = params["embed"][inputs.long()].to(cfg.dtype)
+    else:
+        x = inputs.to(cfg.dtype)
+    # the scale is rounded to the model dtype first, as in the reference
+    x = x * torch.tensor(cfg.embed_scale, dtype=cfg.dtype, device=x.device)
+    if cfg.posemb == "sinusoidal":
+        pos1d = pos if pos.dim() == 2 else pos[:, 0]
+        x = x + _sinusoidal(pos1d, cfg.d_model).to(cfg.dtype)
+    return x
+
+
+def _unembed_w(cfg: LMConfig, params: dict) -> torch.Tensor:
+    if cfg.tie_embeddings and cfg.frontend == "tokens":
+        return params["embed"].T
+    return params["unembed"]
+
+
+def _logits(cfg: LMConfig, params: dict, last: torch.Tensor) -> torch.Tensor:
+    logits = last.float() @ _unembed_w(cfg, params).float()
+    if cfg.final_softcap is not None:
+        logits = cfg.final_softcap * torch.tanh(logits / cfg.final_softcap)
+    return logits
+
+
+def lm_forward(params: dict, cfg: LMConfig, inputs: torch.Tensor,
+               pos: torch.Tensor, *, backend: str = "cuda",
+               collect_kv: bool = False):
+    """Run the trunk.  Returns (hidden (B,S,d), aux_loss, kvs | None).
+
+    ``inputs``: tokens (B,S) int for ``frontend="tokens"``, else embeds
+    (B,S,d).  ``pos``: (B,S) int, or (B,3,S) for mrope."""
+    x = _embed_in(cfg, params, inputs, pos)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    per_slot = [[] for _ in cfg.period]
     for slots in params["blocks"]:
-        for bp in slots:
-            x = _slot_forward(cfg, bp, x, backend=backend)
-    return apply_rmsnorm(params["final_norm"], x)
+        for s, (spec, bp) in enumerate(zip(cfg.period, slots)):
+            x, a, kv = _slot_forward(cfg, spec, bp, x, pos, backend=backend)
+            if a is not None:
+                aux = aux + a
+            if collect_kv:
+                per_slot[s].append(kv)
+    x = _apply_norm(cfg, params["final_norm"], x)
+    if not collect_kv:
+        return x, aux, None
+    kvs = tuple(None if spec.kind != "attn" else
+                tuple(torch.stack(leaf) for leaf in zip(*got))
+                for spec, got in zip(cfg.period, per_slot))
+    return x, aux, kvs
 
 
-def lm_prefill(params: dict, cfg: LMConfig, tokens: torch.Tensor, *,
-               backend: str = "cuda"):
-    """Prefill pass: returns (last_token_logits (B, V) f32, kvs).
+def lm_prefill(params: dict, cfg: LMConfig, inputs: torch.Tensor,
+               pos: torch.Tensor, *, backend: str = "cuda"):
+    """Prefill pass: returns (last-token logits (B, V) f32, kvs).
 
-    ``kvs`` holds one None per period slot: Mamba slots give no KV, as in
-    the reference, and serving decodes from step 0 (`launch/serve.py`);
-    there is no prefill-to-decode hand-off."""
-    hidden = lm_forward(params, cfg, tokens, backend=backend)
-    return (_logits(params, hidden[:, -1, :]),
-            tuple(None for _ in cfg.period))
+    ``kvs`` mirrors the period: attention slots give (k, v), each (R, B,
+    S, K, hd) in the model dtype; Mamba slots give None (serving decodes
+    from step 0, `launch/serve.py`, as in the reference)."""
+    hidden, _aux, kvs = lm_forward(params, cfg, inputs, pos, backend=backend,
+                                   collect_kv=True)
+    return _logits(cfg, params, hidden[:, -1, :]), kvs
 
 
-def init_lm_cache(cfg: LMConfig, batch: int,
+# ---------------------------------------------------------------------------
+# serving: single-token decode with stacked caches
+# ---------------------------------------------------------------------------
+
+def init_lm_cache(cfg: LMConfig, batch: int, max_seq: Optional[int] = None,
                   dtype: torch.dtype = torch.bfloat16, *, device) -> tuple:
-    """Decode cache: a tuple over period slots of stacked ``(R, ...)``
-    Mamba states and conv tails (O(1) in sequence length)."""
+    """Decode cache: a tuple over period slots; attention slots hold
+    stacked (R, B, S_c, K, hd) ring / linear KV buffers (``max_seq``,
+    default ``cfg.max_seq``), Mamba slots stacked (R, B, d_inner, N)
+    states and conv tails."""
+    S = max_seq or cfg.max_seq
+    R = cfg.repeats
     slots = []
-    for _ in cfg.period:
-        one = init_mamba_state(batch, cfg.d_model, cfg.mamba, dtype=dtype,
-                               device=device)
-        slots.append({k: v[None].repeat((cfg.repeats,) + (1,) * v.dim())
-                      for k, v in one.items()})
+    for spec in cfg.period:
+        if spec.kind == "attn":
+            one = init_cache(batch, cfg.attn_params(spec), S, dtype=dtype,
+                             device="meta")
+        else:
+            one = init_mamba_state(batch, cfg.d_model, cfg.mamba, dtype=dtype,
+                                   device="meta")
+        slots.append({k: torch.zeros((R,) + tuple(v.shape), dtype=v.dtype,
+                                     device=device) for k, v in one.items()})
     return tuple(slots)
 
 
-def _slot_decode(cfg: LMConfig, bp: dict, cache: dict, x: torch.Tensor):
-    h = apply_rmsnorm(bp["norm1"], x)
-    h, new_cache = mamba_decode(bp["mamba"], h, cache, cfg.mamba)
-    return x + h, new_cache
+def _slot_decode(cfg: LMConfig, spec: LayerSpec, bp: dict, cache: dict,
+                 x: torch.Tensor, t: int, pos: torch.Tensor) -> torch.Tensor:
+    """One layer's decode step; writes the layer's cache (views into the
+    stacked cache) in place."""
+    h = _apply_norm(cfg, bp["norm1"], x)
+    if spec.kind == "attn":
+        h, _ = attention_decode(bp["attn"], cfg.attn_params(spec), h, cache,
+                                t, pos)
+    else:
+        h, new = mamba_decode(bp["mamba"], h, cache, cfg.mamba)
+        for k, v in new.items():
+            cache[k].copy_(v)
+    if cfg.post_norm:
+        h = _apply_norm(cfg, bp["post1"], h)
+    return _ffn(cfg, spec, bp, x + h)[0]
 
 
 def lm_decode_step(params: dict, cfg: LMConfig, cache: tuple,
-                   token: torch.Tensor):
-    """One decode step for the whole batch: token (B,) int.
-
-    Returns (logits (B, V) f32, cache), the cache updated in place."""
-    x = _embed_in(cfg, params, token[:, None])
+                   token_or_embed: torch.Tensor, t: int):
+    """One decode step for the whole batch: token (B,) int (or embed (B,
+    d)); ``t`` the position (an int).  Returns (logits (B, V) f32, cache),
+    the cache updated in place."""
+    t = int(t)
+    if cfg.frontend == "tokens":
+        inp = token_or_embed[:, None]
+    else:
+        inp = token_or_embed[:, None, :]
+    B = inp.shape[0]
+    pos_embed = torch.full((B, 1), t, dtype=torch.int32, device=inp.device)
+    pos = (torch.full((B, 3, 1), t, dtype=torch.int32, device=inp.device)
+           if cfg.rope == "mrope" else pos_embed)
+    x = _embed_in(cfg, params, inp, pos_embed)
     for r, slots in enumerate(params["blocks"]):
-        for bp, slot_cache in zip(slots, cache):
+        for spec, bp, slot_cache in zip(cfg.period, slots, cache):
             layer = {k: v[r] for k, v in slot_cache.items()}
-            x, new = _slot_decode(cfg, bp, layer, x)
-            for k, v in new.items():
-                slot_cache[k][r].copy_(v)
-    x = apply_rmsnorm(params["final_norm"], x)
-    return _logits(params, x[:, 0]), cache
+            x = _slot_decode(cfg, spec, bp, layer, x, t, pos)
+    x = _apply_norm(cfg, params["final_norm"], x)
+    return _logits(cfg, params, x[:, 0]), cache

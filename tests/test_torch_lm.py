@@ -65,6 +65,10 @@ def _tokens(vocab, seed=1):
     return np.random.default_rng(seed).integers(0, vocab, (BATCH, SEQ))
 
 
+def _pos():
+    return torch.arange(SEQ).expand(BATCH, SEQ)
+
+
 @pytest.mark.parametrize("dtype,tol", [("float32", 1e-5), ("bfloat16", 2e-2)])
 def test_prefill_logits_match_reference(dtype, tol):
     j_cfg, t_cfg = _configs(dtype)
@@ -77,7 +81,7 @@ def test_prefill_logits_match_reference(dtype, tol):
                                   pos)
     t_scan.reset_launches()
     got, kvs = make_prefill_step(t_cfg, backend="torch")(
-        tp, torch.as_tensor(toks))
+        tp, torch.as_tensor(toks), _pos())
     assert got.dtype == torch.float32 and got.shape == (BATCH, j_cfg.vocab)
     assert kvs == (None,) and j_kvs == (None,)
     # one fused scan per layer, through the plain version
@@ -94,7 +98,7 @@ def test_prefill_backend_checks():
     params = LMModel.create(t_cfg, 3, device="cpu").params
     toks = torch.as_tensor(_tokens(t_cfg.vocab, seed=4))
     with pytest.raises(ValueError, match="CUDA tensors"):
-        make_prefill_step(t_cfg, backend="cuda")(params, toks)
+        make_prefill_step(t_cfg, backend="cuda")(params, toks, _pos())
     with pytest.raises(ValueError, match="backend"):
         make_prefill_step(t_cfg, backend="xla")
 
@@ -104,8 +108,8 @@ def test_decode_steps_match_reference():
     jp, tp = _carried(j_cfg, t_cfg, seed=2)
     toks = _tokens(j_cfg.vocab, seed=5)
     j_cache = j_tf.init_lm_cache(j_cfg, BATCH, max_seq=SEQ, dtype=jnp.float32)
-    t_cache = t_tf.init_lm_cache(t_cfg, BATCH, dtype=torch.float32,
-                                 device="cpu")
+    t_cache = t_tf.init_lm_cache(t_cfg, BATCH, max_seq=SEQ,
+                                 dtype=torch.float32, device="cpu")
     j_step = jax.jit(lambda p, c, tok, t: j_tf.lm_decode_step(p, j_cfg, c,
                                                               tok, t))
     t_step = make_decode_step(t_cfg)
@@ -114,7 +118,8 @@ def test_decode_steps_match_reference():
         j_logits, j_cache = j_step(jp, j_cache,
                                    jnp.asarray(toks[:, t], jnp.int32),
                                    jnp.int32(t))
-        t_logits, t_cache = t_step(tp, t_cache, torch.as_tensor(toks[:, t]))
+        t_logits, t_cache = t_step(tp, t_cache, torch.as_tensor(toks[:, t]),
+                                   t)
         worst = max(worst, _nerr(t_logits.numpy(), np.asarray(j_logits)))
     assert worst <= 1e-5
     assert len(t_cache) == len(j_cache) == 1
@@ -129,12 +134,12 @@ def test_prefill_matches_decode_in_port():
     _, t_cfg = _configs("float32")
     params = LMModel.create(t_cfg, 6, device="cpu").params
     toks = torch.as_tensor(_tokens(t_cfg.vocab, seed=7))
-    want, _ = make_prefill_step(t_cfg, backend="torch")(params, toks)
-    cache = t_tf.init_lm_cache(t_cfg, BATCH, dtype=torch.float32,
-                               device="cpu")
+    want, _ = make_prefill_step(t_cfg, backend="torch")(params, toks, _pos())
+    cache = t_tf.init_lm_cache(t_cfg, BATCH, max_seq=SEQ,
+                               dtype=torch.float32, device="cpu")
     decode = make_decode_step(t_cfg)
     for t in range(SEQ):
-        got, cache = decode(params, cache, toks[:, t])
+        got, cache = decode(params, cache, toks[:, t], t)
     assert _err(got.numpy(), want.numpy()) <= 1e-4
 
 
@@ -239,9 +244,17 @@ def test_cuda_device_raises_without_a_card():
         t_serve.run(["--arch", "falcon-mamba-7b"])
 
 
-def test_unported_configs_raise():
-    with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
-        t_tf.LMConfig(name="attn", n_layers=2, d_model=8, vocab=16)
-    with pytest.raises(KeyError, match="Queue 1 item 9"):
-        get_arch("gemma2-2b")
+def test_get_arch_serves_every_arch():
+    """All ten reference LM archs are registered (the port refused nine
+    before the attention and MoE stack came); an unknown name raises
+    `KeyError`, as the reference's registry does."""
+    from repro.configs import ARCHS as j_archs
+    assert len(j_archs) == 10
+    for name in j_archs:
+        assert get_arch(name).name == name
     assert get_arch("falcon-mamba-7b").full().n_layers == 64
+    with pytest.raises(KeyError, match="unknown arch"):
+        get_arch("gpt-5")
+    with pytest.raises(ValueError, match="multiple of the period"):
+        t_tf.LMConfig(name="odd", n_layers=3, d_model=8, vocab=16,
+                      period=(t_tf.LayerSpec(), t_tf.LayerSpec()))
