@@ -209,9 +209,35 @@ Phases, each timed, any failure exits non-zero before the result line:
      then gemma2-2b in float32 at full width and depth with the local
      layers' window cut to 16 (the ring wraps): prefill at B 2, S 64 vs
      64 decode steps within 1e-4, each layer alone read beside.
+  10. lm-train — LM training (`models.lm.make_train_step`: the chunked
+     cross-entropy, flash attention's backward, remat, micro-batches,
+     AdamW in place): (a) ``repro_torch.launch.train --arch
+     h2o-danube-1.8b --full --global-batch 8 --n-micro 2 --seq-len 4096
+     --warmup 1 --steps 6 --ckpt-every 1000`` (24 layers, 1,831,201,280
+     parameters, bf16, remat "full"): finite losses, the last below the
+     first, no kernel launch and no plain call (the path holds no Mamba
+     slot), then step ms (mean of steps 2-6), tok/s, the model-FLOP share
+     of the bf16 dense peak ((6 N + 12 L H hd S) T a step), peak memory
+     and one more step under `torch.profiler` (top device ops, idle
+     share); (b) flash attention's backward against plain autograd
+     through ``causal_mode="masked_full"`` at h2o's shape (B 1, S 4096,
+     32 heads, hd 80, window 4096) and gemma2's local layer (S 8192, hd
+     256, softcap 50, window 4096: the banded forward), float32, out / dq
+     / dk / dv within 1e-4; (c) the chunked cross-entropy against the
+     dense one (B 2, S 2048; V 32,000, and V 256,000 with softcap 30; z
+     loss 1e-4): loss, dx, dW within 1e-5, the chunked forward + backward
+     peak extra memory below half the dense one's; (d) Falcon-Mamba at
+     full width, depth cut to 2 layers (d_inner 8192), B 1, S 1024,
+     through ``make_train_step``: the chunked path, so no scan launch and
+     no plain call, a finite nonzero gradient norm, and a direct
+     ``selective_scan`` call on card tensors that require a gradient
+     raises; (e) jamba's reduced config, one float32 step on the card
+     against the same step on the CPU: loss, gradient norm, moments and
+     new parameters within 1e-4 (a parameter whose gradient is within
+     1e-4 of zero may part by 2 lr: Adam's first step is sign(g) lr).
 
 
-``--phases`` runs a subset of phases 2-9 (names in `PHASES`); with no
+``--phases`` runs a subset of phases 2-10 (names in `PHASES`); with no
 arguments every phase runs.  The line before the last is the
 ``{"kernels": [...]}`` record (times are
 medians of 20 CUDA-event-timed calls after 3 warm-up calls, on warm
@@ -1902,9 +1928,23 @@ def positions(B: int, S: int) -> "torch.Tensor":
     return torch.arange(S, device=DEVICE).expand(B, S)
 
 
+def _kind(name: str) -> str:
+    """A device op's kind by its kernel name: f32 GEMM, other GEMM,
+    elementwise, reduction or other."""
+    low = name.lower()
+    if any(k in low for k in ("gemm", "nvjet", "cutlass", "xmma")):
+        return "gemm_f32" if ("sgemm" in low or "f32f32" in low) else "gemm"
+    if "elementwise" in low:
+        return "elementwise"
+    return "reduce" if "reduce" in low else "other"
+
+
 def _profile(fn) -> dict:
     """One call of ``fn`` under `torch.profiler`: device time by kernel
-    name (top 12) and the device-busy share of the host-clock wall time."""
+    name (top 12) and by kind (`_kind`), and the device-busy share of the
+    host-clock wall time.  The sums are taken over the profiler's raw
+    device events (its per-event post-processing takes minutes for the
+    hundreds of thousands of launches of a training step)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -1914,20 +1954,25 @@ def _profile(fn) -> dict:
         fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    rows, queue_full = [], 0.0
-    for ev in prof.key_averages():
-        if ev.device_type != torch.autograd.DeviceType.CUDA:
+    acc, queue_full = {}, 0.0
+    for ev in prof.profiler.kineto_results.events():
+        if ev.device_type() != torch.autograd.DeviceType.CUDA:
             continue                    # host ops; their kernels are below
-        ms = ev.self_device_time_total / 1e3
-        if ev.key.startswith("Command Buffer Full"):
+        ms = ev.duration_ns() / 1e6
+        if ev.name().startswith("Command Buffer Full"):
             queue_full += ms            # the host waited on a full queue
         elif ms > 0:
-            rows.append((ev.key, ms, ev.count))
-    rows.sort(key=lambda r: -r[1])
+            tot, n = acc.get(ev.name(), (0.0, 0))
+            acc[ev.name()] = (tot + ms, n + 1)
+    rows = sorted(((k, ms, n) for k, (ms, n) in acc.items()),
+                  key=lambda r: -r[1])
     busy = sum(r[1] for r in rows)
+    kinds: dict = {}
+    for name, ms, _ in rows:
+        kinds[_kind(name)] = kinds.get(_kind(name), 0.0) + ms
     return {"wall_ms": wall_ms, "device_ms": busy,
             "idle_share": (1.0 - busy / wall_ms) if rows else None,
-            "queue_full_ms": queue_full,
+            "queue_full_ms": queue_full, "by_kind_ms": kinds,
             "top": [{"name": n[:80], "ms": ms, "count": c}
                     for n, ms, c in rows[:12]]}
 
@@ -2929,17 +2974,301 @@ def profiling(detail: dict) -> dict:
     return out
 
 
+# phase 10: LM training.  (a) drives the main path: h2o-danube-1.8b at
+# its published width and depth through the training driver
+LM_TRAIN_ARGV = ["--arch", "h2o-danube-1.8b", "--full", "--global-batch",
+                 "8", "--n-micro", "2", "--seq-len", "4096", "--warmup", "1",
+                 "--steps", "6", "--ckpt-every", "1000"]
+LM_TRAIN_PARAMS = 1_831_201_280      # the JAX package's count of full()
+# (b) flash backward at full head dims: (what, B, S, H, hd, window, softcap)
+FLASH_GRAD_CASES = [("h2o", 1, 4096, 32, 80, 4096, None),
+                    ("gemma2-local", 1, 8192, 8, 256, 4096, 50.0)]
+FLASH_GRAD_TOL = 1e-4
+# (c) chunked cross-entropy at full vocabularies: (what, B, S, d, V, softcap)
+XENT_CASES = [("h2o", 2, 2048, 2560, 32_000, None),
+              ("gemma2", 2, 2048, 2304, 256_000, 30.0)]
+# (d) Falcon-Mamba at full width, depth cut to 2 layers
+MAMBA_TRAIN_LAYERS, MAMBA_TRAIN_BATCH, MAMBA_TRAIN_SEQ = 2, 1, 1024
+# (e) one float32 step of jamba's reduced config, card vs CPU
+JAMBA_STEP_TOL = 1e-4
+
+
+def _lm_batch(cfg, B: int, S: int, seed: int, device) -> dict:
+    """The training driver's batch (`repro_torch.data`, step 0)."""
+    import torch
+
+    from repro_torch.data import PipelineConfig, TokenPipeline, make_lm_batch
+    pipe = TokenPipeline(PipelineConfig(vocab=cfg.vocab, seq_len=S,
+                                        global_batch=B, seed=seed))
+    b = make_lm_batch(pipe.batch(0), frontend=cfg.frontend,
+                      d_model=cfg.d_model, mrope=(cfg.rope == "mrope"))
+    return {k: torch.as_tensor(v, device=device) for k, v in b.items()}
+
+
+def lm_train(detail: dict) -> dict:
+    """Phase 10: LM training.  (a) h2o-danube-1.8b at full width and depth
+    through `repro_torch.launch.train.run`; (b) flash attention's backward
+    against plain autograd at full head dims; (c) the chunked
+    cross-entropy against the dense one at full vocabularies; (d)
+    Falcon-Mamba at full width on the chunked path, the scan's refusal;
+    (e) jamba's reduced config, one float32 step on the card vs the
+    CPU."""
+    import dataclasses
+    import math
+    import tempfile
+
+    import torch
+
+    from repro_torch.configs import falcon_mamba_7b, jamba_v0_1_52b
+    from repro_torch.device import set_matmul_precision
+    from repro_torch.hw import H100_SXM
+    from repro_torch.kernels import selective_scan as ss
+    from repro_torch.launch import train as train_mod
+    from repro_torch.models.lm import LMModel, make_train_step
+    from repro_torch.nn.attention import blockwise_attention
+    from repro_torch.nn.losses import chunked_softmax_xent, softmax_xent_dense
+    from repro_torch.nn.transformer import param_count
+    from repro_torch.optim.adamw import AdamWConfig, adamw_init
+    from repro_torch.runtime.checkpoint import _leaves, _rebuild
+
+    rec = {}
+    set_matmul_precision()
+
+    # (a) the full-width run, the main path: no kernel and no plain call
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counts()
+    with tempfile.TemporaryDirectory() as ckpt:
+        res = train_mod.run(LM_TRAIN_ARGV + ["--ckpt-dir", ckpt])
+    counts = _all_counts()
+    check(all(v == 0 for v in counts.values()),
+          f"lm-train: the Mamba-free path launched {counts}")
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    trainer, cfg = res["trainer"], res["cfg"]
+    losses = [m["loss"] for m in res["history"]]
+    n_params = param_count(trainer.state[0])
+    check(n_params == LM_TRAIN_PARAMS,
+          f"lm-train: {cfg.name} holds {n_params:,} parameters, not "
+          f"{LM_TRAIN_PARAMS:,}")
+    check(res["ok"] and all(math.isfinite(l) for l in losses),
+          f"lm-train: losses not finite: {losses}")
+    check(losses[-1] < losses[0],
+          f"lm-train: the loss did not fall: {losses}")
+    gb = int(LM_TRAIN_ARGV[LM_TRAIN_ARGV.index("--global-batch") + 1])
+    seq = int(LM_TRAIN_ARGV[LM_TRAIN_ARGV.index("--seq-len") + 1])
+    tokens = gb * seq
+    step_s = res["avg_step_s"]                       # mean of steps 2..n
+    # model FLOPs a step: 6 N T for the dense products, plus the
+    # attention term 12 L H hd S T (forward and backward of QK^T and PV)
+    model_flop = (6 * n_params + 12 * cfg.n_layers * cfg.n_heads
+                  * cfg.head_dim * seq) * tokens
+    rec.update(arch=cfg.name, n_params=n_params, losses=losses,
+               step_ms=step_s * 1e3,
+               step_ms_all=[m["step_time_s"] * 1e3 for m in res["history"]],
+               tok_per_s=tokens / step_s, model_flop=model_flop,
+               mfu=model_flop / step_s / H100_SXM.peak_flops_bf16,
+               peak_gb=peak_gb, launches=counts, wall_s=res["wall_s"])
+    log(f"lm-train: {cfg.name} {n_params:,} params {cfg.dtype}, B {gb} x S "
+        f"{seq} in 2 micro-batches, remat {cfg.remat}; losses "
+        + ", ".join(f"{l:.4f}" for l in losses))
+    log(f"lm-train step ms (mean of steps 2-{len(losses)}): "
+        f"{rec['step_ms']:.1f} (" + ", ".join(
+            f"{t:.1f}" for t in rec["step_ms_all"]) + ")")
+    log(f"lm-train tok/s: {rec['tok_per_s']:.0f}")
+    log(f"lm-train model-FLOP share of the bf16 dense peak "
+        f"({H100_SXM.peak_flops_bf16:.3g} FLOP/s; (6 N + 12 L H hd S) T = "
+        f"{model_flop:.4g} FLOP a step): {rec['mfu']:.4f}")
+    log(f"lm-train peak memory: {peak_gb:.2f} GB")
+    batch = trainer.batch_fn(trainer.step)
+    prof = _profile(lambda: trainer.step_fn(trainer.state, batch))
+    rec["profile_step"] = prof
+    log(f"lm-train step profile: wall {prof['wall_ms']:.1f} ms, device "
+        f"{prof['device_ms']:.1f} ms, idle share {prof['idle_share']:.4f}; "
+        "by kind: " + ", ".join(f"{k} {v:.1f} ms" for k, v in sorted(
+            prof["by_kind_ms"].items(), key=lambda kv: -kv[1]))
+        + "; top: " + "; ".join(f"{r['name'][:60]} {r['ms']:.1f} ms x"
+                                f"{r['count']}" for r in prof["top"][:8]))
+    del res, trainer, batch
+    torch.cuda.empty_cache()
+
+    # (b) flash attention's backward vs plain autograd (float32)
+    rec["flash"] = []
+    for what, B, S, H, hd, window, softcap in FLASH_GRAD_CASES:
+        gen = torch.Generator(device=DEVICE).manual_seed(7)
+        q, k, v, go = (torch.randn(B, S, H, hd, generator=gen, device=DEVICE)
+                       for _ in range(4))
+        pos = torch.arange(S, device=DEVICE)
+        got = {}
+        for mode in ("flash", "masked_full"):
+            ins = [t.clone().requires_grad_() for t in (q, k, v)]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = blockwise_attention(*ins, q_pos=pos, kv_pos=pos,
+                                      window=window, softcap=softcap,
+                                      causal_mode=mode)
+            grads = torch.autograd.grad(out, ins, go)
+            torch.cuda.synchronize()
+            got[mode] = ((out.detach(),) + grads,
+                         (time.perf_counter() - t0) * 1e3)
+            del ins, out, grads
+        err = max(_nerr(a, b) for a, b in zip(got["flash"][0],
+                                              got["masked_full"][0]))
+        r = {"what": what, "B": B, "S": S, "H": H, "hd": hd,
+             "window": window, "softcap": softcap, "max_err": err,
+             "flash_ms": got["flash"][1], "masked_full_ms":
+             got["masked_full"][1]}
+        rec["flash"].append(r)
+        log(f"lm-train flash backward {what} (B {B}, S {S}, H {H}, hd {hd}, "
+            f"window {window}, softcap {softcap}): out/dq/dk/dv vs "
+            f"masked_full autograd {err:.3e}; fwd+bwd {r['flash_ms']:.1f} ms "
+            f"(masked_full {r['masked_full_ms']:.1f} ms, host clock)")
+        check(err <= FLASH_GRAD_TOL,
+              f"flash backward {what}: {err:.3e} > {FLASH_GRAD_TOL}")
+        del got, q, k, v, go
+        torch.cuda.empty_cache()
+
+    # (c) chunked vs dense cross-entropy; the chunked backward's extra
+    # memory beside the dense one's
+    rec["xent"] = []
+    for what, B, S, d, V, softcap in XENT_CASES:
+        gen = torch.Generator(device=DEVICE).manual_seed(11)
+        x = torch.randn(B, S, d, generator=gen, device=DEVICE)
+        w = torch.randn(d, V, generator=gen, device=DEVICE) / math.sqrt(d)
+        labels = torch.randint(0, V, (B, S), generator=gen, device=DEVICE)
+        got = {}
+        for name, fn, kw in (("chunked", chunked_softmax_xent,
+                              {"chunk": 512}),
+                             ("dense", softmax_xent_dense, {})):
+            xi, wi = x.clone().requires_grad_(), w.clone().requires_grad_()
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            loss, _ = fn(xi, wi, labels, z_loss=1e-4, logit_softcap=softcap,
+                         **kw)
+            grads = torch.autograd.grad(loss, (xi, wi))
+            torch.cuda.synchronize()
+            got[name] = ((loss.detach(),) + grads,
+                         (time.perf_counter() - t0) * 1e3,
+                         (torch.cuda.max_memory_allocated() - base) / 1e9)
+            del xi, wi, loss, grads
+        err = max(_nerr(a, b) for a, b in zip(got["chunked"][0],
+                                              got["dense"][0]))
+        r = {"what": what, "B": B, "S": S, "d": d, "V": V,
+             "softcap": softcap, "max_err": err,
+             "chunked_ms": got["chunked"][1], "dense_ms": got["dense"][1],
+             "chunked_extra_gb": got["chunked"][2],
+             "dense_extra_gb": got["dense"][2]}
+        rec["xent"].append(r)
+        log(f"lm-train chunked xent {what} (B {B}, S {S}, d {d}, V {V}, "
+            f"softcap {softcap}): loss/dx/dW vs dense {err:.3e}; fwd+bwd "
+            f"{r['chunked_ms']:.1f} ms (dense {r['dense_ms']:.1f}, host "
+            f"clock); extra memory {r['chunked_extra_gb']:.2f} GB (dense "
+            f"{r['dense_extra_gb']:.2f} GB)")
+        check(err <= TOL, f"chunked xent {what}: {err:.3e} > {TOL}")
+        check(r["chunked_extra_gb"] < 0.5 * r["dense_extra_gb"],
+              f"chunked xent {what}: extra memory {r['chunked_extra_gb']:.2f}"
+              f" GB is not below half the dense {r['dense_extra_gb']:.2f} GB")
+        del got, x, w, labels
+        torch.cuda.empty_cache()
+
+    # (d) Falcon-Mamba at full width, depth cut: the chunked path runs no
+    # kernel; the scan wrapper refuses a gradient on the card
+    mcfg = dataclasses.replace(falcon_mamba_7b.full(),
+                               n_layers=MAMBA_TRAIN_LAYERS)
+    model = LMModel.create(mcfg, seed=0, device=DEVICE)
+    mbatch = _lm_batch(mcfg, MAMBA_TRAIN_BATCH, MAMBA_TRAIN_SEQ, 0, DEVICE)
+    mstep = make_train_step(mcfg, AdamWConfig(lr=1e-4)).step
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    params, _, mm = mstep(model.params, adamw_init(model.params), mbatch)
+    torch.cuda.synchronize()
+    counts = _all_counts()
+    m_ms = (time.perf_counter() - t0) * 1e3
+    check(all(v == 0 for v in counts.values()),
+          f"lm-train mamba: the chunked path launched {counts}")
+    check(math.isfinite(float(mm["grad_norm"])) and float(mm["grad_norm"]) > 0
+          and all(bool(torch.isfinite(p).all()) for p in _leaves(params)),
+          f"lm-train mamba: gradient norm {float(mm['grad_norm'])}")
+    scan_args = [a.requires_grad_(i == 0) for i, a in enumerate(
+        scan_inputs(1, 64, 256, 16, seed=0))]
+    try:
+        ss.selective_scan(*scan_args)
+        refused = False
+    except NotImplementedError:
+        refused = True
+    check(refused and sum(_all_counts().values()) == 0,
+          "lm-train: the scan wrapper did not refuse a gradient on the card")
+    rec["mamba"] = {"layers": MAMBA_TRAIN_LAYERS, "n_params":
+                    param_count(params), "B": MAMBA_TRAIN_BATCH,
+                    "S": MAMBA_TRAIN_SEQ, "step_ms": m_ms,
+                    "loss": float(mm["loss"]),
+                    "grad_norm": float(mm["grad_norm"]),
+                    "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+                    "launches": counts, "refused": refused}
+    log(f"lm-train mamba: falcon-mamba-7b at {MAMBA_TRAIN_LAYERS} layers "
+        f"({rec['mamba']['n_params']:,} params, d_inner "
+        f"{mcfg.mamba.d_inner}) B {MAMBA_TRAIN_BATCH} S {MAMBA_TRAIN_SEQ}: "
+        f"one step {m_ms:.1f} ms (first call), loss {rec['mamba']['loss']:.4f}"
+        f", grad norm {rec['mamba']['grad_norm']:.4f}, launches {counts}, "
+        f"peak {rec['mamba']['peak_gb']:.2f} GB; selective_scan refused a "
+        f"gradient on the card")
+    del model, params, mbatch, scan_args
+    torch.cuda.empty_cache()
+
+    # (e) jamba reduced, float32: one step on the card vs the CPU
+    jcfg = jamba_v0_1_52b.reduced()
+    cpu = LMModel.create(jcfg, seed=0, device="cpu").params
+    card = _rebuild(cpu, iter([t.to(DEVICE) for t in _leaves(cpu)]))
+    opt = AdamWConfig(lr=3e-3)
+    out = {}
+    for dev, params in (("cpu", cpu), (DEVICE, card)):
+        out[dev] = make_train_step(jcfg, opt, donate=False).step(
+            params, adamw_init(params), _lm_batch(jcfg, 4, 64, 0, dev))
+    (cp, cs, cm), (gp, gs, gm) = out["cpu"], out[DEVICE]
+    errs = {k: _nerr(gm[k].cpu(), cm[k]) for k in ("loss", "grad_norm")}
+    errs["m"] = max(_nerr(a.cpu(), b) for a, b in zip(_leaves(gs.m),
+                                                      _leaves(cs.m)))
+    errs["v"] = max(_nerr(a.cpu(), b) for a, b in zip(_leaves(gs.v),
+                                                      _leaves(cs.v)))
+    # Adam's first step is about sign(g) lr: where the gradient (10 m) is
+    # within the limit of zero, its sign is rounding
+    worst, sign_noise = 0.0, 0
+    for a, b, m in zip(_leaves(gp), _leaves(cp), _leaves(cs.m)):
+        a, b, g = a.cpu().double(), b.double(), 10.0 * m.double()
+        near_zero = g.abs() <= JAMBA_STEP_TOL * (1 + g.abs().max())
+        diff = (a - b).abs() / (1 + b.abs().max())
+        worst = max(worst, float(diff[~near_zero].max()) if (~near_zero).any()
+                    else 0.0)
+        check(bool((diff[near_zero] <= 2 * opt.lr + JAMBA_STEP_TOL).all()),
+              "lm-train jamba: a near-zero-gradient parameter moved by more "
+              "than 2 lr")
+        sign_noise += int((diff[near_zero] > JAMBA_STEP_TOL).sum())
+    errs["params"] = worst
+    rec["jamba_step"] = dict(errs, sign_noise=sign_noise)
+    log(f"lm-train jamba reduced f32 step, card vs CPU: " + ", ".join(
+        f"{k} {v:.3e}" for k, v in errs.items())
+        + f"; {sign_noise} parameters part by up to 2 lr where the gradient "
+        f"is within {JAMBA_STEP_TOL:g} of zero")
+    check(max(errs.values()) <= JAMBA_STEP_TOL,
+          f"lm-train jamba step card vs CPU: {errs}")
+    detail["lm_train"] = rec
+    return rec
+
+
 PHASES = {"kernels": kernel_sweeps, "hub": hub_probe, "serving": serving,
           "async": async_serving, "edge-grad": edge_grad_checks,
           "training": training, "sampled": sampled_training,
           "dynamic": dynamic_plans, "profile": profiling, "scan": scan_checks,
-          "lm": lm_serving, "lm-hybrid": lm_hybrid}
+          "lm": lm_serving, "lm-hybrid": lm_hybrid, "lm-train": lm_train}
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--phases", default=",".join(PHASES),
-                    help="comma-separated subset of phases 2-9 to run "
+                    help="comma-separated subset of phases 2-10 to run "
                          f"({', '.join(PHASES)}; default all); the device "
                          "phase always runs")
     ap.add_argument("--scan-variants", default="",

@@ -15,7 +15,10 @@ tiling: the result does not depend on them and the kernel has neither.
 Dispatch is by device and nothing else: a CUDA tensor launches the kernel
 (or the call raises; there is no fallback), a CPU tensor runs the plain
 version (`repro_torch.kernels.ref.selective_scan_ref`).  Every launch and
-every plain call adds one to its count in `launches`.
+every plain call adds one to its count in `launches`.  The kernel has no
+backward, as the reference's Pallas kernel has none: on either device the
+wrapper raises `NotImplementedError` when grad mode is on and an input
+requires a gradient (training takes the chunked path, ``fused_scan="off"``).
 """
 from __future__ import annotations
 
@@ -28,8 +31,8 @@ from repro_torch.kernels import build
 from repro_torch.kernels.build import bind, check_arg, raise_on
 from repro_torch.kernels.ref import selective_scan_ref
 
-__all__ = ["KERNEL", "PLAIN", "launches", "reset_launches", "selective_scan",
-           "selective_scan_plain"]
+__all__ = ["KERNEL", "PLAIN", "launches", "refuse_grad", "reset_launches",
+           "selective_scan", "selective_scan_plain"]
 
 KERNEL = "selective_scan"
 PLAIN = "selective_scan_ref"
@@ -42,6 +45,16 @@ launches: Dict[str, int] = {KERNEL: 0, PLAIN: 0}
 def reset_launches() -> None:
     for k in launches:
         launches[k] = 0
+
+
+def refuse_grad(*tensors: torch.Tensor) -> None:
+    """Raise when grad mode is on and any of ``tensors`` requires a
+    gradient: the fused scan has no backward."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise NotImplementedError(
+            f"{KERNEL} has no backward (the reference's Pallas scan has "
+            f"none either); train Mamba layers on the chunked path "
+            f"(MambaParams(fused_scan='off')) or call under torch.no_grad()")
 
 
 def selective_scan_plain(xc, dt_raw, b, c, a_log, dt_bias,
@@ -59,7 +72,9 @@ def selective_scan(xc: torch.Tensor, dt_raw: torch.Tensor, b: torch.Tensor,
 
     xc, dt_raw: (B, S, d_inner); b, c: (B, S, N) with N <= 32; a_log:
     (d_inner, N); dt_bias, d_skip: (d_inner,); all float32, contiguous and
-    on one device.  Returns y (B, S, d_inner) float32."""
+    on one device.  Returns y (B, S, d_inner) float32.  Raises
+    `NotImplementedError` under autograd (see the module docstring)."""
+    refuse_grad(xc, dt_raw, b, c, a_log, dt_bias, d_skip)
     if not xc.is_cuda:
         return selective_scan_plain(xc, dt_raw, b, c, a_log, dt_bias, d_skip)
     if xc.dim() != 3 or b.dim() != 3:

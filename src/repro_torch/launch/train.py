@@ -1,13 +1,18 @@
-"""Training driver: GNN node classification, full-graph or sampled.
+"""Training driver: GNN node classification (full-graph or sampled) and
+LM training for the ten LM architectures.
 
-Port of the GNN branches of `src/repro/launch/train.py`.  Full-graph
-(`_main_gnn`): a paper-dataset replica -> advisor plan with the forward
-and transposed backward schedules -> the gradient through the chosen
-backend -> AdamW -> the fault-tolerant `Trainer` loop.  ``--sampled``
-(`_main_gnn_sampled`): per-step fanout-sampled bipartite blocks planned
-through a train-ready plan cache by a prefetching loader
-(`repro_torch.sampling`), so per-step memory is bounded by the batch, not
-the graph: full-size Type III graphs train where full-batch cannot.
+Port of `src/repro/launch/train.py`.  Full-graph (`run`): a paper-dataset
+replica -> advisor plan with the forward and transposed backward
+schedules -> the gradient through the chosen backend -> AdamW -> the
+fault-tolerant `Trainer` loop.  ``--sampled`` (`_run_sampled`): per-step
+fanout-sampled bipartite blocks planned through a train-ready plan cache
+by a prefetching loader (`repro_torch.sampling`), so per-step memory is
+bounded by the batch, not the graph: full-size Type III graphs train
+where full-batch cannot.  An LM ``--arch`` (`_run_lm`, the reference's
+branch at :361-417): seeded random weights, the synthetic Markov corpus
+(`repro_torch.data`), `models.lm.make_train_step` (chunked cross-entropy,
+flash attention's backward, remat, ``--n-micro`` micro-batches, AdamW)
+in the same `Trainer` loop.
 
     # on the card: forward, feature backward and GAT's edge-value gradient
     # all run the hand-written CUDA kernels
@@ -27,20 +32,28 @@ the graph: full-size Type III graphs train where full-batch cannot.
     PYTHONPATH=src python -m repro_torch.launch.train --arch gcn --sampled \
         --dataset reddit --stream-deltas 4
 
+    # an LM's reduced config on the CPU; h2o-danube-1.8b at full width on
+    # the card
+    PYTHONPATH=src python -m repro_torch.launch.train \
+        --arch falcon-mamba-7b --reduced --steps 20 --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.train \
+        --arch h2o-danube-1.8b --full --global-batch 8 --n-micro 2 \
+        --seq-len 4096 --warmup 1 --steps 6 --ckpt-every 1000
+
 Full-graph labels come from a frozen random teacher of the same
 architecture (`models.gnn.planted_labels`), so the task is learnable and
 the loss falls; sampled runs use `structural_labels` (no full-graph
 teacher forward: that is the pass sampling exists to avoid).  Port flags
 beside the reference's: ``--device cuda|cpu`` (default cuda; raises
 without CUDA), ``--backend cuda|torch`` (hand-written kernels or plain
-PyTorch) and ``--variant folded|slot_onehot|direct`` (the gather kernel).
-``--stream-deltas`` requires ``--sampled``, as in the reference.
-``--trace-out PATH`` (both branches) writes the Trainer's span records
-(``train`` / ``train/step`` / ``train/step/batch`` /
-``train/checkpoint``) as a Chrome/Perfetto trace with `run_context()` in
-``otherData``.
-``--shards`` and the LM architectures wait for their slices and exit with
-an error naming the ROADMAP item that ports them.
+PyTorch) and ``--variant folded|slot_onehot|direct`` (the gather kernel);
+LM training runs no kernel (Mamba slots train on the chunked path), so
+the last three are GNN flags.  ``--stream-deltas`` requires
+``--sampled``, as in the reference.  ``--trace-out PATH`` writes the
+Trainer's span records (``train`` / ``train/step`` / ``train/step/batch``
+/ ``train/checkpoint``) as a Chrome/Perfetto trace with `run_context()`
+in ``otherData``.  ``--shards`` waits for its slice and exits with an
+error naming the ROADMAP item that ports it.
 """
 from __future__ import annotations
 
@@ -109,7 +122,18 @@ def parse_args(argv=None) -> argparse.Namespace:
     p.add_argument("--scale", type=float, default=1.0,
                    help="dataset size multiplier (1.0 = paper size)")
     p.add_argument("--hidden-dim", type=int, default=32)
+    p.add_argument("--reduced", action="store_true", default=True,
+                   help="LM archs: the reduced config (the default)")
+    p.add_argument("--full", dest="reduced", action="store_false",
+                   help="LM archs: the published config")
     p.add_argument("--steps", type=int, default=100)
+    p.add_argument("--global-batch", type=int, default=8,
+                   help="LM archs: sequences a step")
+    p.add_argument("--seq-len", type=int, default=64,
+                   help="LM archs: tokens a sequence")
+    p.add_argument("--n-micro", type=int, default=1,
+                   help="LM archs: micro-batches a step (gradients summed "
+                        "in float32)")
     p.add_argument("--lr", type=float, default=3e-3)
     p.add_argument("--warmup", type=int, default=20)
     p.add_argument("--ckpt-dir", default=None,
@@ -142,10 +166,10 @@ def parse_args(argv=None) -> argparse.Namespace:
                         "seed graph's edges)")
     p.add_argument("--seed", type=int, default=0)
     args = p.parse_args(argv)
-    if args.arch not in GNN_ARCHS:
-        p.error(f"--arch {args.arch}: only {GNN_ARCHS} are ported; the LM "
-                f"architectures wait for the LM slices (ROADMAP.md Queue 1, "
-                f"items 2 and 9)")
+    from repro_torch.configs import arch_names
+    if args.arch not in GNN_ARCHS + tuple(arch_names()):
+        p.error(f"--arch {args.arch}: unknown arch; GNN archs "
+                f"{', '.join(GNN_ARCHS)}; LM archs {', '.join(arch_names())}")
     if args.sampled and args.arch not in ("gcn", "gin"):
         p.error("--sampled supports gcn/gin only (the reference refuses "
                 "GAT too)")
@@ -159,6 +183,9 @@ def parse_args(argv=None) -> argparse.Namespace:
                 "sharding)")
     if args.steps < 0:
         p.error("--steps must be >= 0")
+    if args.n_micro < 1 or args.global_batch % args.n_micro:
+        p.error(f"--n-micro must be >= 1 and divide --global-batch "
+                f"{args.global_batch}")
     return args
 
 
@@ -226,6 +253,8 @@ def run(argv=None) -> dict:
     run started from, for cross-checks).  With ``--sampled`` see
     `_run_sampled`."""
     args = parse_args(argv)
+    if args.arch not in GNN_ARCHS:
+        return _run_lm(args)
     if args.sampled:
         return _run_sampled(args)
 
@@ -380,6 +409,79 @@ def _run_sampled(args) -> dict:
           f"wall={res['wall_s']:.1f}s", flush=True)
     return dict(res, cfg=cfg, loader=loader, step_fn=step_fn,
                 init_params=init_params, stats=st, stream=stream)
+
+
+def _run_lm(args) -> dict:
+    """LM branch (the reference's :361-417): ``--reduced`` / ``--full``
+    config with seeded random weights on the device, the synthetic
+    Markov corpus at ``--global-batch`` x ``--seq-len``, the train step
+    over ``--n-micro`` micro-batches with parameters and moments updated
+    in place, the Trainer loop.  Returns ``{"ok", "cfg", "trainer",
+    "init_params", "history", "first_loss", "last_loss", "avg_step_s",
+    "wall_s", "doc"}`` (``init_params`` a host copy of the starting
+    parameters, for cross-checks)."""
+    import torch
+
+    from repro_torch.configs import get_arch
+    from repro_torch.data import PipelineConfig, TokenPipeline, make_lm_batch
+    from repro_torch.device import resolve_device
+    from repro_torch.models.lm import LMModel, make_train_step, train_config
+    from repro_torch.obs import MetricsRegistry, SpanTracer
+    from repro_torch.optim.adamw import (AdamWConfig, adamw_init,
+                                         cosine_schedule)
+    from repro_torch.runtime.checkpoint import _leaves, _rebuild
+
+    device = resolve_device(args.device)      # raises without a card
+    registry = MetricsRegistry()
+    tracer = SpanTracer(registry)
+    arch = get_arch(args.arch)
+    cfg = arch.reduced() if args.reduced else arch.full()
+    t0 = time.time()
+    model = LMModel.create(cfg, seed=args.seed, device=device)
+    print(f"[train] arch={cfg.name} params={model.n_params:,} "
+          f"dtype={str(cfg.dtype).replace('torch.', '')} device={device} "
+          f"global_batch={args.global_batch} seq_len={args.seq_len} "
+          f"n_micro={args.n_micro} remat={cfg.remat} "
+          f"(init {time.time() - t0:.1f}s)", flush=True)
+    if train_config(cfg) is not cfg:
+        print("[train] Mamba slots train on the chunked path "
+              "(fused_scan='off'): the scan kernel has no backward",
+              flush=True)
+    opt = AdamWConfig(lr=args.lr,
+                      schedule=cosine_schedule(args.warmup, args.steps))
+    fns = make_train_step(cfg, opt, n_micro=args.n_micro)
+    pipe = TokenPipeline(PipelineConfig(
+        vocab=cfg.vocab, seq_len=args.seq_len,
+        global_batch=args.global_batch, seed=args.seed))
+
+    def batch_fn(step: int):
+        b = make_lm_batch(pipe.batch(step), frontend=cfg.frontend,
+                          d_model=cfg.d_model, mrope=(cfg.rope == "mrope"),
+                          seed=step)
+        return {k: torch.as_tensor(v, device=device) for k, v in b.items()}
+
+    def step_fn(state, batch):
+        params, opt_state = state
+        params, opt_state, metrics = fns.step(params, opt_state, batch)
+        return (params, opt_state), metrics
+
+    # the parameter shapes and the batch stream depend on these flags
+    ckpt_dir = args.ckpt_dir or os.path.join(
+        tempfile.gettempdir(),
+        f"repro_torch_train_{args.arch}_{'reduced' if args.reduced else 'full'}"
+        f"_b{args.global_batch}_s{args.seq_len}_{args.seed}")
+    init_params = _rebuild(model.params, iter(
+        [t.detach().to("cpu", copy=True) for t in _leaves(model.params)]))
+    res = _train(args, step_fn, batch_fn,
+                 (model.params, adamw_init(model.params)), ckpt_dir,
+                 registry, tracer)
+    tokens = args.global_batch * args.seq_len
+    print(f"[train] arch={cfg.name} steps={len(res['history'])} "
+          f"first_loss={res['first_loss']:.4f} "
+          f"last_loss={res['last_loss']:.4f} wall={res['wall_s']:.1f}s "
+          f"avg_step={res['avg_step_s'] * 1e3:.1f}ms "
+          f"tok_per_s={tokens / res['avg_step_s']:.0f}", flush=True)
+    return dict(res, cfg=cfg, init_params=init_params)
 
 
 def main(argv=None) -> int:

@@ -237,7 +237,7 @@ def blockwise_attention(q, k, v, *, q_pos, kv_pos, window=None, softcap=None,
     """q (B,S,H,hd), k/v (B,S,K,hd) -> (B,S,H,hd) float32.
 
     q_pos / kv_pos: (S,) absolute positions (causality = kv_pos <= q_pos).
-    ``causal_mode``: ``"flash"`` (`repro_torch.nn.flash`, forward only),
+    ``causal_mode``: ``"flash"`` (`repro_torch.nn.flash`, O(S) memory),
     ``"masked_full"`` (the whole block grid with masking; windowed layers
     take a static band of keys per query chunk) or ``"triangle"`` (only
     the causal half of the block grid)."""
@@ -291,7 +291,7 @@ def blockwise_attention(q, k, v, *, q_pos, kv_pos, window=None, softcap=None,
 # ---------------------------------------------------------------------------
 
 def init_cache(batch: int, ap: AttnParams, max_seq: int,
-               dtype: torch.dtype = torch.bfloat16, *, device="cpu") -> dict:
+               dtype: torch.dtype = torch.bfloat16, *, device) -> dict:
     """One attention layer's cache; a windowed layer's is a ring buffer
     ``min(window, max_seq)`` wide."""
     S = min(ap.window, max_seq) if ap.window is not None else max_seq

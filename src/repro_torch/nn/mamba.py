@@ -12,7 +12,10 @@ Prefill runs one of two paths, as in the reference:
     PyTorch, the discretize + scan core in the CUDA kernel
     (``backend="cuda"``, CUDA tensors only) or its plain version
     (``backend="torch"``, any device).  Inference only: there is no
-    backward, as the reference's Pallas path has none.
+    backward, as the reference's Pallas path has none, so under autograd
+    (grad mode on, and ``x`` or a parameter requiring a gradient) it
+    raises `NotImplementedError` on either backend; training rewrites
+    the config to the chunked path (`models.lm.make_train_step`).
   * the chunked path (``fused_scan="off"``): a loop over ``chunk``-token
     slices carrying the SSM state and the conv tail, with an associative
     scan inside each chunk (the reference's `lax.scan` over chunks).  It
@@ -38,7 +41,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels.ref import softplus
-from repro_torch.kernels.selective_scan import (selective_scan,
+from repro_torch.kernels.selective_scan import (refuse_grad, selective_scan,
                                                 selective_scan_plain)
 from repro_torch.nn.layers import Initializer
 
@@ -57,7 +60,7 @@ class MambaParams:
     XLA chunked path; only ``"auto"`` on a TPU or ``"interpret"`` runs its
     Pallas kernel); the port defaults to ``"on"``, so every port config,
     `falcon_mamba_7b.full()` included, prefills through the scan kernel.
-    ``"off"`` keeps the chunked plain path."""
+    ``"off"`` keeps the chunked plain path, the one training takes."""
 
     d_inner: int
     d_state: int = 16
@@ -159,6 +162,7 @@ def mamba_forward(p: dict, x: torch.Tensor, mp: MambaParams,
     ``min(chunk, S)``; its live memory is O(B * chunk * d_inner * N)."""
     _check_backend(backend)
     if mp.fused_scan == "on" and h0 is None and not return_state:
+        refuse_grad(x, *p.values())
         if backend == "cuda" and not x.is_cuda:
             raise ValueError("backend='cuda' runs the scan kernel and needs "
                              "CUDA tensors; use backend='torch' on the CPU")
@@ -225,8 +229,7 @@ def _mamba_forward_fused(p: dict, x: torch.Tensor, mp: MambaParams, *,
 
 
 def init_mamba_state(batch: int, d_model: int, mp: MambaParams,
-                     dtype: torch.dtype = torch.float32,
-                     device="cpu") -> dict:
+                     dtype: torch.dtype = torch.float32, *, device) -> dict:
     return {
         "h": torch.zeros((batch, mp.d_inner, mp.d_state), dtype=torch.float32,
                          device=device),

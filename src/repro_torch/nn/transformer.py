@@ -7,8 +7,8 @@ Port of `src/repro/nn/transformer.py`: `LayerSpec` / `LMConfig` (:51-136,
 every field, the training-only ones too), `lm_init` (:192), `param_count`,
 `_sinusoidal` (:228), `_slot_forward` (:236), `_embed_in` (:302),
 `_unembed_w` (:314), `lm_forward` (:320), `init_lm_cache` (:397),
-`lm_prefill` (:415), `_slot_decode` (:432) and `lm_decode_step` (:457).
-`lm_loss` comes with the LM training slice (ROADMAP Queue 1 item 9b).
+`lm_prefill` (:415), `_slot_decode` (:432) and `lm_decode_step` (:457),
+and the training half: `_maybe_remat` (:293) and `lm_loss` (:376).
 
 Layout.  The reference stacks every slot's weights on a leading
 ``(repeats,)`` axis and runs one `lax.scan` over it; the port keeps one
@@ -24,15 +24,25 @@ layout: a tuple over period slots, an attention slot's ``(k, v)`` /
 kernel (CUDA tensors only), ``"torch"`` its plain version.  Attention
 and MoE run in plain PyTorch on either backend: the reference computes
 them outside any Pallas kernel.
+
+Remat.  The reference checkpoints its scan body, one repeat of the
+period; the port wraps the same unit in `torch.utils.checkpoint`
+(non-reentrant) when grad mode is on: ``remat="full"`` saves only the
+repeat's input, ``"dots"`` also the outputs of the matrix products with
+no batch dimensions (``aten.mm`` / ``aten.addmm``, the analogue of
+``dots_with_no_batch_dims_saveable``), ``"none"`` checkpoints nothing.
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from typing import Optional
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from repro_torch.nn.attention import (AttnParams, attention_decode,
                                       attention_forward, attention_init,
@@ -41,12 +51,13 @@ from repro_torch.nn.layers import (Initializer, apply_glu_mlp,
                                    apply_layernorm, apply_mlp, apply_rmsnorm,
                                    gelu_tanh, glu_mlp, layernorm, mlp,
                                    rmsnorm)
+from repro_torch.nn.losses import chunked_softmax_xent
 from repro_torch.nn.mamba import (MambaParams, init_mamba_state, mamba_decode,
                                   mamba_forward, mamba_init)
 from repro_torch.nn.moe import MoEParams, moe_apply, moe_init
 
-__all__ = ["LayerSpec", "LMConfig", "lm_init", "lm_forward", "lm_prefill",
-           "lm_decode_step", "init_lm_cache", "param_count"]
+__all__ = ["LayerSpec", "LMConfig", "lm_init", "lm_forward", "lm_loss",
+           "lm_prefill", "lm_decode_step", "init_lm_cache", "param_count"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -93,7 +104,7 @@ class LMConfig:
     embed_scale: float = 1.0      # gemma: sqrt(d_model)
     tie_embeddings: bool = False
     frontend: str = "tokens"      # "tokens" | "embeds" (audio/vlm stubs)
-    # training details (read by the LM training slice)
+    # training details
     aux_loss_weight: float = 0.01
     z_loss: float = 1e-4
     dtype: torch.dtype = torch.bfloat16
@@ -250,6 +261,41 @@ def _slot_forward(cfg: LMConfig, spec: LayerSpec, bp: dict, x: torch.Tensor,
     return x, aux, kv
 
 
+def _period_forward(cfg: LMConfig, slots: tuple, x: torch.Tensor,
+                    pos: torch.Tensor, *, backend: str):
+    """One repeat of the period, the unit remat checkpoints.  Returns
+    (x, aux)."""
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    for spec, bp in zip(cfg.period, slots):
+        x, a, _ = _slot_forward(cfg, spec, bp, x, pos, backend=backend)
+        if a is not None:
+            aux = aux + a
+    return x, aux
+
+
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    """Save the products with no batch dimensions, recompute the rest."""
+    return (CheckpointPolicy.MUST_SAVE if op in _DOTS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _maybe_remat(cfg: LMConfig, fn):
+    if cfg.remat == "none":
+        return fn
+    if cfg.remat == "full":
+        kw = {}
+    elif cfg.remat == "dots":
+        kw = {"context_fn": functools.partial(
+            create_selective_checkpoint_contexts, _dots_policy)}
+    else:
+        raise ValueError(f"remat must be 'full', 'dots' or 'none', got "
+                         f"{cfg.remat!r}")
+    return functools.partial(checkpoint, fn, use_reentrant=False, **kw)
+
+
 def _embed_in(cfg: LMConfig, params: dict, inputs: torch.Tensor,
               pos: torch.Tensor) -> torch.Tensor:
     if cfg.frontend == "tokens":
@@ -283,24 +329,49 @@ def lm_forward(params: dict, cfg: LMConfig, inputs: torch.Tensor,
     """Run the trunk.  Returns (hidden (B,S,d), aux_loss, kvs | None).
 
     ``inputs``: tokens (B,S) int for ``frontend="tokens"``, else embeds
-    (B,S,d).  ``pos``: (B,S) int, or (B,3,S) for mrope."""
+    (B,S,d).  ``pos``: (B,S) int, or (B,3,S) for mrope.  Without
+    ``collect_kv`` and under grad mode, each repeat of the period is
+    checkpointed as ``cfg.remat`` says."""
     x = _embed_in(cfg, params, inputs, pos)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    if not collect_kv:
+        body = functools.partial(_period_forward, cfg, backend=backend)
+        if torch.is_grad_enabled():
+            body = _maybe_remat(cfg, body)
+        for slots in params["blocks"]:
+            x, a = body(slots, x, pos)
+            aux = aux + a
+        return _apply_norm(cfg, params["final_norm"], x), aux, None
     per_slot = [[] for _ in cfg.period]
     for slots in params["blocks"]:
         for s, (spec, bp) in enumerate(zip(cfg.period, slots)):
             x, a, kv = _slot_forward(cfg, spec, bp, x, pos, backend=backend)
             if a is not None:
                 aux = aux + a
-            if collect_kv:
-                per_slot[s].append(kv)
+            per_slot[s].append(kv)
     x = _apply_norm(cfg, params["final_norm"], x)
-    if not collect_kv:
-        return x, aux, None
     kvs = tuple(None if spec.kind != "attn" else
                 tuple(torch.stack(leaf) for leaf in zip(*got))
                 for spec, got in zip(cfg.period, per_slot))
     return x, aux, kvs
+
+
+def lm_loss(params: dict, cfg: LMConfig, batch: dict):
+    """batch: {"tokens"|"embeds", "labels", "pos", optional "mask"}.
+
+    The trunk (remat per `_maybe_remat` under grad mode), then the
+    chunked cross-entropy of the final hidden states against the
+    unembedding, plus ``aux_loss_weight`` times the MoE load-balance
+    loss.  Returns (loss, metrics): ``xent``, ``accuracy``, ``tokens``,
+    ``aux_loss``, ``loss``."""
+    inputs = batch["tokens"] if cfg.frontend == "tokens" else batch["embeds"]
+    hidden, aux, _ = lm_forward(params, cfg, inputs, batch["pos"])
+    xent, metrics = chunked_softmax_xent(
+        hidden, _unembed_w(cfg, params), batch["labels"],
+        mask=batch.get("mask"), chunk=cfg.loss_chunk, z_loss=cfg.z_loss,
+        logit_softcap=cfg.final_softcap)
+    loss = xent + cfg.aux_loss_weight * aux
+    return loss, dict(metrics, aux_loss=aux, loss=loss)
 
 
 def lm_prefill(params: dict, cfg: LMConfig, inputs: torch.Tensor,

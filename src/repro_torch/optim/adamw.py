@@ -2,28 +2,34 @@
 
 Port of `src/repro/optim/adamw.py`, with its semantics: float32 moments,
 clipping by the global norm BEFORE the moments, bias correction, and
-decoupled weight decay on matrices only (``ndim >= 2``).  Parameters,
-gradients and moments are ``dict[str, torch.Tensor]`` (the model's
-parameter dict); leaves are visited in sorted key order, the order
-`jax.tree_util` flattens a dict in, so sums match the reference's order.
-The update returns new tensors and leaves its inputs untouched, as the
-reference's does.
+decoupled weight decay on matrices only (``ndim >= 2``; a caller whose
+leaves differ in rank from the reference's passes ``decay``).  Parameters,
+gradients and moments are trees: the GNN's flat ``dict[str, Tensor]`` or
+the LM's nested ``{"embed", "blocks": [tuple of dicts], ...}``.  Leaves
+are visited in `jax.tree_util`'s order (dict keys sorted, tuples and
+lists in order; `runtime.checkpoint._leaves`), so sums match the
+reference's order.  `adamw_update` returns new tensors and leaves its
+inputs untouched, as the reference's does; `adamw_update_` writes the new
+parameters and moments into the given ones, leaf by leaf (the analogue of
+the reference's donated train-step buffers), with the same arithmetic.
 """
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Callable, Dict, NamedTuple, Optional, Union
+from typing import Any, Callable, NamedTuple, Optional, Union
 
 import numpy as np
 import torch
 
-Tree = Dict[str, torch.Tensor]
+from repro_torch.runtime.checkpoint import _leaves, _rebuild
+
+Tree = Any
 Step = Union[int, torch.Tensor]
 
 __all__ = ["AdamWConfig", "OptState", "adamw_init", "adamw_update",
-           "global_norm", "clip_by_global_norm", "cosine_schedule",
-           "linear_warmup", "opt_state_from_jax"]
+           "adamw_update_", "global_norm", "clip_by_global_norm",
+           "cosine_schedule", "linear_warmup", "opt_state_from_jax"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -43,20 +49,29 @@ class OptState(NamedTuple):
     v: Tree              # second moment (f32)
 
 
+def _tree_map(fn, tree: Tree, *rest: Tree) -> Tree:
+    """``fn`` over the leaves of ``tree`` and the matching leaves of
+    ``rest`` (same structure), as a tree shaped like ``tree``."""
+    return _rebuild(tree, iter([fn(*ls) for ls in zip(
+        _leaves(tree), *(_leaves(r) for r in rest))]))
+
+
 def adamw_init(params: Tree) -> OptState:
     """Zero moments beside each parameter, step 0 on the parameters'
     device."""
-    dev = next(iter(params.values())).device if params else None
-    zeros = {k: torch.zeros(p.shape, dtype=torch.float32, device=p.device)
-             for k, p in params.items()}
+    leaves = _leaves(params)
+    dev = leaves[0].device if leaves else None
+    zeros = lambda p: torch.zeros(p.shape, dtype=torch.float32,
+                                  device=p.device)
     return OptState(step=torch.zeros((), dtype=torch.int32, device=dev),
-                    m=zeros, v={k: z.clone() for k, z in zeros.items()})
+                    m=_tree_map(zeros, params), v=_tree_map(zeros, params))
 
 
 def opt_state_from_jax(state, device) -> OptState:
-    """Carry a reference ``OptState(step, m, v)`` across (anything with
-    those fields whose leaves `np.asarray` takes): float32 moments and an
-    int32 step on ``device``, under the same keys."""
+    """Carry a reference ``OptState(step, m, v)`` of a flat parameter dict
+    across (anything with those fields whose leaves `np.asarray` takes):
+    float32 moments and an int32 step on ``device``, under the same
+    keys."""
     def tree(t):
         return {k: torch.tensor(np.asarray(v, dtype=np.float32),
                                 device=device) for k, v in t.items()}
@@ -67,45 +82,83 @@ def opt_state_from_jax(state, device) -> OptState:
 
 def global_norm(tree: Tree) -> torch.Tensor:
     """sqrt of the sum of squares of every leaf, in float32."""
-    return torch.sqrt(sum(torch.sum(torch.square(tree[k].float()))
-                          for k in sorted(tree)))
+    return torch.sqrt(sum(torch.sum(torch.square(x.float()))
+                          for x in _leaves(tree)))
+
+
+def _clip_scale(gn: torch.Tensor, max_norm: float) -> torch.Tensor:
+    return torch.clamp(max_norm / torch.clamp(gn, min=1e-9), max=1.0)
 
 
 def clip_by_global_norm(grads: Tree, max_norm: float):
     """Scale every leaf by ``min(1, max_norm / norm)``; returns
     ``(clipped, norm)``."""
     gn = global_norm(grads)
-    scale = torch.clamp(max_norm / torch.clamp(gn, min=1e-9), max=1.0)
-    return {k: g * scale.to(g.dtype) for k, g in grads.items()}, gn
+    scale = _clip_scale(gn, max_norm)
+    return _tree_map(lambda g: g * scale.to(g.dtype), grads), gn
 
 
-def adamw_update(cfg: AdamWConfig, grads: Tree, state: OptState,
-                 params: Tree):
-    """One AdamW step.  Returns ``(new_params, new_state, metrics)``;
-    metrics ``grad_norm`` (before clipping) and ``lr`` are 0-d tensors."""
-    g32 = {k: g.float() for k, g in grads.items()}
-    if cfg.grad_clip is not None:
-        g32, gn = clip_by_global_norm(g32, cfg.grad_clip)
-    else:
-        gn = global_norm(g32)
+def _update(cfg: AdamWConfig, grads: Tree, state: OptState, params: Tree,
+            decay: Optional[Tree], in_place: bool):
+    """One AdamW step, leaf by leaf: each gradient leaf is cast to float32
+    and clipped as it is used, so no float32 copy of the whole gradient
+    tree exists."""
+    gn = global_norm(grads)
+    scale = _clip_scale(gn, cfg.grad_clip) if cfg.grad_clip is not None \
+        else None
     step = state.step + 1
     sf = step.float()
     lr = cfg.lr * (cfg.schedule(step) if cfg.schedule is not None
                    else torch.ones((), device=sf.device))
     c1 = 1.0 - cfg.b1 ** sf
     c2 = 1.0 - cfg.b2 ** sf
-    new_p, new_m, new_v = {}, {}, {}
-    for k in sorted(params):
-        p, g = params[k], g32[k]
-        m = cfg.b1 * state.m[k] + (1 - cfg.b1) * g
-        v = cfg.b2 * state.v[k] + (1 - cfg.b2) * g * g
-        delta = (m / c1) / (torch.sqrt(v / c2) + cfg.eps)
-        if p.ndim >= 2:          # decoupled weight decay on matrices only
+    p_leaves = _leaves(params)
+    decays = ([p.ndim >= 2 for p in p_leaves] if decay is None
+              else _leaves(decay))
+    new_p, new_m, new_v = [], [], []
+    for p, g, m, v, dec in zip(p_leaves, _leaves(grads), _leaves(state.m),
+                               _leaves(state.v), decays):
+        g = g.float()
+        if scale is not None:
+            g = g * scale
+        m2 = cfg.b1 * m + (1 - cfg.b1) * g
+        v2 = cfg.b2 * v + (1 - cfg.b2) * g * g
+        delta = (m2 / c1) / (torch.sqrt(v2 / c2) + cfg.eps)
+        if dec:                  # decoupled weight decay
             delta = delta + cfg.weight_decay * p.float()
-        new_p[k] = (p.float() - lr * delta).to(p.dtype)
-        new_m[k], new_v[k] = m, v
-    return (new_p, OptState(step=step, m=new_m, v=new_v),
-            {"grad_norm": gn, "lr": lr})
+        p2 = (p.float() - lr * delta).to(p.dtype)
+        if in_place:
+            p.copy_(p2)
+            m.copy_(m2)
+            v.copy_(v2)
+        else:
+            new_p.append(p2)
+            new_m.append(m2)
+            new_v.append(v2)
+    metrics = {"grad_norm": gn, "lr": lr}
+    if in_place:
+        return params, OptState(step=step, m=state.m, v=state.v), metrics
+    return (_rebuild(params, iter(new_p)),
+            OptState(step=step, m=_rebuild(params, iter(new_m)),
+                     v=_rebuild(params, iter(new_v))), metrics)
+
+
+def adamw_update(cfg: AdamWConfig, grads: Tree, state: OptState,
+                 params: Tree, *, decay: Optional[Tree] = None):
+    """One AdamW step.  Returns ``(new_params, new_state, metrics)``;
+    metrics ``grad_norm`` (before clipping) and ``lr`` are 0-d tensors.
+    ``decay``: a tree of bools shaped like ``params`` saying which leaves
+    take weight decay (default: ``ndim >= 2``)."""
+    return _update(cfg, grads, state, params, decay, in_place=False)
+
+
+@torch.no_grad()
+def adamw_update_(cfg: AdamWConfig, grads: Tree, state: OptState,
+                  params: Tree, *, decay: Optional[Tree] = None):
+    """`adamw_update` written into ``params`` and ``state``'s moments in
+    place; returns ``(params, new_state, metrics)`` with the same
+    parameter and moment tensors (the step counter is a new tensor)."""
+    return _update(cfg, grads, state, params, decay, in_place=True)
 
 
 def _as_f32(step: Step) -> torch.Tensor:

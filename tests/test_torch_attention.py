@@ -125,18 +125,6 @@ def test_blockwise_attention_refuses_ragged_chunks_and_unknown_modes():
                                    causal_mode="dense")
 
 
-def test_flash_attention_refuses_gradients():
-    """The flash backward comes with the LM training slice: an input that
-    requires a gradient raises; under `torch.no_grad` the same call runs."""
-    q = torch.randn(1, 16, 2, 8, requires_grad=True)
-    pos = torch.arange(16)
-    with pytest.raises(NotImplementedError, match="item 9b"):
-        t_flash.flash_attention(q, q, q, q_pos=pos, kv_pos=pos)
-    with torch.no_grad():
-        out = t_flash.flash_attention(q, q, q, q_pos=pos, kv_pos=pos)
-    assert out.shape == q.shape and bool(torch.isfinite(out).all())
-
-
 @pytest.mark.parametrize("window", [None, 8])
 def test_flash_forward_and_lse_match_reference(window):
     rng = np.random.default_rng(3)
@@ -150,6 +138,72 @@ def test_flash_forward_and_lse_match_reference(window):
     g_out, g_lse = t_flash._fwd_impl(tc, *(torch.from_numpy(a) for a in
                                            (q, k, v, pos, pos)))
     assert _err(g_out, w_out) <= TOL and _err(g_lse, w_lse) <= TOL
+
+
+FLASH_GRAD_CASES = [   # (window, softcap, q_chunk, kv_chunk)
+    (None, None, 16, 16), (None, 20.0, 16, 32), (8, None, 16, 16),
+    (8, 20.0, 32, 16), (40, None, 16, 16)]
+
+
+def _flash_grad_inputs(seed=5, B=2, S=64, H=2, hd=16):
+    rng = np.random.default_rng(seed)
+    return [_np(rng, B, S, H, hd) for _ in range(4)], np.arange(
+        S, dtype=np.int32)
+
+
+@pytest.mark.parametrize("window,softcap,qc,kc", FLASH_GRAD_CASES)
+def test_flash_backward_matches_reference_vjp(window, softcap, qc, kc):
+    """Cotangents of q, k, v against the reference's custom VJP, causal,
+    windowed (window 8 takes the banded forward at S 64) and softcapped,
+    over several query / key chunks."""
+    (q, k, v, g), pos = _flash_grad_inputs()
+    kw = dict(scale=0.25, softcap=softcap, window=window, q_chunk=qc,
+              kv_chunk=kc)
+    jpos = jnp.asarray(pos)
+    out, vjp = jax.vjp(lambda a, b, c: j_flash.flash_attention(
+        a, b, c, q_pos=jpos, kv_pos=jpos, **kw),
+        *(jnp.asarray(a) for a in (q, k, v)))
+    want = vjp(jnp.asarray(g))
+    tq, tk, tv = (torch.from_numpy(a).requires_grad_() for a in (q, k, v))
+    tpos = torch.from_numpy(pos)
+    got_out = t_flash.flash_attention(tq, tk, tv, q_pos=tpos, kv_pos=tpos,
+                                      **kw)
+    assert _nerr(got_out, out) <= TOL
+    got = torch.autograd.grad(got_out, (tq, tk, tv), torch.from_numpy(g))
+    for a, b in zip(got, want):
+        assert a.dtype == torch.float32 and _nerr(a, b) <= TOL
+
+
+@pytest.mark.parametrize("window,softcap,qc,kc", FLASH_GRAD_CASES)
+def test_flash_backward_matches_masked_full_autograd(window, softcap, qc,
+                                                     kc):
+    """The hand-written backward against plain autograd through
+    ``causal_mode="masked_full"`` (GQA: k / v with half the heads)."""
+    (q, k, v, g), pos = _flash_grad_inputs(seed=6, H=4)
+    k, v = k[:, :, :2], v[:, :, :2]
+    tpos = torch.from_numpy(pos)
+    grads = []
+    for mode in ("flash", "masked_full"):
+        ins = [torch.from_numpy(a).requires_grad_() for a in (q, k, v)]
+        out = t_attn.blockwise_attention(
+            *ins, q_pos=tpos, kv_pos=tpos, window=window, softcap=softcap,
+            scale=0.25, q_chunk=qc, kv_chunk=kc, causal_mode=mode)
+        grads.append(torch.autograd.grad(out, ins, torch.from_numpy(g)))
+    for a, b in zip(*grads):
+        assert _nerr(a, b.numpy()) <= TOL
+
+
+def test_flash_backward_returns_the_inputs_dtypes():
+    (q, k, v, g), pos = _flash_grad_inputs(seed=7)
+    ins = [torch.from_numpy(a).to(torch.bfloat16).requires_grad_()
+           for a in (q, k, v)]
+    tpos = torch.from_numpy(pos)
+    out = t_flash.flash_attention(*ins, q_pos=tpos, kv_pos=tpos,
+                                  q_chunk=16, kv_chunk=16)
+    assert out.dtype == torch.float32
+    got = torch.autograd.grad(out, ins, torch.from_numpy(g))
+    assert all(a.dtype == torch.bfloat16 and bool(torch.isfinite(a).all())
+               for a in got)
 
 
 @pytest.mark.parametrize("layout", [
@@ -220,7 +274,8 @@ def test_attention_decode_over_80_steps(window):
     pj, pt = _params(ap_j, 32, seed=8)
     steps = 80
     jc = j_attn.init_cache(2, ap_j, steps, dtype=jnp.float32)
-    tc = t_attn.init_cache(2, ap_t, steps, dtype=torch.float32)
+    tc = t_attn.init_cache(2, ap_t, steps, dtype=torch.float32,
+                           device="cpu")
     assert tc["k"].shape == jc["k"].shape == \
         (2, 32 if window else steps, 2, 16)
     j_step = jax.jit(lambda p, x, c, t, pos: j_attn.attention_decode(

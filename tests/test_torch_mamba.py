@@ -253,7 +253,8 @@ def test_mamba_forward_rejects_ragged_chunks_on_chunked_path():
 def test_mamba_decode_matches_reference_over_sequence():
     mp, jp, tp, x = _block(dict(d_inner=32, d_state=8, chunk=8), seed=5)
     j_st = j_mamba.init_mamba_state(2, D_MODEL, mp, dtype=jnp.float32)
-    t_st = t_mamba.init_mamba_state(2, D_MODEL, _port_mp(mp, "on"))
+    t_st = t_mamba.init_mamba_state(2, D_MODEL, _port_mp(mp, "on"),
+                                    device="cpu")
     for t in range(x.shape[1]):
         j_y, j_st = j_mamba.mamba_decode(jp, jnp.asarray(x[:, t:t + 1]),
                                          j_st, mp)
@@ -273,7 +274,7 @@ def test_mamba_prefill_matches_decode_recurrence():
     pmp = _port_mp(mp, "on")
     full = t_mamba.mamba_forward(tp, torch.from_numpy(x), pmp,
                                  backend="torch")
-    st = t_mamba.init_mamba_state(2, D_MODEL, pmp)
+    st = t_mamba.init_mamba_state(2, D_MODEL, pmp, device="cpu")
     steps = []
     for t in range(x.shape[1]):
         y, st = t_mamba.mamba_decode(tp, torch.from_numpy(x[:, t:t + 1]),

@@ -354,7 +354,7 @@ def test_driver_fail_at_reproduces_clean_run(tmp_path):
     (["--arch", "gcn", "--sampled", "--shards", "2"], "Queue 1, item 5"),
     (["--arch", "gcn", "--stream-deltas", "2"], "requires --sampled"),
     (["--arch", "gcn", "--shards", "2"], "Queue 1, item 5"),
-    (["--arch", "mamba2-130m"], "LM slices"),
+    (["--arch", "mamba2-130m"], "unknown arch"),
 ])
 def test_driver_refuses_unported_paths(flags, msg, capsys):
     with pytest.raises(SystemExit):
