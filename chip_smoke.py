@@ -235,9 +235,43 @@ Phases, each timed, any failure exits non-zero before the result line:
      against the same step on the CPU: loss, gradient norm, moments and
      new parameters within 1e-4 (a parameter whose gradient is within
      1e-4 of zero may part by 2 lr: Adam's first step is sign(g) lr).
+  11. advisor — the advisor loop taken to the caller's node order and
+     the host half of graph sharding, on the aggregation kernels: (a)
+     ``advise(reorder="on")`` on the full reddit replica (GIN, in-dim 602,
+     hidden 16, ``tune_iters`` 6; phase 2's raw graph when it ran) and
+     `PlanExecutor.aggregate_original_order` on seeded float32 features
+     (232,965 x 602), on the plan's variant and on ``direct`` at the same
+     knobs (unless `config_infeasibility` rejects it): against the plain
+     version and against a `plan_for` of the un-renumbered graph at the
+     same config, ``max|a-b| / (1 + sum|ev*x|) <= 1e-5``; tiles, slot
+     occupancy, window loads, distinct (node block, window) pairs and
+     device ms, renumbered vs not, are printed (§6.1 on the card, not
+     gated); (b) ``plan.shards(4)``: every shard's executor on the
+     renumbered features zero-padded to ``spec.padded_nodes`` rows, rows
+     ``[0, n_local)`` kept and reassembled, against the unsharded output
+     at 1e-5 in the same metric; `PlanShards.stats()` of the renumbered
+     and the un-renumbered split, each shard's device ms beside the
+     unsharded call's; (c) train-ready GCN and GAT (dynamic values, at
+     the GCN plan's config) plans of the pubmed replica at D 16, P in {2,
+     4}: each shard's forward and gradients taken alone, the feature
+     gradients summed and the edge gradients laid out by ``edge_ranges``,
+     against the unsharded executor at the reference's limits (1e-5
+     forward, 1e-4 feature gradient, 1e-3 (1 + max) edge gradient); (d)
+     `PlanShards.apply_delta` of 64 edges inserted and 32 deleted inside
+     shard 0's node range of the pubmed GCN split (A-hat values
+     re-derived): the parent patches, shard 0 is rebuilt, every clean
+     shard is the same `Plan` object or value-refreshed, and the split's
+     kernel outputs equal a fresh ``shards(4)``'s and the unsharded
+     parent's at 1e-5, host ms beside the fresh split; (e)
+     `quantize_int8` and 50 `compress_decompress` steps on (4096, 4096)
+     float32, card vs CPU bit for bit, the residual within half a
+     quantization step.  Each step of the main path runs with the launch
+     counts zeroed just before and read just after: exactly the expected
+     launches (one per executor call, 2 P for a sharded forward and
+     backward, P edge-gradient launches for GAT) and no plain call.
 
 
-``--phases`` runs a subset of phases 2-10 (names in `PHASES`); with no
+``--phases`` runs a subset of phases 2-11 (names in `PHASES`); with no
 arguments every phase runs.  The line before the last is the
 ``{"kernels": [...]}`` record (times are
 medians of 20 CUDA-event-timed calls after 3 warm-up calls, on warm
@@ -256,8 +290,9 @@ edge-gradient kernels, float32; the folded kernel's record adds
 ``launches_sampled``, its launches in phase 5b, and its error maxima
 cover phase 5b's block-shape checks, and ``launches_async`` its launches
 in phase 3b; the gather and folded records' error maxima cover phase
-5c's patched schedules, and ``launches_profile`` counts each aggregation
-kernel's launches in phase 8; the scan kernel's record is at the
+5c's patched schedules, ``launches_profile`` counts each aggregation
+kernel's launches in phase 8 and ``launches_advisor`` each aggregation
+and edge-gradient kernel's on phase 11's main path; the scan kernel's record is at the
 timed shape, its ``launches`` those of phase 7a's six prefills,
 ``launches_hybrid`` those of phase 9a's six,
 ``sfu_ms`` the exp/log term beside ``bound_ms``, and ``library_ms``
@@ -268,6 +303,7 @@ null: no one PyTorch call computes a selective scan); the last line is
 from __future__ import annotations
 
 import argparse
+import collections
 import json
 import os
 import statistics
@@ -329,15 +365,17 @@ def check(cond: bool, msg: str) -> None:
 
 
 def time_ms(fn, iters: int = 20, warmup: int = 3,
-            device_only: bool = False) -> float:
+            device_only: bool = False,
+            spin_cycles: int = SLEEP_CYCLES) -> float:
     """Median of ``iters`` CUDA-event-timed calls after ``warmup`` calls.
 
     By default the time between the events holds the host's work inside
     the call (the wrapper's checks, the launch).  ``device_only`` first
-    enqueues a spin of about 1 ms (``torch.cuda._sleep``), so the call is
-    queued before the start event runs: the time is the device's alone.
-    That holds while the host's work in a call stays inside the spin, so
-    the median host time of the calls must stay under half of it."""
+    enqueues a spin of ``spin_cycles`` (about 1 ms by default;
+    ``torch.cuda._sleep``), so the call is queued before the start event
+    runs: the time is the device's alone.  That holds while the host's
+    work in a call stays inside the spin, so the median host time of the
+    calls must stay under half of it."""
     import torch
     for _ in range(warmup):
         fn()
@@ -347,7 +385,7 @@ def time_ms(fn, iters: int = 20, warmup: int = 3,
         s = torch.cuda.Event(enable_timing=True)
         e = torch.cuda.Event(enable_timing=True)
         if device_only:
-            torch.cuda._sleep(SLEEP_CYCLES)
+            torch.cuda._sleep(spin_cycles)
         h0 = time.perf_counter()
         s.record()
         fn()
@@ -355,10 +393,11 @@ def time_ms(fn, iters: int = 20, warmup: int = 3,
         e.record()
         e.synchronize()
         times.append(s.elapsed_time(e))
+    spin_ms = SLEEP_MS * spin_cycles / SLEEP_CYCLES
     if device_only:
-        check(statistics.median(host) < SLEEP_MS / 2,
+        check(statistics.median(host) < spin_ms / 2,
               f"host work of {statistics.median(host):.3f} ms a call does "
-              f"not fit in half the {SLEEP_MS:.3f} ms spin: the device-only "
+              f"not fit in half the {spin_ms:.3f} ms spin: the device-only "
               f"time would hold device idle time")
     return statistics.median(times)
 
@@ -3258,17 +3297,436 @@ def lm_train(detail: dict) -> dict:
     return rec
 
 
+# phase 11: the advisor loop on full reddit, the host half of graph
+# sharding on the kernels, and int8 compression on the card
+ADVISOR_ARGS = dict(arch="gin", in_dim=602, hidden_dim=16, reorder="on",
+                    tune_iters=6, seed=0)
+ADVISOR_BACKEND = "cuda"     # the backend every part of phase 11 runs
+ADVISOR_SHARDS = 4
+SHARD_GRAD_COUNTS = (2, 4)
+# (c)'s limits, the reference's (`tests/test_shard.py`), the forward and
+# the feature gradient in the kernel checks' metric, ``/(1 + A)`` with A
+# the aggregation of the magnitudes: a shard whose first row is not on a
+# node-block boundary tiles its rows otherwise, so the kernel sums them in
+# another order; the edge gradient over ``(1 + max|g|)``
+SHARD_TOL = {"forward": 1e-5, "feat_grad": 1e-4, "edge_grad": 1e-3}
+EF_SHAPE, EF_STEPS = (4096, 4096), 50
+# an executor call at full reddit's width holds about 0.7 ms of host work
+# (the permutation gathers, padding, the wrapper's checks): the
+# device-only timings of phase 11 queue each call behind an 8 ms spin
+ADVISOR_SPIN = 8 * SLEEP_CYCLES
+
+
+def _scaled_err(a, b, mag) -> float:
+    """``max|a-b| / (1 + mag)``: the kernel checks' metric, ``mag`` the
+    aggregation of ``|ev * x|``."""
+    return float(((a.double() - b.double()).abs() / (1.0 + mag)).max())
+
+
+def _driven(fn, want: dict, what: str):
+    """Run one step of the phase's main path with the launch counts zeroed
+    just before and read just after; every count must be ``want``'s."""
+    _reset_counts()
+    out = fn()
+    counts = _all_counts()
+    _check_counts(counts, want, what)
+    return out, counts
+
+
+def _shard_outputs(shards, feat, backend):
+    """Every shard's executor on one device over the feature matrix
+    zero-padded to ``spec.padded_nodes`` rows (the all-gather's result):
+    (the local rows reassembled in the parent's order, the padded matrix,
+    the executors)."""
+    import torch
+
+    from repro_torch.core.aggregate import PlanExecutor
+    spec = shards.spec
+    full = torch.nn.functional.pad(feat, (0, 0, 0,
+                                          spec.padded_nodes - feat.shape[0]))
+    exs = [PlanExecutor(p, backend=backend, device=DEVICE)
+           for p in shards.plans]
+    outs = [ex(full)[:spec.n_local] for ex in exs]
+    return torch.cat(outs)[:spec.num_nodes], full, exs
+
+
+def _shard_grads(shards, feat, cot, backend, edge_values=None):
+    """Every shard's forward and gradients on one device, each shard's
+    loss ``<y_p, cot_p>`` over its own rows differentiated alone: (the
+    reassembled output, the per-shard feature gradients summed (what the
+    reference's psum-scatter returns), the edge gradients in
+    ``edge_ranges`` order or None, the summed gradient's padding rows)."""
+    import torch
+
+    from repro_torch.core.aggregate import PlanExecutor
+    spec, n = shards.spec, feat.shape[0]
+    pad = (0, 0, 0, spec.padded_nodes - n)
+    full = torch.nn.functional.pad(feat, pad).requires_grad_(True)
+    cot_full = torch.nn.functional.pad(cot, pad)
+    gsum = torch.zeros_like(full)
+    outs, egs = [], []
+    for p, (sub, (lo, hi)) in enumerate(zip(shards.plans,
+                                            shards.edge_ranges)):
+        ex = PlanExecutor(sub, backend=backend, device=DEVICE)
+        c_p = cot_full[p * spec.n_local:(p + 1) * spec.n_local]
+        if edge_values is None:
+            y = ex(full)[:spec.n_local]
+            (g,) = torch.autograd.grad((y * c_p).sum(), [full])
+        else:
+            e_p = edge_values[lo:hi].detach().requires_grad_(True)
+            y = ex.aggregate_edges(full, e_p)[:spec.n_local]
+            g, g_e = torch.autograd.grad((y * c_p).sum(), [full, e_p])
+            egs.append(g_e)
+        gsum += g
+        outs.append(y.detach())
+    return (torch.cat(outs)[:n], gsum[:n],
+            torch.cat(egs) if egs else None, gsum[n:])
+
+
+def _with_variant(plan, variant: str):
+    """The plan under another gather kernel: the partition does not depend
+    on the variant, so only the config's name changes."""
+    import dataclasses
+    return dataclasses.replace(plan, config=dataclasses.replace(
+        plan.config, variant=variant))
+
+
+def advisor(detail: dict) -> dict:
+    """Phase 11: (a) ``advise(reorder="on")`` on the full reddit replica
+    (GIN, in-dim 602) through `PlanExecutor.aggregate_original_order`,
+    against the plain version and an un-renumbered plan at the same
+    config; (b) its 4-way `Plan.shards` split, every shard on the kernel
+    over the padded feature matrix; (c) per-shard feature and edge
+    gradients on pubmed GCN / GAT plans, P in {2, 4}; (d)
+    `PlanShards.apply_delta` against a fresh split; (e) int8 error-feedback
+    compression, card vs CPU bit for bit."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch.core.advisor import advise, plan_for
+    from repro_torch.core.aggregate import PlanExecutor
+    from repro_torch.core.model import config_infeasibility
+    from repro_torch.core.partition import partition_stats
+    from repro_torch.graphs.datasets import make_dataset
+    from repro_torch.graphs.delta import GraphDelta
+    from repro_torch.kernels import group_aggregate as ga
+    from repro_torch.models.gnn import gcn_edge_values
+    from repro_torch.optim import compress_decompress, quantize_int8
+
+    be = ADVISOR_BACKEND
+    rec: dict = {"host_s": {}}
+    launches = collections.Counter()
+    host = rec["host_s"]
+
+    def kname(variant):
+        return ga.KERNEL_OF_VARIANT[variant]
+
+    # ---- (a) the advisor loop, taken to the caller's node order
+    t0 = time.perf_counter()
+    raw = (SHARED["reddit"][0] if "reddit" in SHARED
+           else make_dataset("reddit", max_dim=1)[0])
+    host["graph"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    plan = advise(raw, **ADVISOR_ARGS)
+    host["advise"] = time.perf_counter() - t0
+    cfg = plan.config
+    n, d = raw.num_nodes, ADVISOR_ARGS["in_dim"]
+    check(plan.perm is not None and not np.array_equal(
+        plan.perm, np.arange(n)), "advise(reorder='on') did not renumber")
+    t0 = time.perf_counter()
+    plan_raw = plan_for(raw, arch=ADVISOR_ARGS["arch"], in_dim=d,
+                        hidden_dim=ADVISOR_ARGS["hidden_dim"], config=cfg)
+    host["plan_for_raw"] = time.perf_counter() - t0
+    rows = {k: partition_stats(p.partition)
+            for k, p in (("renumbered", plan), ("raw", plan_raw))}
+    moved = float((plan.perm != np.arange(n)).mean())
+    log(f"advisor: reddit n={n} e={raw.num_edges}; advise "
+        f"{host['advise']:.1f}s (gs={cfg.gs} gpt={cfg.gpt} dt={cfg.dt} "
+        f"src_win={cfg.src_win} ont={cfg.ont} {cfg.variant}; "
+        f"{moved:.4f} of the nodes moved), "
+        f"un-renumbered plan_for {host['plan_for_raw']:.1f}s")
+    for k, r in rows.items():
+        log(f"  {k}: tiles={r['tiles']} occupancy={r['slot_occupancy']:.4f} "
+            f"feature-window loads={r['window_dmas']}")
+    variants = [cfg.variant]
+    if cfg.variant != "direct":
+        why = config_infeasibility(dataclasses.replace(cfg, variant="direct"))
+        if why is None:
+            variants.append("direct")
+        else:
+            log(f"  direct is infeasible at these knobs: {why}")
+    rec.update(config=list(cfg.astuple()), variant=cfg.variant,
+               variants=variants, moved_share=moved, schedules=rows)
+
+    gen = torch.Generator(device=DEVICE).manual_seed(0)
+    feat = torch.randn((n, d), generator=gen, device=DEVICE)
+    inv = torch.as_tensor(np.argsort(plan.perm), device=DEVICE)
+    feat_r = feat[inv]                      # in the plan's node order
+    # the magnitude scale: the plain version over |x| (unit GIN values)
+    mag = PlanExecutor(plan_raw, backend="torch", device=DEVICE)(
+        feat.abs()).double()
+    t0 = time.perf_counter()
+    shards = plan.shards(ADVISOR_SHARDS)
+    host["shards_renumbered"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    shards_raw = plan_raw.shards(ADVISOR_SHARDS)
+    host["shards_raw"] = time.perf_counter() - t0
+    rec["shard_stats"] = {"renumbered": shards.stats(),
+                          "raw": shards_raw.stats()}
+    log(f"  shards({ADVISOR_SHARDS}): renumbered "
+        f"{host['shards_renumbered']:.1f}s, raw {host['shards_raw']:.1f}s")
+    for k, st in rec["shard_stats"].items():
+        log(f"  {k} split: edges={st['edges_per_shard']} balance="
+            f"{st['edge_balance']:.4f} halo={st['halo_per_shard']} "
+            f"halo_frac={[round(x, 4) for x in st['halo_frac']]} "
+            f"tiles/shard={st['tiles_per_shard']}")
+    del shards_raw
+
+    rec["runs"] = []
+    for variant in variants:
+        p_v = plan if variant == cfg.variant else _with_variant(plan, variant)
+        r_v = (plan_raw if variant == cfg.variant
+               else _with_variant(plan_raw, variant))
+        ex = PlanExecutor(p_v, backend=be, device=DEVICE)
+        ex_raw = PlanExecutor(r_v, backend=be, device=DEVICE)
+        out, c = _driven(lambda: ex.aggregate_original_order(feat),
+                         {kname(variant): 1},
+                         f"aggregate_original_order {variant}")
+        launches.update(c)
+        plain = PlanExecutor(p_v, backend="torch", device=DEVICE) \
+            .aggregate_original_order(feat)
+        out_raw = ex_raw(feat)
+        check(out.shape == (n, d) and bool(torch.isfinite(out).all()),
+              f"{variant}: original-order output {tuple(out.shape)} or "
+              f"non-finite")
+        e_plain = _scaled_err(out, plain, mag)
+        e_raw = _scaled_err(out, out_raw, mag)
+        del plain, out_raw
+        run = {"variant": variant, "err_plain": e_plain, "err_raw": e_raw,
+               "ms_original_order": time_ms(
+                   lambda: ex.aggregate_original_order(feat),
+                   device_only=True, spin_cycles=ADVISOR_SPIN),
+               "ms_renumbered": time_ms(lambda: ex(feat_r), device_only=True,
+                                        spin_cycles=ADVISOR_SPIN),
+               "ms_raw": time_ms(lambda: ex_raw(feat), device_only=True,
+                                 spin_cycles=ADVISOR_SPIN)}
+        log(f"  (a) {variant}: vs plain {e_plain:.2e}, vs un-renumbered "
+            f"{e_raw:.2e}; device ms renumbered {run['ms_renumbered']:.4f} "
+            f"vs un-renumbered {run['ms_raw']:.4f} (original-order call "
+            f"{run['ms_original_order']:.4f})")
+        check(e_plain <= TOL, f"{variant}: original order vs plain "
+              f"{e_plain:.2e} > {TOL}")
+        check(e_raw <= TOL, f"{variant}: renumbered vs un-renumbered "
+              f"{e_raw:.2e} > {TOL}")
+        # ---- (b) the 4-way split, every shard on one card
+        sh = shards if variant == cfg.variant else dataclasses.replace(
+            shards, plans=[_with_variant(p, variant) for p in shards.plans])
+        ref = ex(feat_r)
+        (got, full, exs), c = _driven(
+            lambda: _shard_outputs(sh, feat_r, be),
+            {kname(variant): ADVISOR_SHARDS}, f"shards {variant}")
+        launches.update(c)
+        e_sh = _scaled_err(got, ref, mag[inv])
+        run["err_shards"] = e_sh
+        run["ms_shards"] = [time_ms(lambda e=e: e(full), device_only=True,
+                                    spin_cycles=ADVISOR_SPIN)
+                            for e in exs]
+        log(f"  (b) {variant}: {ADVISOR_SHARDS} shards reassembled vs "
+            f"unsharded {e_sh:.2e}; shard device ms "
+            f"{[round(x, 4) for x in run['ms_shards']]} sum "
+            f"{sum(run['ms_shards']):.4f} vs unsharded "
+            f"{run['ms_renumbered']:.4f}")
+        check(e_sh <= TOL, f"{variant}: sharded vs unsharded {e_sh:.2e} > "
+              f"{TOL}")
+        rec["runs"].append(run)
+        del ex, ex_raw, exs, out, ref, got, full, sh, p_v, r_v
+        torch.cuda.empty_cache()
+    del feat, feat_r, mag, shards, plan, plan_raw
+    torch.cuda.empty_cache()
+
+    # ---- (c) backward through the shards: a train-ready GCN plan of the
+    # pubmed replica and GAT's dynamic values under its config (D 16)
+    t0 = time.perf_counter()
+    raw_p = make_dataset("pubmed", max_dim=1)[0]
+    g_p, vals_p = gcn_edge_values(raw_p)
+    plan_c = plan_for(g_p, arch="gcn", in_dim=128, hidden_dim=16,
+                      edge_vals=vals_p, tune_iters=4, with_backward=True)
+    plan_d = plan_for(g_p, arch="gat", in_dim=16, hidden_dim=16,
+                      config=plan_c.config, with_backward=True)
+    host["pubmed_plans"] = time.perf_counter() - t0
+    var_c = plan_c.config.variant
+    n_p = g_p.num_nodes
+    gen = torch.Generator(device=DEVICE).manual_seed(1)
+    feat = torch.randn((n_p, 16), generator=gen, device=DEVICE)
+    cot = torch.randn((n_p, 16), generator=gen, device=DEVICE)
+    ev = torch.randn((g_p.num_edges,), generator=gen, device=DEVICE)
+    rec["grad"] = []
+    for name, p_c, dyn in (("gcn", plan_c, None), ("gat", plan_d, ev)):
+        single = PlanExecutor(p_c, backend=be, device=DEVICE)
+        f1 = feat.clone().requires_grad_(True)
+        if dyn is None:
+            y = single(f1)
+            (g_ref,) = torch.autograd.grad((y * cot).sum(), [f1])
+        else:
+            e1 = dyn.clone().requires_grad_(True)
+            y = single.aggregate_edges(f1, e1)
+            g_ref, ge_ref = torch.autograd.grad((y * cot).sum(), [f1, e1])
+        y = y.detach()
+        # magnitude scales: the plain version on |ev|, |x| and, through
+        # its own backward, |cot| (the transposed aggregation of |cot|)
+        plain = PlanExecutor(p_c, backend="torch", device=DEVICE)
+        f_abs = feat.abs().requires_grad_(True)
+        y_abs = (plain(f_abs) if dyn is None
+                 else plain.aggregate_edges(f_abs, dyn.abs()))
+        (g_abs,) = torch.autograd.grad((y_abs * cot.abs()).sum(), [f_abs])
+        mag_y, mag_g = y_abs.detach().double(), g_abs.double()
+        for P in SHARD_GRAD_COUNTS:
+            t0 = time.perf_counter()
+            sh = p_c.shards(P)
+            t_split = time.perf_counter() - t0
+            want = {kname(var_c): 2 * P}
+            if dyn is not None:
+                want[ga.EDGE_GRAD_KERNEL_OF_VARIANT[var_c]] = P
+            (out, g_sum, g_e, g_pad), c = _driven(
+                lambda: _shard_grads(sh, feat, cot, be, dyn), want,
+                f"{name} shards({P}) forward + backward")
+            launches.update(c)
+            r = {"arch": name, "shards": P, "variant": var_c,
+                 "split_s": t_split,
+                 "forward": _scaled_err(out, y, mag_y),
+                 "feat_grad": _scaled_err(g_sum, g_ref, mag_g),
+                 "edge_grad": (None if g_e is None else float(
+                     (g_e - ge_ref).abs().max()
+                     / (1.0 + ge_ref.abs().max()))),
+                 "forward_abs": float((out - y).abs().max()),
+                 "feat_grad_abs": float((g_sum - g_ref).abs().max()),
+                 "stats": sh.stats()}
+            rec["grad"].append(r)
+            log(f"  (c) {name} {var_c} shards({P}): forward "
+                f"{r['forward']:.2e} (abs {r['forward_abs']:.2e}), summed "
+                f"feature grads {r['feat_grad']:.2e} (abs "
+                f"{r['feat_grad_abs']:.2e})"
+                + ("" if g_e is None else
+                   f", edge grads {r['edge_grad']:.2e} of (1 + max)")
+                + f"; split {t_split:.2f}s")
+            check(not g_pad.any(), f"{name} shards({P}): gradient on the "
+                  f"padding rows")
+            for k, lim in SHARD_TOL.items():
+                if r[k] is not None:
+                    check(r[k] <= lim, f"{name} shards({P}): {k} "
+                          f"{r[k]:.2e} > {lim}")
+
+    # ---- (d) an incremental re-shard: edges inserted and deleted inside
+    # shard 0's node range of the pubmed GCN plan, A-hat values re-derived
+    sh = plan_c.shards(ADVISOR_SHARDS)
+    lo_n = sh.spec.n_local
+    rng = np.random.default_rng(0)
+    dst, src = raw_p.to_coo()
+    inside = np.flatnonzero((dst < lo_n) & (src < lo_n) & (dst != src))
+    pick = rng.choice(inside, min(32, len(inside)), replace=False)
+    delta = GraphDelta(add_src=rng.integers(0, lo_n, 64),
+                       add_dst=rng.integers(0, lo_n, 64),
+                       del_src=src[pick], del_dst=dst[pick])
+    t0 = time.perf_counter()
+    sh2 = sh.apply_delta(delta, edge_vals=ahat_values)
+    t_inc = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    fresh = sh2.parent.shards(ADVISOR_SHARDS)
+    t_fresh = time.perf_counter() - t0
+    st = sh2.parent.stats
+    check(st["incremental"] == "patched",
+          f"re-shard: the parent took the {st['incremental']} path")
+    check(sh2.plans[0] is not sh.plans[0], "re-shard: shard 0 not rebuilt")
+    kept = refreshed = 0
+    for a, b in zip(sh2.plans[1:], sh.plans[1:]):
+        if a is b:
+            kept += 1
+            continue
+        check(a.graph is b.graph and np.array_equal(a.partition.nbrs,
+                                                    b.partition.nbrs),
+              "re-shard: a clean shard was repartitioned")
+        refreshed += 1
+    g2 = sh2.parent.graph
+    gen = torch.Generator(device=DEVICE).manual_seed(2)
+    feat2 = torch.randn((g2.num_nodes, 16), generator=gen, device=DEVICE)
+    (got, _, _), c = _driven(lambda: _shard_outputs(sh2, feat2, be),
+                                {kname(var_c): ADVISOR_SHARDS},
+                                "updated split")
+    launches.update(c)
+    want_out = _shard_outputs(fresh, feat2, be)[0]
+    whole = PlanExecutor(sh2.parent, backend=be, device=DEVICE)(feat2)
+    mag = PlanExecutor(sh2.parent, backend="torch", device=DEVICE)(
+        feat2.abs()).double()
+    e_fresh, e_whole = (_scaled_err(got, want_out, mag),
+                        _scaled_err(got, whole, mag))
+    rec["reshard"] = {"delta_add": 64, "delta_del": int(len(pick)),
+                      "dirty_rows": st["dirty_rows"],
+                      "shards_kept": kept, "shards_value_refreshed": refreshed,
+                      "apply_delta_s": t_inc, "fresh_split_s": t_fresh,
+                      "err_fresh": e_fresh, "err_unsharded": e_whole}
+    log(f"  (d) re-shard of pubmed GCN: {st['dirty_rows']} dirty rows, "
+        f"{kept} shards kept, {refreshed} value-refreshed; host "
+        f"apply_delta {1e3 * t_inc:.1f}ms vs fresh split "
+        f"{1e3 * t_fresh:.1f}ms; vs fresh {e_fresh:.2e}, vs unsharded "
+        f"{e_whole:.2e}")
+    check(e_fresh <= TOL, f"re-shard vs fresh split {e_fresh:.2e} > {TOL}")
+    check(e_whole <= TOL, f"re-shard vs unsharded {e_whole:.2e} > {TOL}")
+    del sh, sh2, fresh, plan_c, plan_d, feat, cot, ev, feat2
+
+    # ---- (e) int8 error-feedback compression, card vs CPU bit for bit
+    def bits(t):
+        return t.detach().cpu().contiguous().view(torch.int32)
+
+    # inputs drawn on the card, copied to the CPU
+    gen = torch.Generator(device=DEVICE).manual_seed(3)
+    x = torch.randn(EF_SHAPE, generator=gen, device=DEVICE) * 3.0
+    q_c, s_c = quantize_int8(x.cpu())
+    q_d, s_d = quantize_int8(x)
+    check(torch.equal(q_c, q_d.cpu()) and torch.equal(bits(s_c), bits(s_d)),
+          "quantize_int8: card and CPU differ")
+    e_c = torch.zeros(EF_SHAPE)
+    e_d = e_c.to(DEVICE)
+    worst = 0.0
+    for step in range(EF_STEPS):
+        g = torch.randn(EF_SHAPE, generator=gen, device=DEVICE) * (
+            0.01 + step / 10)
+        g_c = g.cpu()
+        scale = float((g_c + e_c).abs().max()) / 127.0
+        gh_c, e_c = compress_decompress(g_c, e_c)
+        gh_d, e_d = compress_decompress(g, e_d)
+        check(torch.equal(bits(gh_c), bits(gh_d))
+              and torch.equal(bits(e_c), bits(e_d)),
+              f"compress_decompress step {step}: card and CPU differ")
+        # the residual stays within half a quantization step
+        worst = max(worst, float(e_c.abs().max()) / scale)
+    check(worst <= 0.51, f"error feedback: a residual of {worst:.3f} "
+          f"quantization steps")
+    rec["compression"] = {"shape": list(EF_SHAPE), "steps": EF_STEPS,
+                          "residual_steps": worst,
+                          "ms_card": time_ms(
+                              lambda: compress_decompress(gh_d, e_d))}
+    log(f"  (e) int8 EF: {EF_STEPS} steps of {EF_SHAPE} bit-equal card vs "
+        f"CPU, residual <= {worst:.3f} of a step; compress_decompress "
+        f"{rec['compression']['ms_card']:.3f}ms on the card")
+    rec["launches"] = dict(launches)
+    detail["advisor"] = rec
+    return rec
+
+
 PHASES = {"kernels": kernel_sweeps, "hub": hub_probe, "serving": serving,
           "async": async_serving, "edge-grad": edge_grad_checks,
           "training": training, "sampled": sampled_training,
           "dynamic": dynamic_plans, "profile": profiling, "scan": scan_checks,
-          "lm": lm_serving, "lm-hybrid": lm_hybrid, "lm-train": lm_train}
+          "lm": lm_serving, "lm-hybrid": lm_hybrid, "lm-train": lm_train,
+          "advisor": advisor}
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--phases", default=",".join(PHASES),
-                    help="comma-separated subset of phases 2-10 to run "
+                    help="comma-separated subset of phases 2-11 to run "
                          f"({', '.join(PHASES)}; default all); the device "
                          "phase always runs")
     ap.add_argument("--scan-variants", default="",
@@ -3371,7 +3829,9 @@ def main(argv=None) -> int:
             **({"launches_async": done["async"]["launches"]}
                if variant == "folded" and "async" in done else {}),
             **({"launches_profile": done["profile"]["launches"].get(kname, 0)}
-               if "profile" in done else {})})
+               if "profile" in done else {}),
+            **({"launches_advisor": done["advisor"]["launches"].get(kname, 0)}
+               if "advisor" in done else {})})
     for variant, rname in EDGE_GRAD_RECORDS.items():
         if rname not in at_training:
             continue
@@ -3398,7 +3858,10 @@ def main(argv=None) -> int:
             "shape": {k: rec[k] for k in ("tiles", "live_tiles", "gpt", "gs",
                                           "src_win", "nodes", "edges", "D",
                                           "dt", "dtype")},
-            "launches_per_step": rec["launches_per_step"]})
+            "launches_per_step": rec["launches_per_step"],
+            **({"launches_advisor": done["advisor"]["launches"].get(
+                EDGE_GRAD_KERNEL_OF_VARIANT[variant], 0)}
+               if "advisor" in done else {})})
     if "scan" in done:
         checks = list(done["scan"].values())
         rec = done["scan"][SCAN_TIMED]

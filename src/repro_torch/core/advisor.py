@@ -98,8 +98,9 @@ def plan_for(g: CSRGraph, *, arch: str = "gcn", in_dim: int = 128,
         default: inference-only plans skip the extra partitioning.
     feat_dtype : optional dtype policy stamped onto the config.
     variant : optional gather kernel stamped onto the config (port
-        addition: the reference picks it by measurement, which waits for a
-        later slice); None keeps the given config's, or "folded".
+        addition: the reference's measured pick is
+        `core.tuner.select_variant_measured`, which a caller runs on the
+        plan); None keeps the given config's, or "folded".
     """
     if props is None:
         props = extract_graph_props(g, detect_communities=False)

@@ -10,6 +10,7 @@ from __future__ import annotations
 
 from typing import Optional
 
+import numpy as np
 import torch
 
 from repro_torch.core.plan import Plan
@@ -40,6 +41,14 @@ class PlanExecutor:
         self.variant = plan.config.variant
         # outputs follow the plan's dtype policy (f32 accumulation inside)
         self.out_dtype = getattr(torch, plan.config.feat_dtype)
+        # the renumber permutation (perm[old] = new) and its inverse, on
+        # the device once, for `aggregate_original_order`
+        self._perm = self._inv_perm = None
+        if plan.perm is not None:
+            perm = np.asarray(plan.perm, np.int64)
+            self._perm = torch.as_tensor(perm, device=self.device)
+            self._inv_perm = torch.as_tensor(np.argsort(perm),
+                                             device=self.device)
 
     @classmethod
     def from_schedule(cls, sched: DeviceSchedule, *, dt: int, variant: str,
@@ -72,6 +81,7 @@ class PlanExecutor:
         ex.dt = dt
         ex.variant = variant
         ex.out_dtype = getattr(torch, out_dtype)
+        ex._perm = ex._inv_perm = None
         return ex
 
     def __call__(self, feat: torch.Tensor) -> torch.Tensor:
@@ -94,3 +104,15 @@ class PlanExecutor:
                                  edge_values=edge_values,
                                  sched_bwd=self.sched_bwd,
                                  out_dtype=self.out_dtype)
+
+    def aggregate_original_order(self, feat_original: torch.Tensor
+                                 ) -> torch.Tensor:
+        """`__call__` on features in the ORIGINAL (pre-renumber) node order,
+        returning rows in that order: ``feat[inv_perm]`` enters the plan's
+        order and ``out[perm]`` leaves it (``perm[old] = new``).  Plans
+        without a permutation, and `from_schedule` executors, aggregate
+        the input as given."""
+        if self._perm is None:
+            return self(feat_original)
+        out = self(feat_original[self._inv_perm])
+        return out[self._perm]

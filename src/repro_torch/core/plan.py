@@ -1,17 +1,19 @@
 """The Plan IR — the one plan object every execution layer consumes.
 
 Port of `src/repro/core/plan.py` (`Plan` with `fingerprint`,
-`apply_delta`, `save`, `load`, the node-order plumbing and the device
-schedules).  A `Plan` is
+`apply_delta`, `shards`, `save`, `load`, the node-order plumbing and the
+device schedules).  A `Plan` is
 the advisor's output and the runtime's input: the static group schedule
 (forward and, optionally, the transposed backward pair), the tuned
 `AggConfig`, the renumber permutation, and the extracted properties that
 justified the choices.
 
 The npz layout is the reference's (schema version 2), so a plan saved by
-either package loads in the other.  `shards` (sharded execution) waits
-for its slice; PyTorch runs eagerly, so the reference's jit-argument
-convention has no counterpart here.
+either package loads in the other.  `shards` splits a plan into
+per-device sub-plans (`repro_torch.core.shard`); running them across
+cards waits for the collectives.  PyTorch runs eagerly, so the
+reference's jit-argument convention (`jit_args`, `jit_statics`,
+`executor_from_args`) has no counterpart here.
 """
 from __future__ import annotations
 
@@ -80,7 +82,7 @@ class Plan:
     # ---------------- incremental maintenance ----------------
 
     def apply_delta(self, delta, *, edge_vals: Optional[np.ndarray] = None,
-                    threshold: float = 0.25):
+                    threshold: float = 0.25, return_details: bool = False):
         """Apply a `repro_torch.graphs.delta.GraphDelta` and return a NEW
         plan (epoch + 1) for the mutated graph, re-partitioning only the
         node blocks the delta dirties (`repro_torch.core.incremental`) —
@@ -99,7 +101,10 @@ class Plan:
         only exists once the delta has been applied, ``edge_vals`` may
         also be a CALLABLE ``(mutated plan-order CSRGraph) -> (E2,)`` —
         the GCN serving and training paths derive A-hat weights from the
-        mutated graph's own degrees this way."""
+        mutated graph's own degrees this way.
+
+        ``return_details=True`` also returns the underlying `DeltaResult`
+        (plan-order ids): the shard updater's input."""
         from repro_torch.core import incremental as inc
         from repro_torch.core.partition import (partition_graph, transpose_graph)
         from repro_torch.graphs.delta import carry_edge_values
@@ -180,7 +185,7 @@ class Plan:
             reduce_dim_first=self.reduce_dim_first,
             partition_bwd=part_bwd, edge_perm_bwd=eperm,
             epoch=self.epoch + 1)
-        return plan
+        return (plan, res) if return_details else plan
 
     # ---------------- node-order plumbing ----------------
 
@@ -234,6 +239,14 @@ class Plan:
         """Single-device `PlanExecutor` bound to this plan."""
         from repro_torch.core.aggregate import PlanExecutor
         return PlanExecutor(self, backend=backend, device=device)
+
+    # ---------------- sharding ----------------
+
+    def shards(self, num_shards: int):
+        """Split into ``num_shards`` contiguous node-range sub-plans with
+        halo metadata (`repro_torch.core.shard.shard_plan`)."""
+        from repro_torch.core.shard import shard_plan
+        return shard_plan(self, num_shards)
 
     # ---------------- serialization ----------------
 

@@ -1,12 +1,13 @@
 """Estimating (paper §7.2) — hyper-parameter search.
 
 Port of `src/repro/core/tuner.py` (`SEARCH_SPACE`, `evolve`, `tune`,
-`TunerResult` and the measured stage: `plan_facing_dim`,
-`select_variant_measured`, `measured_tune`); the search is unchanged, the
-model and the feasibility bound are the port's (`core/model.py`, priced
-for `H100_SXM`).  The measured stage races the gather kernels on the
-card through `obs.profile.measure`.  The community-profiling score waits
-for a later slice.
+`TunerResult`, `community_profile` and the measured stage:
+`plan_facing_dim`, `select_variant_measured`, `measured_tune`); the
+search and the community graphs are unchanged, the model and the
+feasibility bound are the port's (`core/model.py`, priced for
+`H100_SXM`), so scores differ from the reference's by design.  The
+measured stage races the gather kernels on the card through
+`obs.profile.measure`.
 
 Implements the paper's three-step strategy:
 
@@ -35,11 +36,11 @@ from repro_torch.core.extractor import GraphProps, extract_graph_props
 from repro_torch.core.model import (AggConfig, KernelModel,
                                     config_infeasibility, paper_eq2_latency)
 from repro_torch.core.partition import partition_graph
-from repro_torch.graphs.csr import CSRGraph
+from repro_torch.graphs.csr import CSRGraph, random_community_graph
 from repro_torch.hw import H100_SXM, GPUSpec
 
-__all__ = ["TunerResult", "evolve", "tune", "SEARCH_SPACE",
-           "select_variant_measured", "measured_tune", "MEASURED_VARIANTS",
+__all__ = ["TunerResult", "evolve", "tune", "community_profile",
+           "SEARCH_SPACE", "select_variant_measured", "measured_tune", "MEASURED_VARIANTS",
            "plan_facing_dim"]
 
 # gather kernels the measured stage races by default: the folded one-hot
@@ -181,6 +182,37 @@ def evolve(score_fn: Callable[[AggConfig], float], *, pop: int = 16,
     return TunerResult(best=scored[0][1], best_score=scored[0][0],
                        history=history, evaluations=len(seen),
                        top=[(s, c) for c, s in ranked[:8]])
+
+
+def community_profile(community_sizes: Sequence[int], dim: int, *,
+                      densities: Sequence[float] = (0.9, 0.7, 0.5),
+                      seed: int = 0) -> Callable[[AggConfig], float]:
+    """Step 1: build a profiling score over synthetic communities.
+
+    Returns a score function that evaluates a config by building REAL
+    partitions over the synthetic community graphs (the reference's: one
+    `random_community_graph` per size and density) and pricing them with
+    the white-box model over exact tile counts.
+    """
+    graphs: list[CSRGraph] = []
+    for cs in community_sizes:
+        for rho in densities:
+            g = random_community_graph(max(4, 2048 // max(cs, 2)), cs,
+                                       p_intra=rho, p_inter_edges_per_node=0.2,
+                                       seed=seed)
+            graphs.append(g)
+    props = [extract_graph_props(g, detect_communities=False) for g in graphs]
+    km = KernelModel()
+
+    def score(cfg: AggConfig) -> float:
+        tot = 0.0
+        for g, pr in zip(graphs, props):
+            p = partition_graph(g, gs=cfg.gs, gpt=cfg.gpt, ont=cfg.ont,
+                                src_win=cfg.src_win)
+            tot += km.latency(pr, dim, cfg, tiles=p.num_tiles)
+        return tot / len(graphs)
+
+    return score
 
 
 def tune(g: CSRGraph, dim: int, *, props: GraphProps | None = None,
