@@ -93,7 +93,7 @@ Phases, each timed, any failure exits non-zero before the result line:
      5b (``sampled``): `repro_torch.launch.train.run` with ``--sampled`` on
      the full reddit replica (232,965 nodes, in-dim 128, 41 classes;
      generated once for the three jobs), ``--fanouts 10,5 --batch-nodes
-     512``, 20 steps, the folded kernel, a fresh checkpoint directory per
+     512``, 10 steps, the folded kernel, a fresh checkpoint directory per
      job: GCN 2x16 in float32 and bfloat16, GIN hidden 64 (depth cut to
      2) in float32 (`SAMPLED_JOBS`).  Launch counts zeroed just before
      each run and read just after: the folded kernel exactly 4 times a
@@ -269,9 +269,47 @@ Phases, each timed, any failure exits non-zero before the result line:
      counts zeroed just before and read just after: exactly the expected
      launches (one per executor call, 2 P for a sharded forward and
      backward, P edge-gradient launches for GAT) and no plain call.
+  12. sharded — the graph-shard collectives (`repro_torch.distributed`)
+     on 4 rank processes: NCCL with a card a rank when the machine has 4
+     cards, else gloo with every rank on card 0 (the one-card check); the
+     backend and layout are printed.  Metric ``max|a-b| / (1 + max|b|)``.
+     (a) ``train`` with phase 5's pubmed flags (`TRAIN_COMMON`, folded,
+     float32), GCN with ``--shards 4`` and GIN with ``--shards 2``,
+     against the single-device run from the same parameters: every
+     step's loss and the final parameters within 1e-4, each rank's folded
+     launches exactly the single-device run's per step, no plain call;
+     (b) full reddit (phase 2's graph) GCN at in-dim 602 with backward,
+     ``shards(4)`` built here: `make_sharded_logits_fn` vs
+     `GNNModel.logits` within 1e-5, three `make_sharded_train_step` steps
+     vs `make_gnn_train_step`: each step's gradient and loss within 1e-4,
+     the parameters within 1e-4 but where a gradient was within 1e-4 of
+     zero (Adam's first steps are about sign(g) lr, so those may part by
+     2 lr a step), and each rank's device ms for
+     a step with the collectives' ms apart (CUDA events; reported, not
+     gated); (c) ``serve_gnn`` with phase 3b's flags (`ASYNC_COMMON`),
+     ``--shards 4 --policy deadline --stream-deltas 2 --verify 4``:
+     accounting exact, the driver's own checks (each delta's re-shard vs
+     a fresh split within 1e-5), the sub-plans sent again per delta
+     printed, 32 answers vs the single-device engine on the mutated graph
+     within 1e-5; then a delta inside shard 0's node range (the stream's
+     deltas dirty every shard) through a GIN `make_sharded_serve_fn`
+     (GIN's clean shards keep their `Plan` objects; GCN's A-hat values
+     move with shard 0's degrees): only shard 0 sent again, the output
+     vs a fresh split within 1e-5; (d) `ShardedExecutor.aggregate_edges` on phase 11 (c)'s
+     pubmed GAT plan, ``shards(4)``, vs the single-device executor:
+     forward 1e-5, feature gradient 1e-4, edge gradient 1e-3, two
+     aggregation and one edge-gradient launch a rank; (e) `compressed_psum`
+     of a seeded (4096, 4096) gradient a rank, 10 error-feedback steps on
+     the card and on the CPU: every total and residual bit-equal; (f)
+     ``train --sampled --shards 4`` (phase 5b's flags, GCN 2x16, 4 steps):
+     finite losses, 4 folded launches a step on each rank, and one step's
+     gradient vs the single-device gradient of the union of its 4
+     batches within 1e-4; (g) ``profile_plan(shards=4)`` on (d)'s
+     train-ready GCN plan: every ``shard{p}/forward`` row present, device
+     p50s printed.
 
 
-``--phases`` runs a subset of phases 2-11 (names in `PHASES`); with no
+``--phases`` runs a subset of phases 2-12 (names in `PHASES`); with no
 arguments every phase runs.  The line before the last is the
 ``{"kernels": [...]}`` record (times are
 medians of 20 CUDA-event-timed calls after 3 warm-up calls, on warm
@@ -291,8 +329,10 @@ edge-gradient kernels, float32; the folded kernel's record adds
 cover phase 5b's block-shape checks, and ``launches_async`` its launches
 in phase 3b; the gather and folded records' error maxima cover phase
 5c's patched schedules, ``launches_profile`` counts each aggregation
-kernel's launches in phase 8 and ``launches_advisor`` each aggregation
-and edge-gradient kernel's on phase 11's main path; the scan kernel's record is at the
+kernel's launches in phase 8, ``launches_advisor`` each aggregation
+and edge-gradient kernel's on phase 11's main path and
+``launches_sharded`` each kernel's in phase 12 (every rank's, summed);
+the scan kernel's record is at the
 timed shape, its ``launches`` those of phase 7a's six prefills,
 ``launches_hybrid`` those of phase 9a's six,
 ``sfu_ms`` the exp/log term beside ``bound_ms``, and ``library_ms``
@@ -1343,7 +1383,9 @@ def training(detail: dict) -> dict:
     return at_training
 
 
-SAMPLED_STEPS = 20
+# 10 steps a job (20 until the whole smoke outgrew its time budget): the
+# loader's host build, about 2 s a batch on full reddit, is most of it
+SAMPLED_STEPS = 10
 SAMPLED_COMMON = ["--sampled", "--dataset", "reddit", "--scale", "1.0",
                   "--fanouts", "10,5", "--batch-nodes", "512",
                   "--warmup", "2", "--ckpt-every", "10", "--device", "cuda",
@@ -3715,18 +3757,532 @@ def advisor(detail: dict) -> dict:
     return rec
 
 
+# phase 12: the graph-shard collectives on P rank processes
+SHARDS = 4
+GIN_SHARDS = 2
+SHARDED_LIB_STEPS = 3
+SHARDED_SAMPLED_STEPS = 4
+# folded launches a sampled GCN step makes on each rank: 2 forward, 2
+# over the blocks' transposed schedules
+SAMPLED_SHARD_PER_STEP = 4
+PSUM_SHAPE, PSUM_STEPS = (4096, 4096), 10
+SHARDED_TOL = {"logits": 1e-5, "loss": 1e-4, "params": 1e-4}
+SHARDED_BACKEND = "cuda"     # the kernel backend of (b), (d) and (g)
+
+
+def _dist_backend() -> str:
+    """NCCL with one card a rank where there are enough cards, else gloo
+    with every rank on card 0 (the driver's one-card check)."""
+    import torch
+    return "nccl" if torch.cuda.device_count() >= SHARDS else "gloo"
+
+
+def _serr(a, b) -> float:
+    """``max|a-b| / (1 + max|b|)`` in float64, of tensors (any device) or
+    arrays."""
+    import numpy as np
+    a = np.asarray(a.detach().cpu() if hasattr(a, "detach") else a,
+                   np.float64)
+    b = np.asarray(b.detach().cpu() if hasattr(b, "detach") else b,
+                   np.float64)
+    return float(np.abs(a - b).max() / (1.0 + np.abs(b).max()))
+
+
+def _r_psum_digests(r, shape, steps: int) -> dict:
+    """Rank-side check of `compressed_psum`: ``steps`` error-feedback
+    steps on this rank's seeded gradient, once on its card and once on
+    the CPU; the sha256 of every step's total and residual on each."""
+    import hashlib
+
+    import torch
+
+    from repro_torch.optim import compressed_psum
+    out = {}
+    for name, where in (("device", r.device), ("cpu", torch.device("cpu"))):
+        gen = torch.Generator().manual_seed(1000 + r.rank)
+        ef, digests = None, []
+        for step in range(steps):
+            g = torch.randn(shape, generator=gen) * (0.01 + step / 10)
+            tot, ef = compressed_psum({"g": g.to(where)}, ef)
+            digests.append(tuple(
+                hashlib.sha256(t["g"].cpu().numpy().tobytes()).hexdigest()
+                for t in (tot, ef)))
+        out[name] = digests
+    return out
+
+
+# the ranks unpickle this function by import path: under the module name
+# they can import (the repository root is on their path), not "__main__"
+# (`sharded` maps that name to this module for the pickler)
+_r_psum_digests.__module__ = "chip_smoke"
+
+
+def _rank_counts(group) -> list:
+    """Every rank's launch counts (non-zero entries), then zeroed."""
+    return [{k: v for k, v in c.items() if v}
+            for c in group.launches(reset=True)]
+
+
+def sharded(detail: dict) -> dict:
+    """Phase 12: the graph-shard collectives on ``SHARDS`` rank processes
+    (`repro_torch.distributed`): NCCL with a card a rank when there are
+    enough cards, else gloo with every rank on card 0.  (a) ``train
+    --shards`` (GCN P 4, GIN P 2) against the single-device driver; (b)
+    the library on full reddit (GCN, in-dim 602): sharded logits and
+    three train steps against the single-device model, each rank's step
+    time with its collectives apart; (c) ``serve_gnn --shards 4`` on the
+    async tier with two streamed deltas; (d) `ShardedExecutor.
+    aggregate_edges` on a pubmed GAT plan with both gradients; (e)
+    `compressed_psum`, card vs CPU bit for bit; (f) ``train --sampled
+    --shards 4`` on full reddit and one step's gradient against the union
+    batch's; (g) ``profile_plan(shards=4)``."""
+    import dataclasses
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from repro_torch.core.advisor import plan_for
+    from repro_torch.core.aggregate import PlanExecutor
+    from repro_torch.distributed import (ShardedExecutor, close_groups,
+                                         make_sharded_logits_fn,
+                                         make_sharded_train_step,
+                                         shard_group)
+    from repro_torch.graphs.csr import random_power_law
+    from repro_torch.graphs.datasets import make_dataset
+    from repro_torch.graphs.delta import GraphDelta
+    from repro_torch.kernels import group_aggregate as ga
+    from repro_torch.launch import serve_gnn, train
+    from repro_torch.models.gnn import (GNNConfig, GNNModel,
+                                        gcn_edge_values, gnn_block_logits,
+                                        init_gnn_params,
+                                        make_gnn_train_step)
+    from repro_torch.obs.profile import profile_plan
+    from repro_torch.optim.adamw import AdamWConfig, adamw_init
+    from repro_torch.sampling import (LoaderConfig, SampledLoader,
+                                      ShardedSampledTrainStep)
+    from repro_torch.serving import ServingEngine, make_sharded_serve_fn
+
+    # (e)'s rank function goes by import path as "chip_smoke": the ranks
+    # import it from the repository root, this process finds it here
+    sys.modules.setdefault("chip_smoke", sys.modules[__name__])
+    if ROOT not in sys.path:
+        sys.path.insert(0, ROOT)
+    be = _dist_backend()
+    n_cards = torch.cuda.device_count()
+    layout = (f"{SHARDS} ranks on cards 0-{SHARDS - 1}" if be == "nccl"
+              else f"{SHARDS} ranks on card 0 ({n_cards} card(s))")
+    log(f"  dist backend {be}: {layout}")
+    rec: dict = {"dist_backend": be, "layout": layout, "cards": n_cards}
+    launches = collections.Counter()
+    t_phase = time.time()
+    grp = shard_group(SHARDS, device=DEVICE, dist_backend=be)
+    rec["group_start_s"] = time.time() - t_phase
+    log(f"  group of {SHARDS} started in {rec['group_start_s']:.1f}s")
+
+    def only(counts, want: dict, what: str):
+        """Each rank launched exactly ``want`` (and nothing else)."""
+        for p, c in enumerate(counts):
+            check(c == want, f"{what}: rank {p} launched {c}, want {want}")
+            launches.update(c)
+
+    fk = ga.KERNEL_OF_VARIANT["folded"]
+
+    # ---- (a) the training driver, GCN P 4 and GIN P 2, vs single-device
+    rec["train"] = []
+    for arch, P in (("gcn", SHARDS), ("gin", GIN_SHARDS)):
+        t0 = time.time()
+        flags = TRAIN_COMMON + ["--arch", arch, "--variant", "folded",
+                                "--dtype", "float32"]
+        dirs = [tempfile.mkdtemp(prefix="chip_smoke_ckpt_") for _ in "ab"]
+        try:
+            ga.reset_launches()
+            one = train.run(flags + ["--ckpt-dir", dirs[0]])
+            single = {k: v for k, v in ga.launches.items() if v}
+            # the driver zeroes its ranks' counts before its first step
+            many = train.run(flags + ["--shards", str(P), "--dist-backend",
+                                      be, "--ckpt-dir", dirs[1]])
+        finally:
+            for d in dirs:
+                shutil.rmtree(d, ignore_errors=True)
+        per_step = single.get(fk, 0) // TRAIN_STEPS
+        check(single.get(fk, 0) == per_step * TRAIN_STEPS and per_step > 0,
+              f"{arch}: single-device launches {single}")
+        counts = [{k: v for k, v in c.items() if v}
+                  for c in many["rank_launches"]]
+        only(counts, {fk: per_step * TRAIN_STEPS}, f"train {arch} P {P}")
+        h1, h2 = one["history"], many["history"]
+        check(many["ok"] and len(h2) == TRAIN_STEPS,
+              f"{arch} P {P}: training did not run {TRAIN_STEPS} steps")
+        loss_err = max(abs(a["loss"] - b["loss"]) / (1 + abs(b["loss"]))
+                       for a, b in zip(h2, h1))
+        p1, p2 = one["trainer"].state[0], many["trainer"].state[0]
+        param_err = max(_serr(p2[k], p1[k]) for k in p1)
+        r = {"arch": arch, "shards": P, "per_step": per_step,
+             "rank_launches": counts, "loss_err": loss_err,
+             "param_err": param_err,
+             "first_loss": h2[0]["loss"], "last_loss": h2[-1]["loss"],
+             "single_avg_step_ms": one["avg_step_s"] * 1e3,
+             "sharded_avg_step_ms": many["avg_step_s"] * 1e3,
+             "seconds": time.time() - t0}
+        rec["train"].append(r)
+        log(f"  (a) train {arch} --shards {P}: {TRAIN_STEPS} steps, loss "
+            f"{r['first_loss']:.4f} -> {r['last_loss']:.4f}; vs single: "
+            f"losses {loss_err:.2e}, params {param_err:.2e}; "
+            f"{per_step} folded launches a step on each rank; step "
+            f"{r['sharded_avg_step_ms']:.2f}ms sharded vs "
+            f"{r['single_avg_step_ms']:.2f}ms single ({r['seconds']:.1f}s)")
+        check(loss_err <= SHARDED_TOL["loss"], f"{arch} P {P}: losses "
+              f"{loss_err:.2e} > {SHARDED_TOL['loss']}")
+        check(param_err <= SHARDED_TOL["params"], f"{arch} P {P}: params "
+              f"{param_err:.2e} > {SHARDED_TOL['params']}")
+        del one, many
+
+    # ---- (b) the library on full reddit at the published width
+    t0 = time.time()
+    if "reddit" in SHARED:
+        _, reddit, vals_r = SHARED["reddit"]
+    else:
+        reddit, vals_r = gcn_edge_values(make_dataset("reddit",
+                                                      max_dim=1)[0])
+    kb = SHARDED_BACKEND
+    cfg = GNNConfig(arch="gcn", in_dim=602, hidden_dim=16, num_classes=41,
+                    num_layers=2, backend=kb, device=DEVICE)
+    plan = plan_for(reddit, arch="gcn", in_dim=602, hidden_dim=16,
+                    edge_vals=vals_r, tune_iters=4, with_backward=True)
+    t_plan = time.time() - t0
+    shards = plan.shards(SHARDS)
+    t_split = time.time() - t0 - t_plan
+    model = GNNModel(cfg=cfg, plan=plan, executor=PlanExecutor(
+        plan, backend=kb, device=DEVICE), params=init_gnn_params(
+        cfg, torch.Generator().manual_seed(0)))
+    n = reddit.num_nodes
+    gen = torch.Generator(device=DEVICE).manual_seed(5)
+    feat = torch.randn((n, 602), generator=gen, device=DEVICE)
+    labels = torch.randint(0, 41, (n,), generator=gen, device=DEVICE)
+    batch = {"feat": feat, "labels": labels}
+    logits_fn = make_sharded_logits_fn(cfg, shards, group=grp)
+    grp.launches(reset=True)
+    with torch.no_grad():
+        want = model.logits(model.params, feat)
+        got = logits_fn(model.params, feat)
+    kname = ga.KERNEL_OF_VARIANT[plan.config.variant]
+    only(_rank_counts(grp), {kname: 2}, "reddit logits")
+    e_logits = _serr(got, want)
+    opt = AdamWConfig(lr=1e-2)
+    step1 = make_gnn_train_step(model, opt)
+    stepP = make_sharded_train_step(cfg, shards, opt, group=grp)
+
+    def grads1(params):
+        leaves = {k: v.detach().requires_grad_(True)
+                  for k, v in params.items()}
+        loss, _ = model.loss(leaves, feat, labels)
+        return dict(zip(leaves, torch.autograd.grad(
+            loss, list(leaves.values()))))
+
+    # each step's gradient, sharded vs single, at that step's state; then
+    # the parameters.  Adam's first steps are about sign(g) lr, so where a
+    # gradient is within the limit of zero its sign is rounding and the
+    # parameter may part by 2 lr a step; every other one is held to 1e-4
+    tol = SHARDED_TOL["params"]
+    s1 = s2 = (model.params, adamw_init(model.params))
+    loss_err = grad_err = 0.0
+    near = {k: torch.zeros_like(v, dtype=torch.bool)
+            for k, v in model.params.items()}
+    for _ in range(SHARDED_LIB_STEPS):
+        g1 = grads1(s1[0])
+        g2 = stepP.model.value_and_grad(s2[0], batch)[0]
+        grad_err = max([grad_err] + [_serr(g2[k], g1[k]) for k in g1])
+        for k, g in g1.items():
+            near[k] |= g.abs() <= tol * (1 + g.abs().max())
+        s1, m1 = step1(s1, batch)
+        s2, m2 = stepP(s2, batch)
+        loss_err = max(loss_err, abs(float(m2["loss"]) - float(m1["loss"]))
+                       / (1 + abs(float(m1["loss"]))))
+    param_err, sign_noise = 0.0, 0
+    for k in s1[0]:
+        b = s1[0][k].double()
+        diff = (s2[0][k].double() - b).abs() / (1 + b.abs().max())
+        far = ~near[k]
+        param_err = max(param_err, float(diff[far].max()) if far.any()
+                        else 0.0)
+        check(bool((diff[near[k]] <= 2 * opt.lr * SHARDED_LIB_STEPS
+                    + tol).all()), f"reddit {k}: a near-zero-gradient "
+              f"parameter moved by more than 2 lr a step")
+        sign_noise += int((diff[near[k]] > tol).sum())
+    only(_rank_counts(grp), {kname: 8 * SHARDED_LIB_STEPS}, "reddit steps")
+    # each rank's device time for one step (the third, warm), collectives
+    # apart: a report, not a gate
+    prof = [stepP.model.profile_step(s2[0], batch) for _ in range(3)][-1]
+    only(_rank_counts(grp), {kname: 12}, "reddit timed steps")
+    st = shards.stats()
+    rec["reddit"] = {
+        "nodes": n, "edges": reddit.num_edges, "variant":
+        plan.config.variant, "plan_s": t_plan, "split_s": t_split,
+        "edges_per_shard": st["edges_per_shard"],
+        "halo_per_shard": st["halo_per_shard"],
+        "edge_balance": st["edge_balance"], "logits_err": e_logits,
+        "grad_err": grad_err, "loss_err": loss_err, "param_err": param_err,
+        "sign_noise": sign_noise,
+        "rank_step": prof, "seconds": time.time() - t0}
+    log(f"  (b) reddit GCN D 602 {plan.config.variant}: plan "
+        f"{t_plan:.1f}s, split {t_split:.1f}s, edges/shard "
+        f"{st['edges_per_shard']}, halo {st['halo_per_shard']}; logits "
+        f"{e_logits:.2e}, {SHARDED_LIB_STEPS} steps: gradients "
+        f"{grad_err:.2e}, losses {loss_err:.2e}, params {param_err:.2e} "
+        f"({sign_noise} parameters with a near-zero gradient part by up to "
+        f"2 lr a step)")
+    for pr in prof:
+        log(f"      rank {pr['rank']}: step {pr['step_ms']:.3f}ms device, "
+            f"collectives ({be}) {pr['collective_ms']:.3f}ms, the rest "
+            f"(kernels, projections, loss) {pr['other_ms']:.3f}ms")
+    check(e_logits <= SHARDED_TOL["logits"], f"reddit logits "
+          f"{e_logits:.2e} > {SHARDED_TOL['logits']}")
+    check(grad_err <= SHARDED_TOL["params"], f"reddit gradients "
+          f"{grad_err:.2e}")
+    check(loss_err <= SHARDED_TOL["loss"], f"reddit losses {loss_err:.2e}")
+    check(param_err <= SHARDED_TOL["params"], f"reddit params "
+          f"{param_err:.2e}")
+    logits_fn.model.close()
+    stepP.close()
+    del model, feat, labels, batch, s1, s2, want, got, shards, plan
+    torch.cuda.empty_cache()
+
+    # ---- (c) the serving driver on the async tier, two streamed deltas
+    t0 = time.time()
+    argv = ASYNC_COMMON + ["--policy", "deadline", "--stream-deltas", "2",
+                           "--verify", "4"]
+    grp.launches(reset=True)
+    res = serve_gnn.run(argv + ["--shards", str(SHARDS), "--dist-backend",
+                                be])
+    c = _rank_counts(grp)
+    fn = res["sharded_fn"]
+    acc = res["accounting"]
+    resent = [len(x) for x in fn.resent]
+    g2, f2 = _mutated_inputs(argv)
+    cfg_s = dataclasses.replace(fn.model.cfg, device=DEVICE)
+    eng = ServingEngine(g2, f2, cfg_s, params=fn.params)
+    done = [r for r in res["requests"] if r.status == "done"]
+    e_serve = 0.0
+    for r in done[:32]:
+        e_serve = max(e_serve, _serr(r.result, eng.serve_batch([r.seed])[0]))
+    kname = ga.KERNEL_OF_VARIANT[fn.plan.config.variant]
+    for p, cc in enumerate(c):
+        check(set(cc) == {kname} and len({x[kname] for x in c}) == 1,
+              f"serving: rank {p} launched {cc}")
+        launches.update(cc)
+    # the stream's deltas (1% of the edges at popularity-weighted random
+    # endpoints, 5% of them to new nodes) dirty every shard and outgrow the
+    # split's padding, so each re-splits; a delta inside shard 0's node
+    # range (no new node) on GIN shows what is reused: shard 0 is sent
+    # again, the clean shards are the same `Plan` objects and are not (on
+    # GCN their A-hat values move with shard 0's degrees)
+    a = serve_gnn.parse_args(argv)
+    g0 = random_power_law(a.num_nodes, a.avg_degree, seed=a.seed)
+    f0 = np.random.default_rng(a.seed).standard_normal(
+        (g0.num_nodes, a.in_dim)).astype(np.float32)
+    cfg_gin = dataclasses.replace(cfg_s, arch="gin")
+    fn2 = make_sharded_serve_fn(g0, f0, cfg_gin, num_shards=SHARDS,
+                                variant="folded", group=grp)
+    n_local = fn2.shards.spec.n_local
+    rng = np.random.default_rng(0)
+    dst, src = g0.to_coo()
+    inside = np.flatnonzero((dst < n_local) & (src < n_local) & (dst != src))
+    pick = rng.choice(inside, min(32, len(inside)), replace=False)
+    fn2.update_graph(GraphDelta(add_src=rng.integers(0, n_local, 64),
+                                add_dst=rng.integers(0, n_local, 64),
+                                del_src=src[pick], del_dst=dst[pick]))
+    local = {"resent": fn2.resent[0],
+             "err_fresh": serve_gnn._fresh_split_err(fn2, cfg_gin, SHARDS)}
+    fn2.close()
+    for cc in _rank_counts(grp):
+        launches.update(cc)
+    rec["serving"] = {"accounting": acc, "resent": resent,
+                      "local_delta": local,
+                      "delta_errs": res["delta_errs"],
+                      "single_err": e_serve, "checked": len(done[:32]),
+                      "throughput_rps": res["throughput_rps"],
+                      "rank_launches": c, "seconds": time.time() - t0,
+                      "summary": res["summary"]}
+    log(f"  (c) serve_gnn --shards {SHARDS}: {acc}; "
+        f"{res['throughput_rps']:.1f} req/s; sub-plans sent again per "
+        f"delta {resent} of {SHARDS}; vs a fresh split "
+        f"{res['delta_errs']}; {len(done[:32])} answers vs the "
+        f"single-device engine {e_serve:.2e}; a GIN delta inside shard 0: "
+        f"resent {local['resent']}, vs a fresh split "
+        f"{local['err_fresh']:.2e}")
+    check(res["ok"], "sharded serving run failed its own checks")
+    check(acc["submitted"] == acc["completed"] + acc["rejected"],
+          f"serving accounting {acc}")
+    check(len(resent) == 2, f"sub-plans sent again per delta {resent}")
+    check(local["resent"] == [0] and local["err_fresh"] <= TOL,
+          f"a GIN delta inside shard 0: {local}")
+    check(max(res["delta_errs"]) <= TOL, f"vs a fresh split "
+          f"{res['delta_errs']}")
+    check(done and e_serve <= TOL, f"sharded vs single-device answers "
+          f"{e_serve:.2e}")
+    del res, fn, eng
+
+    # ---- (d) dynamic edge values on a pubmed GAT plan, both gradients
+    t0 = time.time()
+    raw_p = make_dataset("pubmed", max_dim=1)[0]
+    g_p, vals_p = gcn_edge_values(raw_p)
+    plan_c = plan_for(g_p, arch="gcn", in_dim=128, hidden_dim=16,
+                      edge_vals=vals_p, tune_iters=4, with_backward=True)
+    plan_d = plan_for(g_p, arch="gat", in_dim=16, hidden_dim=16,
+                      config=plan_c.config, with_backward=True)
+    var = plan_c.config.variant
+    gen = torch.Generator(device=DEVICE).manual_seed(6)
+    x = torch.randn((g_p.num_nodes, 16), generator=gen, device=DEVICE)
+    cot = torch.randn((g_p.num_nodes, 16), generator=gen, device=DEVICE)
+    ev = torch.randn((g_p.num_edges,), generator=gen, device=DEVICE)
+    single = PlanExecutor(plan_d, backend=kb, device=DEVICE)
+    f1, e1 = (t.clone().requires_grad_(True) for t in (x, ev))
+    y1 = single.aggregate_edges(f1, e1)
+    gf1, ge1 = torch.autograd.grad((y1 * cot).sum(), [f1, e1])
+    ex = ShardedExecutor(plan_d.shards(SHARDS), backend=kb,
+                         device=DEVICE, group=grp)
+    grp.launches(reset=True)
+    f2_, e2 = (t.clone().requires_grad_(True) for t in (x, ev))
+    y2 = ex.aggregate_edges(f2_, e2)
+    gf2, ge2 = torch.autograd.grad((y2 * cot).sum(), [f2_, e2])
+    c = _rank_counts(grp)
+    only(c, {ga.KERNEL_OF_VARIANT[var]: 2,
+             ga.EDGE_GRAD_KERNEL_OF_VARIANT[var]: 1}, "(d)")
+    errs = {"forward": _serr(y2, y1), "feat_grad": _serr(gf2, gf1),
+            "edge_grad": _serr(ge2, ge1)}
+    rec["dynamic"] = {"variant": var, **errs, "rank_launches": c,
+                      "seconds": time.time() - t0}
+    log(f"  (d) pubmed GAT {var} shards({SHARDS}) aggregate_edges: "
+        f"forward {errs['forward']:.2e}, feature gradient "
+        f"{errs['feat_grad']:.2e}, edge gradient {errs['edge_grad']:.2e}")
+    for k, lim in SHARD_TOL.items():
+        check(errs[k] <= lim, f"(d) {k} {errs[k]:.2e} > {lim}")
+    ex.close()
+    del ex, single, x, cot, ev, y1, y2, gf1, gf2, ge1, ge2
+
+    # ---- (e) compressed_psum: card vs CPU bit for bit
+    t0 = time.time()
+    dig = grp.run(_r_psum_digests, None, PSUM_SHAPE, PSUM_STEPS)
+    same = all(d["device"] == d["cpu"] for d in dig)
+    replicated = all(d["device"][s][0] == dig[0]["device"][s][0]
+                     for d in dig for s in range(PSUM_STEPS))
+    rec["compressed_psum"] = {"shape": list(PSUM_SHAPE),
+                              "steps": PSUM_STEPS, "bit_equal": same,
+                              "totals_replicated": replicated,
+                              "seconds": time.time() - t0}
+    log(f"  (e) compressed_psum {PSUM_SHAPE} x {PSUM_STEPS} EF steps on "
+        f"{SHARDS} ranks: card vs CPU bit-equal {same}, totals equal on "
+        f"every rank {replicated} ({time.time() - t0:.1f}s)")
+    check(same, "compressed_psum: card and CPU differ")
+    check(replicated, "compressed_psum: the ranks' totals differ")
+
+    # ---- (f) sharded sampled training on full reddit
+    t0 = time.time()
+    ckpt = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    try:
+        res = train.run(SAMPLED_COMMON + [
+            "--arch", "gcn", "--hidden-dim", "16", "--lr", "1e-2",
+            "--steps", str(SHARDED_SAMPLED_STEPS), "--shards", str(SHARDS),
+            "--dist-backend", be, "--ckpt-dir", ckpt])
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+    c = [{k: v for k, v in cc.items() if v} for cc in res["rank_launches"]]
+    only(c, {fk: SAMPLED_SHARD_PER_STEP * SHARDED_SAMPLED_STEPS},
+         "sampled --shards")
+    losses = [m["loss"] for m in res["history"]]
+    check(res["ok"] and len(losses) == SHARDED_SAMPLED_STEPS,
+          f"sampled --shards: losses {losses}")
+    # one step's gradient against the union batch's on one device (the
+    # driver's replica, kept by `train._sampled_dataset`)
+    a = train.parse_args(SAMPLED_COMMON + ["--arch", "gcn"])
+    g, spec, feat_r, labels_r = train._sampled_dataset(
+        a.dataset, a.scale, a.max_nodes, a.seed)
+    cfg_f = GNNConfig(arch="gcn", in_dim=feat_r.shape[1], hidden_dim=16,
+                      num_classes=spec.num_classes, num_layers=2,
+                      backend=a.backend, device=DEVICE)
+    lc = LoaderConfig(fanouts=tuple(int(f) for f in a.fanouts.split(",")),
+                      batch_nodes=a.batch_nodes, seed=a.seed)
+    params = init_gnn_params(cfg_f, torch.Generator().manual_seed(0))
+    grp.launches(reset=True)
+    step = ShardedSampledTrainStep(cfg_f, AdamWConfig(lr=1e-2), SHARDS,
+                                   graph=g, feat=feat_r, labels=labels_r,
+                                   loader=lc, group=grp)
+    try:
+        grads, loss, _ = step.value_and_grad(params, 0)
+    finally:
+        step.close()
+    only(_rank_counts(grp), {fk: SAMPLED_SHARD_PER_STEP}, "sampled step")
+    loader = SampledLoader(g, feat_r, labels_r, cfg_f, lc,
+                           start_thread=False)
+    leaves = {k: v.clone().requires_grad_(True) for k, v in params.items()}
+    num = den = 0.0
+    for b in [loader(p) for p in range(SHARDS)]:
+        lg = gnn_block_logits(cfg_f, leaves, b.feat,
+                              [e.executor for e in b.entries])
+        per = -torch.log_softmax(lg, -1).gather(1, b.labels[:, None])[:, 0]
+        num = num + (per * b.mask).sum()
+        den = den + b.mask.sum()
+    ref = num / den
+    ref_g = dict(zip(leaves, torch.autograd.grad(ref, list(
+        leaves.values()))))
+    g_err = max(_serr(grads[k], ref_g[k]) for k in grads)
+    l_err = abs(float(loss) - float(ref.detach()))
+    rec["sampled"] = {"losses": losses, "rank_launches": c,
+                      "grad_err": g_err, "loss_err": l_err,
+                      "avg_step_ms": res["avg_step_s"] * 1e3,
+                      "skew_p50": step._h_skew.percentile(50),
+                      "seconds": time.time() - t0}
+    log(f"  (f) train --sampled --shards {SHARDS} on reddit: losses "
+        f"{[round(x, 4) for x in losses]}, step "
+        f"{rec['sampled']['avg_step_ms']:.1f}ms; union-batch gradient vs "
+        f"one device {g_err:.2e}, loss {l_err:.2e}")
+    check(all(np.isfinite(losses)), f"sampled --shards: losses {losses}")
+    check(g_err <= 1e-4 and l_err <= 1e-4, f"union-batch gradient "
+          f"{g_err:.2e}, loss {l_err:.2e}")
+    del loader, leaves, step, res
+
+    # ---- (g) profile_plan(shards=4) on the pubmed train-ready plan
+    t0 = time.time()
+    ga.reset_launches()
+    rep = profile_plan(plan_c, dim=16, shards=SHARDS, backend=kb,
+                       device=DEVICE, iters=5)
+    launches.update({k: v for k, v in ga.launches.items() if v})
+    rows = {s.schedule: s for s in rep.schedules}
+    names = [f"shard{p}/forward" for p in range(SHARDS)]
+    check(all(nm in rows for nm in names), f"profile rows {sorted(rows)}")
+    rec["profile"] = {nm: {"p50_ms": rows[nm].measured.p50 * 1e3,
+                           "device_p50_ms": (rows[nm].measured.device_p50
+                                             * 1e3),
+                           "tiles": rows[nm].tiles, "edges": rows[nm].edges}
+                      for nm in ["forward"] + names}
+    log("  (g) profile_plan(shards=4) device p50: " + ", ".join(
+        f"{nm} {v['device_p50_ms']:.4f}ms" for nm, v in
+        rec["profile"].items()))
+    kname = ga.KERNEL_OF_VARIANT[plan_c.config.variant]
+    check({k for k, v in ga.launches.items() if v} == {kname},
+          f"profile_plan launched {dict(ga.launches)}")
+
+    close_groups()
+    rec["launches"] = dict(launches)
+    rec["seconds"] = time.time() - t_phase
+    detail["sharded"] = rec
+    return rec
+
+
 PHASES = {"kernels": kernel_sweeps, "hub": hub_probe, "serving": serving,
           "async": async_serving, "edge-grad": edge_grad_checks,
           "training": training, "sampled": sampled_training,
           "dynamic": dynamic_plans, "profile": profiling, "scan": scan_checks,
           "lm": lm_serving, "lm-hybrid": lm_hybrid, "lm-train": lm_train,
-          "advisor": advisor}
+          "advisor": advisor, "sharded": sharded}
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--phases", default=",".join(PHASES),
-                    help="comma-separated subset of phases 2-11 to run "
+                    help="comma-separated subset of phases 2-12 to run "
                          f"({', '.join(PHASES)}; default all); the device "
                          "phase always runs")
     ap.add_argument("--scan-variants", default="",
@@ -3786,6 +4342,7 @@ def main(argv=None) -> int:
         log(f"FAIL: {e}")
         return 1
 
+    from repro_torch.kernels import selective_scan as ss
     from repro_torch.kernels.group_aggregate import (
         EDGE_GRAD_KERNEL_OF_VARIANT, KERNEL_OF_VARIANT)
     kernels = []
@@ -3831,7 +4388,9 @@ def main(argv=None) -> int:
             **({"launches_profile": done["profile"]["launches"].get(kname, 0)}
                if "profile" in done else {}),
             **({"launches_advisor": done["advisor"]["launches"].get(kname, 0)}
-               if "advisor" in done else {})})
+               if "advisor" in done else {}),
+            **({"launches_sharded": done["sharded"]["launches"].get(kname, 0)}
+               if "sharded" in done else {})})
     for variant, rname in EDGE_GRAD_RECORDS.items():
         if rname not in at_training:
             continue
@@ -3861,7 +4420,10 @@ def main(argv=None) -> int:
             "launches_per_step": rec["launches_per_step"],
             **({"launches_advisor": done["advisor"]["launches"].get(
                 EDGE_GRAD_KERNEL_OF_VARIANT[variant], 0)}
-               if "advisor" in done else {})})
+               if "advisor" in done else {}),
+            **({"launches_sharded": done["sharded"]["launches"].get(
+                EDGE_GRAD_KERNEL_OF_VARIANT[variant], 0)}
+               if "sharded" in done else {})})
     if "scan" in done:
         checks = list(done["scan"].values())
         rec = done["scan"][SCAN_TIMED]
@@ -3883,7 +4445,9 @@ def main(argv=None) -> int:
             "shape": {k: rec[k] for k in ("B", "S", "d_inner", "N")},
             "launches_per_prefill": lm.get("launches_per_prefill"),
             "prefill_ms": lm.get("prefill_ms"),
-            "launches_hybrid": done.get("lm-hybrid", {}).get("launches")})
+            "launches_hybrid": done.get("lm-hybrid", {}).get("launches"),
+            **({"launches_sharded": done["sharded"]["launches"].get(
+                ss.KERNEL, 0)} if "sharded" in done else {})})
     detail["kernels"] = kernels
     out_dir = os.path.join(ROOT, "chiprun_out")
     if os.path.isdir(out_dir):

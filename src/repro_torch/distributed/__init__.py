@@ -1,6 +1,27 @@
-"""Distribution substrate, single-device half: micro-batched gradient
-accumulation.  The mesh half waits for ROADMAP Queue 1 item 5."""
+"""Distribution substrate: micro-batched gradient accumulation
+(`accumulate`), the rank group that stands for the reference's device
+mesh (`ranks`: ``P`` spawned processes under `torch.distributed`, driven
+from one caller), and multi-rank halo-exchange graph execution
+(`graph_shard`).  The LM mesh (`distributed/sharding.py`,
+`runtime/elastic.py`, `launch/mesh.py`, the ``mesh=`` paths of the LM
+stack) waits for ROADMAP Queue 1, item 5b."""
 from repro_torch.distributed.accumulate import (accumulate_gradients,
                                                 split_batch)
+from repro_torch.distributed.graph_shard import (ShardedExecutor,
+                                                 ShardedModel,
+                                                 ShardedTrainStep,
+                                                 gather_rows,
+                                                 local_step_value_and_grad,
+                                                 make_sharded_logits_fn,
+                                                 make_sharded_train_step)
+from repro_torch.distributed.ranks import (DIST_BACKENDS, RankError,
+                                           RankGroup, check_dist_backend,
+                                           close_groups,
+                                           default_dist_backend, shard_group)
 
-__all__ = ["accumulate_gradients", "split_batch"]
+__all__ = ["DIST_BACKENDS", "RankError", "RankGroup", "ShardedExecutor",
+           "ShardedModel", "ShardedTrainStep", "accumulate_gradients",
+           "check_dist_backend", "close_groups", "default_dist_backend",
+           "gather_rows", "local_step_value_and_grad",
+           "make_sharded_logits_fn", "make_sharded_train_step",
+           "shard_group", "split_batch"]

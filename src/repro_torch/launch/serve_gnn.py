@@ -40,10 +40,24 @@ trace with `run_context()` in ``otherData``.
 Port flags beside the reference's: ``--device cuda|cpu`` (default cuda;
 raises without CUDA), ``--backend cuda|torch`` (hand-written kernels or
 plain PyTorch) and ``--variant folded|slot_onehot|direct`` (the gather
-kernel).  ``--shards > 1`` is refused until sharding is ported (ROADMAP
-Queue 1 item 5).  `run` also takes a shared `PlanCache` (``cache=``), for
+kernel).  `run` also takes a shared `PlanCache` (``cache=``), for
 example one built with ``measure_variants=True``, whose measured kernel
 then overrides ``--variant``.
+
+``--shards N`` (GCN / GIN; implies the async tier, as in the reference)
+serves from the sharded full-graph forward over N rank processes
+(`serving.make_sharded_serve_fn`): each fired batch runs one forward on
+the ranks, inside a ``serve_sharded`` span, and the requested rows come
+back.  A streamed delta re-shards incrementally and only sub-plans that
+changed are sent to their ranks again; with ``--verify`` the outputs
+after each delta are also held against a fresh split of the mutated
+plan (1e-5).  ``--dist-backend nccl|gloo`` picks the transport (default
+nccl on the card, gloo on the CPU; nccl needs N cards, gloo on the card
+puts every rank on card 0):
+
+    PYTHONPATH=src python -m repro_torch.launch.serve_gnn --shards 2 \
+        --policy deadline --tenants 3 --stream-deltas 2 --smoke \
+        --device cpu --backend torch
 """
 from __future__ import annotations
 
@@ -127,7 +141,11 @@ def parse_args(argv=None) -> argparse.Namespace:
                    help="number of tenants (SLO classes cycle across them); "
                         "> 1 implies the async tier")
     p.add_argument("--shards", type=int, default=1,
-                   help="sharded serving (not ported yet: > 1 is refused)")
+                   help="serve from the sharded full-graph forward over N "
+                        "rank processes (gcn/gin; implies the async tier)")
+    p.add_argument("--dist-backend", default=None, choices=["nccl", "gloo"],
+                   help="transport of --shards (default: nccl on cuda, "
+                        "gloo on cpu; nccl needs one card per shard)")
     p.add_argument("--rate", type=float, default=500.0,
                    help="offered load in req/s for the async tier "
                         "(<= 0 = burst: all requests at t=0)")
@@ -147,13 +165,16 @@ def parse_args(argv=None) -> argparse.Namespace:
                    choices=["json", "prom"])
     p.add_argument("--seed", type=int, default=0)
     args = p.parse_args(argv)
-    if args.shards > 1:
-        p.error("--shards > 1: sharded serving is not ported yet "
-                "(ROADMAP Queue 1 item 5)")
     if args.shards < 1:
         p.error("--shards must be >= 1")
+    if args.shards > 1 and args.arch not in ("gcn", "gin"):
+        p.error("--shards supports gcn/gin only (static edge values)")
+    if args.dist_backend == "nccl" and args.device == "cpu":
+        p.error("--dist-backend nccl runs on the card only; on the CPU pass "
+                "--dist-backend gloo")
     args.use_async = (args.policy in ("deadline", "clock")
-                      or args.tenants > 1 or args.slo_ms is not None)
+                      or args.tenants > 1 or args.slo_ms is not None
+                      or args.shards > 1)
     if args.use_async and args.policy == "micro":
         args.policy = "deadline"
     if args.slo_ms is None:
@@ -195,6 +216,21 @@ def _write_trace(args, tracer) -> None:
     print(f"[serve_gnn] wrote Chrome trace -> {args.trace_out}")
 
 
+def _fresh_split_err(sharded_fn, cfg, num_shards: int) -> float:
+    """``max|a-b| / (1+|b|)`` of the sharded server's full-graph logits
+    against a fresh `Plan.shards` split of its (mutated) plan, run on the
+    same rank group."""
+    from repro_torch.distributed.graph_shard import make_sharded_logits_fn
+    fresh = make_sharded_logits_fn(cfg, sharded_fn.plan.shards(num_shards),
+                                   group=sharded_fn.model.group)
+    try:
+        b = fresh(sharded_fn.params, sharded_fn.feat())
+    finally:
+        fresh.model.close()
+    a = sharded_fn.logits()
+    return float(((a - b).abs() / (1.0 + b.abs())).max())
+
+
 def _serve_async(args, g, feat, cfg, registry, tracer, cache=None) -> dict:
     """Replay the trace through the async SLO-aware tier; returns the
     same keys as `run` plus ``async_engine``, ``all_requests``,
@@ -211,9 +247,35 @@ def _serve_async(args, g, feat, cfg, registry, tracer, cache=None) -> dict:
                                      slo_classes)
 
     t0 = time.time()
-    sync = ServingEngine(g, feat, cfg, serving=_serving_config(args),
-                         cache=cache, registry=registry, tracer=tracer)
-    serve_fn = sync.serve_batch
+    sync = sharded_fn = None
+    delta_errs: list = []
+    if args.shards > 1:
+        from repro_torch.serving import make_sharded_serve_fn
+        sharded_fn = make_sharded_serve_fn(
+            g, feat, cfg, num_shards=args.shards, tune_iters=args.tune_iters,
+            variant=args.variant, dist_backend=args.dist_backend,
+            registry=registry)
+
+        def serve_fn(seeds):
+            # the sharded path has no engine-internal spans; one span per
+            # batch keeps the trace's serve track populated
+            with tracer.span("serve_sharded", block=True, batch=len(seeds)):
+                return sharded_fn(seeds)
+
+        def update_graph(delta):
+            res = sharded_fn.update_graph(delta)
+            if args.verify > 0:
+                delta_errs.append(_fresh_split_err(sharded_fn, cfg,
+                                                   args.shards))
+            return res
+
+        serve_fn.update_graph = update_graph
+        device = sharded_fn.model.device
+    else:
+        sync = ServingEngine(g, feat, cfg, serving=_serving_config(args),
+                             cache=cache, registry=registry, tracer=tracer)
+        serve_fn = sync.serve_batch
+        device = sync.device
     # warm the pow-2 batch-size buckets so measured batches replay cached
     # plans instead of paying plan builds
     wrng = np.random.default_rng(args.seed + 1)
@@ -233,7 +295,7 @@ def _serve_async(args, g, feat, cfg, registry, tracer, cache=None) -> dict:
                                 registry=registry)
     print(f"[serve_gnn] async tier: policy={args.policy} "
           f"tenants={[(t.name, t.slo.name) for t in tenants]} "
-          f"backend={args.backend} device={sync.device} "
+          f"shards={args.shards} backend={args.backend} device={device} "
           f"variant={args.variant} dtype={args.dtype} "
           f"(setup {time.time() - t0:.1f}s)")
 
@@ -279,9 +341,17 @@ def _serve_async(args, g, feat, cfg, registry, tracer, cache=None) -> dict:
     update_errors = int(
         registry.counter("serve_graph_update_errors_total").value)
     if args.stream_deltas:
+        if sharded_fn is not None:
+            epoch, n = sharded_fn.plan.epoch, sharded_fn.plan.graph.num_nodes
+        else:
+            epoch, n = sync.graph_epoch, sync.graph.num_nodes
         print(f"[serve_gnn] applied {args.stream_deltas} deltas "
               f"(updates={updates}, errors={update_errors}, "
-              f"graph_epoch={sync.graph_epoch}, n={sync.graph.num_nodes})")
+              f"graph_epoch={epoch}, n={n})")
+        if sharded_fn is not None:
+            print(f"[serve_gnn] sub-plans sent again per delta: "
+                  f"{[len(r) for r in sharded_fn.resent]} of {args.shards}; "
+                  f"vs a fresh split: {delta_errs}")
     acc = engine.accounting()
     summary = engine.summary()
     engine.close()
@@ -302,6 +372,8 @@ def _serve_async(args, g, feat, cfg, registry, tracer, cache=None) -> dict:
     ok = ok and res["drained"] and acc["outstanding"] == 0
     ok = ok and acc["submitted"] == acc["completed"] + acc["rejected"]
     ok = ok and updates == args.stream_deltas and update_errors == 0
+    tol = 1e-5 if args.dtype == "float32" else 2e-2
+    ok = ok and all(e <= tol for e in delta_errs)
     err = None
     if args.verify > 0:
         rng = np.random.default_rng(args.seed)
@@ -312,14 +384,17 @@ def _serve_async(args, g, feat, cfg, registry, tracer, cache=None) -> dict:
             single = np.asarray(serve_fn([done[i].seed]))[0]
             err = max(err, float((np.abs(single - done[i].result)
                                   / (1.0 + np.abs(single))).max()))
-        tol = 1e-5 if args.dtype == "float32" else 2e-2
         ok = ok and err <= tol
         print(f"[serve_gnn] verify: max|batched - single|/(1+|single|) = "
               f"{err:.2e} ({'OK' if err <= tol else 'FAIL'} <= {tol:g})")
+    if sharded_fn is not None:
+        sharded_fn.close()
     if not ok:
         print(f"[serve_gnn] FAIL: accounting={acc} drained={res['drained']} "
-              f"updates={updates} update_errors={update_errors}")
-    return {"ok": ok, "engine": sync, "async_engine": engine,
+              f"updates={updates} update_errors={update_errors} "
+              f"delta_errs={delta_errs}")
+    return {"ok": ok, "engine": sync, "sharded_fn": sharded_fn,
+            "delta_errs": delta_errs, "async_engine": engine,
             "requests": reqs, "all_requests": all_reqs, "summary": summary,
             "accounting": acc, "throughput_rps": res["throughput_rps"],
             "updates": updates, "update_errors": update_errors,

@@ -52,8 +52,29 @@ the last three are GNN flags.  ``--stream-deltas`` requires
 ``--sampled``, as in the reference.  ``--trace-out PATH`` writes the
 Trainer's span records (``train`` / ``train/step`` / ``train/step/batch``
 / ``train/checkpoint``) as a Chrome/Perfetto trace with `run_context()`
-in ``otherData``.  ``--shards`` waits for its slice and exits with an
-error naming the ROADMAP item that ports it.
+in ``otherData``.
+
+``--shards N`` (GCN / GIN) runs N ranks of `repro_torch.distributed`
+(spawned processes under `torch.distributed`): full-graph training
+splits the train-ready plan into N contiguous node-range sub-plans
+(`Plan.shards`) in this process and sends one to each rank, which
+runs its forward and backward on the kernels with the halo exchange
+between layers; ``--sampled`` training goes data-parallel (rank p
+builds batch ``s N + p`` of step s over the one graph sent to it).  The
+gradients are all-reduced and AdamW runs once a step here, so this
+process alone writes checkpoints and metrics, and a restart restores
+every rank from that one checkpoint (the ranks hold no optimizer
+state).  ``--dist-backend nccl|gloo`` picks the transport (default nccl
+on the card, gloo on the CPU); nccl needs N cards, and gloo on the card
+puts every rank on card 0:
+
+    PYTHONPATH=src python -m repro_torch.launch.train --arch gcn \
+        --dataset pubmed --max-nodes 19717 --shards 4 --dist-backend gloo
+    PYTHONPATH=src python -m repro_torch.launch.train --arch gcn \
+        --dataset cora --steps 20 --shards 2 --device cpu --backend torch
+
+GAT is refused with ``--shards`` (as in the reference), and so are the
+LM archs, whose mesh is not ported (ROADMAP.md Queue 1, item 5b).
 """
 from __future__ import annotations
 
@@ -98,6 +119,21 @@ class _DeltaStream:
     def close(self):
         close = getattr(self.batch_fn, "close", None)
         (close or self.loader.close)()
+
+
+class _StepIndex:
+    """The batch source of sharded sampled training: the step index
+    itself (each rank's loader builds its share), and a ``close()`` the
+    Trainer forwards to the step's rank loaders."""
+
+    def __init__(self, step_fn):
+        self.step_fn = step_fn
+
+    def __call__(self, step: int) -> int:
+        return step
+
+    def close(self):
+        self.step_fn.close()
 
 
 def parse_args(argv=None) -> argparse.Namespace:
@@ -157,7 +193,10 @@ def parse_args(argv=None) -> argparse.Namespace:
     p.add_argument("--batch-nodes", type=int, default=512,
                    help="seed nodes per sampled mini-batch")
     p.add_argument("--shards", type=int, default=1,
-                   help="graph shards (not ported: 1 only)")
+                   help="graph shards, one rank process each (gcn/gin)")
+    p.add_argument("--dist-backend", default=None, choices=["nccl", "gloo"],
+                   help="transport of --shards (default: nccl on cuda, "
+                        "gloo on cpu; nccl needs one card per shard)")
     p.add_argument("--stream-deltas", type=int, default=0,
                    help="with --sampled: apply one synthetic interaction-"
                         "stream delta to the resident graph every N steps")
@@ -178,9 +217,17 @@ def parse_args(argv=None) -> argparse.Namespace:
     if args.stream_deltas and not args.sampled:
         p.error("--stream-deltas requires --sampled (the resident-graph "
                 "loader owns the swap protocol)")
-    if args.shards != 1:
-        p.error("--shards is not ported yet (ROADMAP.md Queue 1, item 5: "
-                "sharding)")
+    if args.shards < 1:
+        p.error("--shards must be >= 1")
+    if args.shards > 1 and args.arch not in GNN_ARCHS:
+        p.error("--shards with an LM arch: the LM mesh is not ported yet "
+                "(ROADMAP.md Queue 1, item 5b)")
+    if args.shards > 1 and args.arch not in ("gcn", "gin"):
+        p.error("--shards supports gcn/gin only (the reference refuses GAT "
+                "too)")
+    if args.dist_backend == "nccl" and args.device == "cpu":
+        p.error("--dist-backend nccl runs on the card only; on the CPU pass "
+                "--dist-backend gloo")
     if args.steps < 0:
         p.error("--steps must be >= 0")
     if args.n_micro < 1 or args.global_batch % args.n_micro:
@@ -285,9 +332,12 @@ def run(argv=None) -> dict:
                     device=str(device))
     # learnable planted task: labels from a frozen random teacher
     labels = planted_labels(g, cfg, feat, seed=args.seed + 7)
+    # --shards forces the transposed backward pair: every rank's backward
+    # runs the kernels over its sub-plan's transposed schedule
     model = build_gnn(g, cfg, generator=torch.Generator().manual_seed(
         args.seed), reorder="auto", tune_iters=6, seed=args.seed,
-        variant=args.variant)
+        variant=args.variant,
+        with_backward=True if args.shards > 1 else None)
     plan = model.plan
     batch = {"feat": torch.as_tensor(plan.renumber_features(feat),
                                      device=device),
@@ -304,25 +354,52 @@ def run(argv=None) -> dict:
 
     opt = AdamWConfig(lr=args.lr,
                       schedule=cosine_schedule(args.warmup, args.steps))
-    step_fn = make_gnn_train_step(model, opt)
+    group = None
+    if args.shards > 1:
+        from repro_torch.distributed.graph_shard import (
+            make_sharded_train_step)
+        shards = plan.shards(args.shards)
+        st = shards.stats()
+        step_fn = make_sharded_train_step(
+            cfg, shards, opt, dist_backend=args.dist_backend,
+            registry=registry)
+        group = step_fn.model.group
+        print(f"[train] shards={args.shards} "
+              f"dist_backend={group.dist_backend} n_local={st['n_local']} "
+              f"edges/shard={st['edges_per_shard']} "
+              f"halo={st['halo_per_shard']} "
+              f"edge_balance={st['edge_balance']:.2f}", flush=True)
+    else:
+        step_fn = make_gnn_train_step(model, opt)
     # the parameter shapes and the graph both depend on these flags; a run
     # under another configuration must not resume this one's checkpoint
     ckpt_dir = args.ckpt_dir or os.path.join(
         tempfile.gettempdir(),
         f"repro_torch_train_{args.arch}_{args.dataset}_n{max_nodes}"
         f"_s{args.scale}_h{args.hidden_dim}_{args.backend}_{args.dtype}"
-        f"_{args.variant}_{args.seed}")
+        f"_{args.variant}_p{args.shards}_{args.seed}")
     init_params = {k: v.detach().clone() for k, v in model.params.items()}
-    res = _train(args, step_fn, lambda step: batch,
-                 (model.params, adamw_init(model.params)), ckpt_dir,
-                 registry, tracer)
+    rank_launches = None
+    try:
+        if group is not None:
+            group.launches(reset=True)
+        res = _train(args, step_fn, lambda step: batch,
+                     (model.params, adamw_init(model.params)), ckpt_dir,
+                     registry, tracer)
+        if group is not None:
+            rank_launches = group.launches()
+    finally:
+        if group is not None:
+            step_fn.close()
     print(f"[train] arch={args.arch} backend={args.backend} "
           f"dtype={args.dtype} variant={c.variant} dataset={args.dataset} "
+          f"shards={args.shards} "
           f"steps={len(res['history'])} first_loss={res['first_loss']:.4f} "
           f"last_loss={res['last_loss']:.4f} "
           f"avg_step={res['avg_step_s'] * 1e3:.2f}ms "
           f"wall={res['wall_s']:.1f}s", flush=True)
-    return dict(res, model=model, batch=batch, init_params=init_params)
+    return dict(res, model=model, batch=batch, init_params=init_params,
+                rank_launches=rank_launches)
 
 
 def _run_sampled(args) -> dict:
@@ -341,7 +418,8 @@ def _run_sampled(args) -> dict:
     from repro_torch.optim.adamw import (AdamWConfig, adamw_init,
                                          cosine_schedule)
     from repro_torch.sampling import (LoaderConfig, SampledLoader,
-                                      SampledTrainStep)
+                                      SampledTrainStep,
+                                      ShardedSampledTrainStep)
 
     device = resolve_device(args.device)      # raises without a card
     registry = MetricsRegistry()
@@ -361,20 +439,30 @@ def _run_sampled(args) -> dict:
           f"classes={spec.num_classes} arch={args.arch} "
           f"backend={args.backend} device={device} variant={args.variant} "
           f"dtype={args.dtype} (gen {time.time() - t0:.1f}s)", flush=True)
-    loader = SampledLoader(
-        g, feat, labels, cfg,
-        LoaderConfig(fanouts=fanouts, batch_nodes=args.batch_nodes,
-                     seed=args.seed, variant=args.variant),
-        registry=registry)
+    lc = LoaderConfig(fanouts=fanouts, batch_nodes=args.batch_nodes,
+                      seed=args.seed, variant=args.variant)
     opt = AdamWConfig(lr=args.lr,
                       schedule=cosine_schedule(args.warmup, args.steps))
-    step_fn = SampledTrainStep(cfg, opt)
-    batch_fn, stream = loader, None
+    if args.shards > 1:
+        # data-parallel: rank p's own loader builds batch s*N + p of step
+        # s over the graph sent to it; the batch source is the step index
+        loader = None
+        step_fn = ShardedSampledTrainStep(
+            cfg, opt, args.shards, graph=g, feat=feat, labels=labels,
+            loader=lc, dist_backend=args.dist_backend, registry=registry)
+        batch_fn = _StepIndex(step_fn)
+        print(f"[train] shards={args.shards} "
+              f"dist_backend={step_fn.group.dist_backend}", flush=True)
+    else:
+        loader = SampledLoader(g, feat, labels, cfg, lc, registry=registry)
+        step_fn = SampledTrainStep(cfg, opt)
+        batch_fn = loader
+    stream = None
     if args.stream_deltas:
         from repro_torch.graphs.datasets import interaction_stream
         eb = args.stream_edges or max(32, g.num_edges // 100)
         batch_fn = stream = _DeltaStream(
-            loader, loader,
+            batch_fn, loader or step_fn,
             interaction_stream(g, num_batches=args.steps // args.stream_deltas
                                + 1, edges_per_batch=eb, feat_dim=in_dim,
                                seed=args.seed),
@@ -389,11 +477,23 @@ def _run_sampled(args) -> dict:
         f"repro_torch_train_sampled_{args.arch}_{args.dataset}"
         f"_n{args.max_nodes}_s{args.scale}_h{args.hidden_dim}"
         f"_f{'-'.join(map(str, fanouts))}_b{args.batch_nodes}"
-        f"_d{args.stream_deltas}x{args.stream_edges}"
+        f"_d{args.stream_deltas}x{args.stream_edges}_p{args.shards}"
         f"_{args.backend}_{args.dtype}_{args.variant}_{args.seed}")
-    res = _train(args, step_fn, batch_fn, (params, adamw_init(params)),
-                 ckpt_dir, registry, tracer)
-    st = dict(loader.stats(), num_buckets=step_fn.num_buckets)
+    rank_launches = None
+    if args.shards > 1:
+        step_fn.group.launches(reset=True)
+    try:
+        res = _train(args, step_fn, batch_fn, (params, adamw_init(params)),
+                     ckpt_dir, registry, tracer)
+    finally:
+        if args.shards > 1:
+            step_fn.close()       # (idempotent after the Trainer's close)
+    if args.shards > 1:
+        rank_launches = step_fn.group.launches()
+        # rank 0's loader speaks for the group
+        st = dict(step_fn.loader_stats[0], num_buckets=step_fn.num_buckets)
+    else:
+        st = dict(loader.stats(), num_buckets=step_fn.num_buckets)
     deltas = (f"graph_epoch={st['graph_epoch']} "
               if st["graph_swaps"] else "")
     print(f"[train] arch={args.arch} backend={args.backend} "
@@ -406,9 +506,10 @@ def _run_sampled(args) -> dict:
           f"cache_hit_rate={st['cache']['hit_rate']:.2f} "
           f"sample_p50={st['sample_p50_ms']:.1f}ms "
           f"stall_p99={st['prefetch_stall_p99_ms']:.1f}ms "
-          f"wall={res['wall_s']:.1f}s", flush=True)
+          f"shards={args.shards} wall={res['wall_s']:.1f}s", flush=True)
     return dict(res, cfg=cfg, loader=loader, step_fn=step_fn,
-                init_params=init_params, stats=st, stream=stream)
+                init_params=init_params, stats=st, stream=stream,
+                rank_launches=rank_launches)
 
 
 def _run_lm(args) -> dict:

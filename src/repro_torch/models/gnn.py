@@ -4,9 +4,9 @@ GNNAdvisor aggregation engine.
 Port of `src/repro/models/gnn.py` (`GNNConfig`, `gcn_edge_values`,
 `init_gnn_params`, `GNNModel.logits` / `loss`, `build_gnn`,
 `planted_labels`, `structural_labels`, `make_gnn_train_step`, the sampled
-block forward `gnn_block_logits` / `gnn_block_loss`, plus
-`params_from_jax` to carry the reference's weights across).  The sharded
-forward comes with its slice.
+block forward `gnn_block_logits` / `gnn_block_loss`, the per-rank
+sharded forward `gnn_sharded_logits`, plus `params_from_jax` to carry
+the reference's weights across).
 
 Training runs on either backend: `build_gnn` attaches the transposed
 backward schedule when the backend is ``"cuda"`` (or when
@@ -50,7 +50,8 @@ from repro_torch.graphs.csr import CSRGraph
 Params = Dict[str, torch.Tensor]
 
 __all__ = ["GNNConfig", "GNNModel", "build_gnn", "gcn_edge_values",
-           "gnn_block_logits", "gnn_block_loss", "init_gnn_params",
+           "gnn_block_logits", "gnn_block_loss", "gnn_sharded_logits",
+           "init_gnn_params",
            "make_gnn_train_step", "params_from_jax", "planted_labels",
            "structural_labels"]
 
@@ -198,6 +199,45 @@ def gnn_block_logits(cfg: GNNConfig, params: Params, feat: torch.Tensor,
             x = _mmul(torch.relu(_mmul(h, w, cdt)), params[f"w{i}b"], cdt)
         if i + 1 < len(executors):
             x = x[: executors[i + 1].sched.num_nodes]
+    return x.float()
+
+
+def gnn_sharded_logits(cfg: GNNConfig, params: Params,
+                       feat_local: torch.Tensor, executor) -> torch.Tensor:
+    """Per-rank body of the sharded full-graph forward (port of the
+    reference's `gnn_sharded_logits`; `repro_torch.distributed.
+    graph_shard` runs it on every rank of a group).
+
+    ``feat_local`` is this rank's (n_local, in_dim) row slice of the
+    parent plan's node order; ``executor`` aggregates the shard's OUTPUT
+    rows from the full gathered feature matrix (a sub-plan executor from
+    `core.shard.shard_plan`: schedule num_nodes == padded global N, local
+    rows leading).  Each layer all-gathers the current activations (the
+    halo exchange, `graph_shard.gather_rows`, whose backward is the
+    reduce-scatter that returns cotangents to their owner ranks),
+    aggregates locally, and keeps the local rows.  Returns (n_local,
+    num_classes) float32.
+    """
+    from repro_torch.distributed.graph_shard import gather_rows
+    if cfg.arch not in ("gcn", "gin"):
+        raise NotImplementedError(
+            f"sharded forward supports gcn/gin, not {cfg.arch!r}")
+    cdt = cfg.compute_dtype
+    n_local = feat_local.shape[0]
+    x = feat_local
+    for i in range(cfg.num_layers):
+        w = params[f"w{i}"]
+        if cfg.arch == "gcn":
+            # project BEFORE the exchange, in the policy dtype: under bf16
+            # the halo all-gather moves half the bytes
+            z_full = gather_rows(_mmul(x, w, cdt))
+            x = executor(z_full)[:n_local]
+            if i < cfg.num_layers - 1:
+                x = torch.relu(x)
+        else:
+            agg = executor(gather_rows(x.to(cdt)))[:n_local]
+            h = (1.0 + cfg.gin_eps) * x.to(cdt) + agg.to(cdt)
+            x = _mmul(torch.relu(_mmul(h, w, cdt)), params[f"w{i}b"], cdt)
     return x.float()
 
 

@@ -331,12 +331,12 @@ def profile_plan(plan, feat=None, *, backend: str = "cuda", device="cuda",
         labelled ``{schedule, variant}``.
     label : prefix for schedule names (``label=f"b{bucket}/"`` keeps one
         plan per shape bucket apart).
-    shards : refused: sharded execution is not ported yet (ROADMAP
-        Queue 1 item 5).
+    shards : optional shard count: one ``shard{p}/forward`` row per
+        sub-plan of ``plan.shards(shards)``, each executor run in this
+        process on one device over the features zero-padded to
+        ``spec.padded_nodes`` rows (what the all-gather hands a rank), as
+        the reference profiles them; no collective runs.
     """
-    if shards:
-        raise ValueError("profile_plan(shards=...): sharded execution is not "
-                         "ported yet (ROADMAP Queue 1 item 5)")
     import numpy as np
     import torch
 
@@ -395,6 +395,21 @@ def profile_plan(plan, feat=None, *, backend: str = "cuda", device="cuda",
         def total_call(x):
             return _block(fwd_fn(x))
     m_total = measure(total_call, feat_t, warmup=warmup, iters=iters)
+
+    if shards:
+        sub_plans = plan.shards(shards)
+        spec = sub_plans.spec
+        feat_pad = torch.nn.functional.pad(
+            feat_t, (0, 0, 0, spec.padded_nodes - feat_t.shape[0]))
+        for p_idx, sub in enumerate(sub_plans.plans):
+            m_sub = measure(sub.executor(backend, dev), feat_pad,
+                            warmup=warmup, iters=iters)
+            t_sub = model_terms(sub.partition)
+            lo, hi = sub_plans.edge_ranges[p_idx]
+            schedules.append(ScheduleProfile(
+                schedule=f"{label}shard{p_idx}/forward", measured=m_sub,
+                model_latency_s=t_sub["latency"], model_bytes=t_sub["bytes"],
+                edges=int(hi - lo), tiles=int(sub.partition.num_tiles)))
 
     report = ProfileReport(schedules=tuple(schedules), total=m_total,
                            dim=d, backend=backend)

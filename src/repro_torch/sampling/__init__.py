@@ -3,11 +3,12 @@
 Port of `src/repro/sampling/`: `neighbor` builds per-layer bipartite
 message-flow blocks by seeded fanout sampling; `loader` streams padded,
 planned, device-resident batches through a prefetch thread and runs the
-eager train step.  ``ShardedSampledTrainStep`` waits for the sharding
-slice.
+eager train step; `ShardedSampledTrainStep` runs it data-parallel over
+a rank group.
 """
 from repro_torch.sampling.loader import (LoaderConfig, SampledLoader,
-                                         SampledTrainStep, TrainBatch)
+                                         SampledTrainStep,
+                                         ShardedSampledTrainStep, TrainBatch)
 from repro_torch.sampling.neighbor import (Block, SampledBatch,
                                            block_aggregate_ref,
                                            sample_blocks, sample_frontier)
@@ -22,4 +23,5 @@ __all__ = [
     "TrainBatch",
     "SampledLoader",
     "SampledTrainStep",
+    "ShardedSampledTrainStep",
 ]

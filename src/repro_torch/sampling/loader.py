@@ -33,8 +33,10 @@ buffered batches are dropped, a batch in flight is discarded when it
 finishes, and the consumer waits for the swap before it takes a batch.
 Every batch carries the ``graph_epoch`` it was built from.
 
-Left for a later slice: ``ShardedSampledTrainStep`` (sharding, ROADMAP
-Queue 1 item 5).
+`ShardedSampledTrainStep` is data-parallel sampled training over a rank
+group (`repro_torch.distributed.ranks`): each rank holds a loader over
+the one graph the caller hands it and builds its own share of every
+step's batches.
 """
 from __future__ import annotations
 
@@ -56,7 +58,7 @@ from repro_torch.sampling.neighbor import sample_blocks
 from repro_torch.serving.plan_cache import PlanCache, bucket_pow2
 
 __all__ = ["LoaderConfig", "TrainBatch", "SampledLoader", "SampledTrainStep",
-           "sampled_agg_config"]
+           "ShardedSampledTrainStep", "sampled_agg_config"]
 
 
 def sampled_agg_config(g: CSRGraph):
@@ -477,3 +479,153 @@ class SampledTrainStep:
                                              params)
         return (params, opt_state), {**{k: v.detach()
                                         for k, v in metrics.items()}, **om}
+
+
+class _RankLoader(SampledLoader):
+    """Rank ``rank``'s loader of a ``world``-rank group: its step ``k``
+    is the global batch ``k * world + rank``, so each rank prefetches
+    only its own batches, in order."""
+
+    def __init__(self, *args, rank: int, world: int, **kw):
+        self._rank, self._world = rank, world
+        super().__init__(*args, **kw)
+
+    def batch_for(self, step: int) -> TrainBatch:
+        return super().batch_for(step * self._world + self._rank)
+
+
+def _r_sampled_install(r, key, g, feat, labels, cfg, lc, train_nodes):
+    cfg = dataclasses.replace(cfg, device=str(r.device))
+    r.state[key] = {"cfg": cfg, "loader": _RankLoader(
+        g, feat, labels, cfg, lc, train_nodes=train_nodes, rank=r.rank,
+        world=r.world)}
+
+
+def _r_sampled_value_and_grad(r, key, pw: dict, step: int):
+    from repro_torch.distributed.graph_shard import local_step_value_and_grad
+    from repro_torch.distributed.ranks import from_wire, to_wire
+    from repro_torch.models.gnn import gnn_block_logits
+    st = r.state[key]
+    cfg = st["cfg"]
+    batch = st["loader"](step)
+    execs = [ent.executor for ent in batch.entries]
+    grads, loss, m = local_step_value_and_grad(
+        lambda p: gnn_block_logits(cfg, p, batch.feat, execs),
+        {k: from_wire(w, r.device) for k, w in pw.items()},
+        batch.labels, batch.mask)
+    out = {"work": sum(batch.raw_edges), "key": batch.key,
+           "graph_epoch": batch.graph_epoch, "step": batch.step}
+    if r.rank == 0:
+        out.update(grads={k: to_wire(g) for k, g in grads.items()},
+                   loss=float(loss), accuracy=float(m["accuracy"]))
+    return out
+
+
+def _r_sampled_update_graph(r, key, delta) -> None:
+    r.state[key]["loader"].update_graph(delta)
+
+
+def _r_sampled_close(r, key) -> dict:
+    st = r.state.pop(key, None)
+    if st is None:
+        return {}
+    st["loader"].close()
+    return st["loader"].stats()
+
+
+class ShardedSampledTrainStep:
+    """Data-parallel sampled training over a rank group.
+
+    Port of the reference's `ShardedSampledTrainStep` (:473).  Rank ``p``
+    holds a `SampledLoader` over the graph, features and labels given
+    here (sent once) and builds batch ``s * num_shards + p`` for
+    optimizer step ``s`` with its own prefetch thread, so the group
+    consumes ``num_shards`` loader batches a step, exactly the batches
+    the reference's caller hands its step.  ``step_fn(state, step)``
+    takes the STEP INDEX (drive it with ``batch_fn = lambda s: s``): each
+    rank runs the forward and backward over its batch's blocks, the
+    gradients are all-reduced into the gradient of the UNION batch's
+    masked loss, and one AdamW update runs in the caller.
+
+    The reference repartitions a batch whose bucket config differs from
+    its step-mates' (``sampled_replans_total``), because its `shard_map`
+    operands share one set of statics.  Each rank here runs its own
+    schedules, so that cannot happen and there is no replan.  The
+    ``sampled_step_skew`` histogram records each step's work skew
+    ((max - min) / max of the raw edge counts over the ranks' batches).
+    ``num_buckets`` counts the distinct batch keys seen.
+    """
+
+    def __init__(self, cfg: GNNConfig, opt, num_shards: int, *,
+                 graph: CSRGraph, feat: np.ndarray, labels: np.ndarray,
+                 loader: LoaderConfig,
+                 train_nodes: Optional[np.ndarray] = None,
+                 dist_backend: Optional[str] = None, group=None,
+                 timeout: Optional[float] = None,
+                 registry: Optional[MetricsRegistry] = None):
+        from repro_torch.distributed.ranks import CALL_TIMEOUT_S, shard_group
+        if cfg.arch not in ("gcn", "gin"):
+            raise ValueError(
+                f"sampled training supports gcn/gin, not {cfg.arch!r}")
+        self.cfg = cfg
+        self.opt = opt
+        self.num_shards = num_shards
+        self.device = resolve_device(cfg.device)
+        self.group = group if group is not None else shard_group(
+            num_shards, device=self.device, dist_backend=dist_backend,
+            timeout=CALL_TIMEOUT_S if timeout is None else timeout)
+        self.key = self.group.new_key("sampled")
+        self._keys: set = set()
+        self.last: list = []           # each rank's report of the last step
+        self.loader_stats: list = []   # each rank's loader stats at close
+        self.registry = registry if registry is not None else MetricsRegistry()
+        self._h_skew = self.registry.histogram(
+            "sampled_step_skew", unit="",
+            bounds=(0.01, 0.02, 0.05, 0.1, 0.2, 0.3, 0.5, 0.75, 1.0),
+            desc="per-step shard work skew: (max-min)/max of raw edge "
+                 "counts over the step's loader batches")
+        self.group.run(_r_sampled_install, None, self.key, graph,
+                       np.ascontiguousarray(feat, dtype=np.float32),
+                       np.ascontiguousarray(labels, dtype=np.int32), cfg,
+                       loader, train_nodes)
+
+    @property
+    def num_buckets(self) -> int:
+        return len(self._keys)
+
+    def value_and_grad(self, params, step: int):
+        """``(grads, loss, {"loss", "accuracy"})`` of step ``step``'s union
+        batch, gradients all-reduced over the ranks (no update)."""
+        from repro_torch.distributed.ranks import from_wire, to_wire
+        pw = {k: to_wire(v) for k, v in params.items()}
+        reps = self.group.run(_r_sampled_value_and_grad, None, self.key, pw,
+                              int(step))
+        work = [rep["work"] for rep in reps]
+        self._h_skew.observe((max(work) - min(work)) / max(max(work), 1))
+        self._keys.update(rep["key"] for rep in reps)
+        self.last = reps
+        grads = {k: from_wire(w, self.device)
+                 for k, w in reps[0]["grads"].items()}
+        loss = torch.tensor(reps[0]["loss"], device=self.device)
+        acc = torch.tensor(reps[0]["accuracy"], device=self.device)
+        return grads, loss, {"loss": loss, "accuracy": acc}
+
+    def __call__(self, state, step: int):
+        from repro_torch.optim.adamw import adamw_update
+        params, opt_state = state
+        grads, _, metrics = self.value_and_grad(params, step)
+        params, opt_state, om = adamw_update(self.opt, grads, opt_state,
+                                             params)
+        return (params, opt_state), {**metrics, **om}
+
+    def update_graph(self, delta) -> None:
+        """Hand a `GraphDelta` to every rank's loader (swapped in at its
+        next batch boundary, `SampledLoader.update_graph`)."""
+        self.group.run(_r_sampled_update_graph, None, self.key, delta)
+
+    def close(self) -> None:
+        """Stop the ranks' loaders (their stats land in
+        ``loader_stats``) and free their state."""
+        if self.group.alive and not self.loader_stats:
+            self.loader_stats = self.group.run(_r_sampled_close, None,
+                                               self.key)

@@ -29,8 +29,9 @@ synchronizes the device so it times the device work.
 GCN edge values are computed ONCE from the resident graph's degrees and
 sliced into every subgraph, so batched ego inference is numerically
 identical to full-graph inference at the seeds.  Both engines take graph
-deltas (`update_graph`); sharded serving (`make_sharded_serve_fn`) waits
-for its slice.
+deltas (`update_graph`).  `make_sharded_serve_fn` answers requests from
+the sharded full-graph forward over a rank group
+(`repro_torch.distributed.graph_shard`), and takes deltas too.
 """
 from __future__ import annotations
 
@@ -57,7 +58,7 @@ from repro_torch.serving.batcher import (ClockBatcher, DeadlineBatcher,
 from repro_torch.serving.plan_cache import PlanCache, bucket_pow2
 
 __all__ = ["AsyncServingEngine", "ServingConfig", "ServingEngine",
-           "TenantSpec"]
+           "TenantSpec", "make_sharded_serve_fn"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -831,3 +832,116 @@ class AsyncServingEngine:
                 "batches": ts.h_batch.count,
             }
         return out
+
+
+def make_sharded_serve_fn(graph: CSRGraph, feat: np.ndarray, cfg: GNNConfig,
+                          *, num_shards: int, params=None,
+                          generator: Optional[torch.Generator] = None,
+                          tune_iters: int = 4, variant: Optional[str] = None,
+                          dist_backend: Optional[str] = None, group=None,
+                          registry: Optional[MetricsRegistry] = None):
+    """A ``serve_fn(seeds) -> (len(seeds), C)`` numpy array answering
+    requests from the sharded full-graph forward
+    (`distributed.graph_shard.make_sharded_logits_fn`): where the
+    micro-batcher and the rank group meet.  Port of the reference's
+    `make_sharded_serve_fn` (:917).
+
+    The resident graph is planned ONCE (`plan_for` + `Plan.shards`, each
+    sub-plan sent to its rank once) and every fired batch runs one
+    sharded full-graph forward, slicing out the requested seed rows:
+    numerically single-device full-graph inference.  Parameters default
+    to `init_gnn_params(cfg, generator)`, the `ServingEngine`'s;
+    ``variant`` pins the gather kernel (None keeps the tuner's).
+
+    ``serve_fn.update_graph(delta)`` mutates the resident graph through
+    the incremental path (`PlanShards.apply_delta` ->
+    `core.shard.update_shards`): only sub-plans intersecting the dirty
+    rows are recomputed, GCN A-hat weights are re-derived from the
+    mutated degrees, and only sub-plans that are not the same `Plan`
+    object as before are sent to their ranks again (``serve_fn.resent``,
+    the ranks, one list per delta).  `AsyncServingEngine`
+    resolves this attribute as the tenant's graph-update handler.
+    ``serve_fn.close()`` frees the ranks' state.
+    """
+    import dataclasses as _dc
+
+    from repro_torch.core.advisor import plan_for
+    from repro_torch.distributed.graph_shard import make_sharded_logits_fn
+
+    if cfg.arch == "gcn":
+        src_graph, src_vals = gcn_edge_values(graph)
+    elif cfg.arch == "gin":
+        src_graph, src_vals = graph, None
+    else:
+        raise ValueError(f"sharded serving supports gcn/gin (static edge "
+                         f"values), got {cfg.arch!r}")
+    set_matmul_precision()
+    device = resolve_device(cfg.device)
+    plan = plan_for(src_graph, arch=cfg.arch, in_dim=cfg.in_dim,
+                    hidden_dim=cfg.hidden_dim, num_layers=cfg.num_layers,
+                    edge_vals=src_vals, tune_iters=tune_iters,
+                    feat_dtype=cfg.feat_dtype, variant=variant)
+    shards = plan.shards(num_shards)
+    if params is None:
+        params = init_gnn_params(cfg, generator)
+    logits_fn = make_sharded_logits_fn(cfg, shards, group=group,
+                                       dist_backend=dist_backend,
+                                       registry=registry)
+    feat = np.ascontiguousarray(feat, dtype=np.float32)
+    state = {"graph": graph, "shards": shards, "feat": feat,
+             "feat_dev": torch.from_numpy(feat).to(device)}
+
+    def serve_fn(seeds: Sequence[int]) -> np.ndarray:
+        out = logits_fn(params, state["feat_dev"]).cpu().numpy()
+        return out[np.asarray(list(seeds), dtype=np.int64)]
+
+    def _ahat_vals(g2_plan: CSRGraph) -> np.ndarray:
+        # A-hat weights from the mutated PLAN-ORDER graph itself: it
+        # already carries the self-loops, so this reproduces
+        # `gcn_edge_values` without the external-order edge array
+        inv = 1.0 / np.sqrt(np.maximum(g2_plan.degrees.astype(np.float64),
+                                       1.0))
+        rows, cols = g2_plan.to_coo()
+        return (inv[rows] * inv[cols]).astype(np.float32)
+
+    def update_graph(delta):
+        g_old = state["graph"]
+        res = g_old.apply_delta(delta)        # raw snapshot: id space/feat
+        g2 = res.graph
+        if cfg.arch == "gcn":
+            # the plan graph carries self-loops: mirror the delta there,
+            # inserting loops for new nodes and re-inserting them for
+            # del_nodes (node deletion empties the row, the id survives)
+            loops = np.concatenate([
+                np.arange(g_old.num_nodes, g2.num_nodes, dtype=np.int64),
+                np.asarray([] if delta.del_nodes is None else delta.del_nodes,
+                           np.int64).ravel()])
+            add_src = np.asarray([] if delta.add_src is None
+                                 else delta.add_src, np.int64).ravel()
+            add_dst = np.asarray([] if delta.add_dst is None
+                                 else delta.add_dst, np.int64).ravel()
+            delta_plan = _dc.replace(
+                delta, add_src=np.concatenate([add_src, loops]),
+                add_dst=np.concatenate([add_dst, loops]), add_val=None)
+            shards2 = state["shards"].apply_delta(delta_plan,
+                                                  edge_vals=_ahat_vals)
+        else:
+            shards2 = state["shards"].apply_delta(delta)
+        feat2 = extend_node_features(state["feat"], delta, g2.num_nodes)
+        serve_fn.resent.append(logits_fn.model.update_shards(shards2))
+        state.update(graph=g2, shards=shards2, feat=feat2,
+                     feat_dev=torch.from_numpy(feat2).to(device))
+        serve_fn.plan = shards2.parent
+        serve_fn.shards = shards2
+        return res
+
+    serve_fn.plan = plan          # introspection for tests/benchmarks
+    serve_fn.shards = shards
+    serve_fn.params = params
+    serve_fn.resent = []
+    serve_fn.model = logits_fn.model
+    serve_fn.feat = lambda: state["feat_dev"]
+    serve_fn.logits = lambda: logits_fn(params, state["feat_dev"])
+    serve_fn.update_graph = update_graph
+    serve_fn.close = logits_fn.model.close
+    return serve_fn

@@ -203,9 +203,12 @@ def test_profile_plan_attribution_under_stubbed_measure(fwd, bwd, total,
 
 
 def test_profile_plan_refuses_shards():
+    """``shards=`` now profiles each sub-plan (see
+    `tests/test_torch_graph_shard.py`); a count below one is refused by
+    the splitter, as in the reference."""
     _, tp = _plans()
-    with pytest.raises(ValueError, match="Queue 1 item 5"):
-        t_obs.profile_plan(tp, dim=8, shards=2, backend="torch",
+    with pytest.raises(ValueError, match="num_shards must be >= 1"):
+        t_obs.profile_plan(tp, dim=8, shards=-1, backend="torch",
                            device="cpu")
 
 

@@ -427,7 +427,9 @@ def test_driver_async_deadline_tenants_stream_deltas():
 
 
 @pytest.mark.parametrize("flags,msg", [
-    (["--shards", "2"], "Queue 1 item 5"),
+    (["--shards", "2", "--arch", "gat"], "gcn/gin only"),
+    (["--shards", "2", "--dist-backend", "nccl", "--device", "cpu"],
+     "--dist-backend gloo"),
 ])
 def test_driver_refuses_unported_flags(flags, msg, capsys):
     with pytest.raises(SystemExit):
