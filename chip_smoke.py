@@ -213,10 +213,11 @@ Phases, each timed, any failure exits non-zero before the result line:
      cross-entropy, flash attention's backward, remat, micro-batches,
      AdamW in place): (a) ``repro_torch.launch.train --arch
      h2o-danube-1.8b --full --global-batch 8 --n-micro 2 --seq-len 4096
-     --warmup 1 --steps 6 --ckpt-every 1000`` (24 layers, 1,831,201,280
-     parameters, bf16, remat "full"): finite losses, the last below the
-     first, no kernel launch and no plain call (the path holds no Mamba
-     slot), then step ms (mean of steps 2-6), tok/s, the model-FLOP share
+     --warmup 1 --steps 4 --ckpt-every 1000`` at full width, depth cut to
+     12 of its 24 layers (997,521,920 parameters, bf16, remat "full"):
+     finite losses, the last below the first, no kernel launch and no
+     plain call (the path holds no Mamba slot), then step ms (mean of
+     steps 2-4), tok/s, the model-FLOP share
      of the bf16 dense peak ((6 N + 12 L H hd S) T a step), peak memory
      and one more step under `torch.profiler` (top device ops, idle
      share); (b) flash attention's backward against plain autograd
@@ -306,10 +307,40 @@ Phases, each timed, any failure exits non-zero before the result line:
      gradient vs the single-device gradient of the union of its 4
      batches within 1e-4; (g) ``profile_plan(shards=4)`` on (d)'s
      train-ready GCN plan: every ``shard{p}/forward`` row present, device
-     p50s printed.
+     p50s printed.  The group of 4 ranks stays up for phase 13.
+  13. lm-mesh — the LM serving mesh (`launch/mesh.py`,
+     `distributed/sharding.py`, `runtime/elastic.py`, the ``mesh=`` paths
+     of `models/lm.py` written out in `nn/tensor_parallel.py`) on the 4
+     ranks of phase 12 (the same backend rule).  Jamba-v0.1 at full width,
+     one period (phase 9's 13,295,235,072 bf16 parameters), drawn once on
+     the card and sent to the ranks slice by slice (`reshard`, CUDA IPC;
+     bytes and seconds printed) on a (1, 4) mesh over (data, model): every
+     split dim divides by 4.  The scan kernel first at each rank's shape
+     (B 2, S 1024, d_inner 2048, N 16) against its plain version, 1e-5.
+     (a) ``make_prefill_step(mesh=)`` at B 2, S 1024, 1 warm-up + 3 timed
+     prefills (host clock, synchronized): each rank's scan launches zeroed
+     before and read after, exactly 7 a prefill on every rank (28 a
+     prefill) and no plain call, nothing launched by the caller, finite
+     logits; wall ms, each rank's device span and ms in collectives
+     (`collective_ms`), each rank's and the caller's peak GB and the
+     card's memory in use; the bf16 logits against the one-device port,
+     beside the one-device run's own spread under a one-ulp nudge of every
+     weight (reported, not gated); (b) ``make_decode_step(mesh=)`` in
+     `launch/serve.py`'s flow, a 16-token prompt then 16 greedy tokens
+     from step 0: tok/s, and each step's logits against the one-device
+     decode fed the same tokens, beside the nudge's spread (reported);
+     (c) float32 on a (2, 2) mesh, one layer alone of each kind of the
+     period (attention + GLU, slot 4; Mamba + GLU, slot 0, through the
+     scan kernel; Mamba + MoE, slot 1, at a capacity factor of n_experts
+     / topk so no choice drops), B 2, S 512, mesh against one device:
+     logits and the attention layer's KV within 1e-4 in
+     ``max|a-b|/(1+max|b|)``, peak GB printed; (d) the float32 Mamba +
+     GLU layer moved from (2, 2) onto (1, 4) by `remesh_state` (through
+     host memory; bytes and seconds printed): its logits within 1e-5 of
+     those on (2, 2).
 
 
-``--phases`` runs a subset of phases 2-12 (names in `PHASES`); with no
+``--phases`` runs a subset of phases 2-13 (names in `PHASES`); with no
 arguments every phase runs.  The line before the last is the
 ``{"kernels": [...]}`` record (times are
 medians of 20 CUDA-event-timed calls after 3 warm-up calls, on warm
@@ -334,7 +365,8 @@ and edge-gradient kernel's on phase 11's main path and
 ``launches_sharded`` each kernel's in phase 12 (every rank's, summed);
 the scan kernel's record is at the
 timed shape, its ``launches`` those of phase 7a's six prefills,
-``launches_hybrid`` those of phase 9a's six,
+``launches_hybrid`` those of phase 9a's six, ``launches_mesh`` every
+rank's in phase 13a's four (with ``launches_mesh_per_prefill``),
 ``sfu_ms`` the exp/log term beside ``bound_ms``, and ``library_ms``
 null: no one PyTorch call computes a selective scan); the last line is
 ``{"ok": true, "device": {...}}``.  Details of every check go to
@@ -357,6 +389,10 @@ SRC = os.path.join(ROOT, "src")
 TOL = 1e-5
 SLEEP_CYCLES = 2_000_000  # about 1 ms at the H100's 1.98 GHz boost clock
 SLEEP_MS = SLEEP_CYCLES / 1.98e6  # the spin's least length, at that clock
+# a call whose first run takes longer is timed over `SLOW_ITERS` calls with
+# no further warm-up: the plain versions at full width take up to a second
+# a call, and 23 of each held the smoke past its time limit
+SLOW_CALL_MS, SLOW_ITERS = 50.0, 3
 U32 = 2.0 ** -24          # unit roundoff of float32
 SOURCES = {"group_aggregate_onehot[folded]": (
                "src/repro_torch/kernels/csrc/group_aggregate_onehot.cu",
@@ -415,9 +451,16 @@ def time_ms(fn, iters: int = 20, warmup: int = 3,
     ``torch.cuda._sleep``), so the call is queued before the start event
     runs: the time is the device's alone.  That holds while the host's
     work in a call stays inside the spin, so the median host time of the
-    calls must stay under half of it."""
+    calls must stay under half of it.  A call whose first run takes more
+    than `SLOW_CALL_MS` is timed over at most `SLOW_ITERS` calls."""
     import torch
-    for _ in range(warmup):
+    torch.cuda.synchronize()
+    h0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    if 1e3 * (time.perf_counter() - h0) > SLOW_CALL_MS:
+        iters, warmup = min(iters, SLOW_ITERS), 1
+    for _ in range(warmup - 1):
         fn()
     torch.cuda.synchronize()
     times, host = [], []
@@ -3059,8 +3102,10 @@ def profiling(detail: dict) -> dict:
 # its published width and depth through the training driver
 LM_TRAIN_ARGV = ["--arch", "h2o-danube-1.8b", "--full", "--global-batch",
                  "8", "--n-micro", "2", "--seq-len", "4096", "--warmup", "1",
-                 "--steps", "6", "--ckpt-every", "1000"]
-LM_TRAIN_PARAMS = 1_831_201_280      # the JAX package's count of full()
+                 "--steps", "4", "--ckpt-every", "1000"]
+# full width, depth cut to 12 of 24 layers (the smoke's time limit)
+LM_TRAIN_LAYERS = 12
+LM_TRAIN_PARAMS = 997_521_920        # the JAX package's count at that depth
 # (b) flash backward at full head dims: (what, B, S, H, hd, window, softcap)
 FLASH_GRAD_CASES = [("h2o", 1, 4096, 32, 80, 4096, None),
                     ("gemma2-local", 1, 8192, 8, 256, 4096, 50.0)]
@@ -3097,9 +3142,11 @@ def lm_train(detail: dict) -> dict:
     import dataclasses
     import math
     import tempfile
+    from unittest import mock
 
     import torch
 
+    from repro_torch import configs
     from repro_torch.configs import falcon_mamba_7b, jamba_v0_1_52b
     from repro_torch.device import set_matmul_precision
     from repro_torch.hw import H100_SXM
@@ -3119,7 +3166,15 @@ def lm_train(detail: dict) -> dict:
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     _reset_counts()
-    with tempfile.TemporaryDirectory() as ckpt:
+    get_arch = configs.get_arch
+
+    def cut(name):
+        arch = get_arch(name)
+        return dataclasses.replace(arch, full=lambda: dataclasses.replace(
+            arch.full(), n_layers=LM_TRAIN_LAYERS))
+
+    with tempfile.TemporaryDirectory() as ckpt, \
+            mock.patch.object(configs, "get_arch", cut):
         res = train_mod.run(LM_TRAIN_ARGV + ["--ckpt-dir", ckpt])
     counts = _all_counts()
     check(all(v == 0 for v in counts.values()),
@@ -4264,11 +4319,363 @@ def sharded(detail: dict) -> dict:
     check({k for k, v in ga.launches.items() if v} == {kname},
           f"profile_plan launched {dict(ga.launches)}")
 
-    close_groups()
+    # phase 13 lays its meshes over this group: keep it (main closes it)
+    close_groups(keep=[grp])
     rec["launches"] = dict(launches)
     rec["seconds"] = time.time() - t_phase
     detail["sharded"] = rec
     return rec
+
+
+# phase 13: the LM serving mesh, one Jamba period on four ranks
+MESH_SHAPE, MESH_AXES = (1, 4), ("data", "model")
+MESH_CHECK_SHAPE = (2, 2)            # (c) and (d): data and model both split
+MESH_BATCH, MESH_SEQ = 2, 1024
+MESH_WARMUP, MESH_ITERS = 1, 3
+MESH_PROMPT, MESH_GEN = 16, 16       # (b): `launch/serve.py`'s flow
+# (c)'s layers, the one (d) moves last: the float32 experts (11.3 GB) go
+# first, and each layer's one-device copy is freed before its mesh run
+MESH_F32_SLOTS = (("mamba+moe", 1), ("attn+glu", 4), ("mamba+glu", 0))
+MESH_F32_SEQ = 512
+MESH_F32_TOL = 1e-4
+MESH_ELASTIC_TOL = 1e-5
+MESH_BACKEND = "cuda"                # the ranks' Mamba scan
+
+
+def _ulp_nudge(params, sign: int) -> None:
+    """Move every floating weight by ``sign`` units in its last place, in
+    place (an integer view of its bits; ``-1`` undoes ``+1`` exactly)."""
+    import torch
+
+    from repro_torch.distributed.sharding import tree_leaves
+    ints = {torch.bfloat16: torch.int16, torch.float16: torch.int16,
+            torch.float32: torch.int32}
+    for t in tree_leaves(params):
+        t.view(ints[t.dtype]).add_(sign)
+
+
+def _decode_logits(decode, params, cache, tokens) -> list:
+    """Each step's logits of ``decode`` fed ``tokens`` (B, T) from step 0."""
+    out = []
+    for t in range(tokens.shape[1]):
+        logits, cache = decode(params, cache, tokens[:, t], t)
+        out.append(logits)
+    return out
+
+
+def _rank_scan_counts(group) -> list:
+    from repro_torch.kernels import selective_scan as ss
+    return [(c[ss.KERNEL], c[ss.PLAIN]) for c in group.launches(reset=True)]
+
+
+def lm_mesh(detail: dict) -> dict:
+    """Phase 13: the LM serving mesh (`launch/mesh.py`,
+    `distributed/sharding.py`, `runtime/elastic.py`, the ``mesh=`` paths
+    of `models/lm.py`) on four rank processes: one Jamba period at full
+    width served on a (1, 4) mesh, float32 layers held on (2, 2), and a
+    re-mesh from (2, 2) onto (1, 4)."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import jamba_v0_1_52b
+    from repro_torch.kernels import selective_scan as ss
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models.lm import (LMModel, make_decode_step,
+                                       make_prefill_step)
+    from repro_torch.nn.transformer import init_lm_cache, lm_param_specs
+    from repro_torch.runtime.elastic import gather, remesh_state, reshard
+
+    rec = {}
+    t_phase = time.time()
+    be = _dist_backend()
+    mesh = make_mesh(MESH_SHAPE, MESH_AXES, device=DEVICE, dist_backend=be)
+    group = mesh.group
+    rec.update(dist_backend=be, mesh_start_s=time.time() - t_phase)
+    log(f"lm-mesh: mesh {MESH_SHAPE} over {MESH_AXES} on {group.num_shards} "
+        f"ranks, {be} ({'a card a rank' if be == 'nccl' else 'all on card 0'})"
+        f", ready in {rec['mesh_start_s']:.1f}s; ranks hold "
+        + ", ".join(f"{m['allocated_gb']:.2f}" for m in group.memory(True))
+        + " GB")
+
+    # the scan kernel at the shape each rank's Mamba slots give it
+    B, S = MESH_BATCH, MESH_SEQ
+    cfg = dataclasses.replace(jamba_v0_1_52b.full(), n_layers=HYBRID_LAYERS)
+    N = cfg.mamba.d_state
+    di_local = cfg.mamba.d_inner // MESH_SHAPE[1]
+    if DEVICE == "cuda":
+        args = scan_inputs(B, S, di_local, N, seed=13)
+        y = ss.selective_scan(*args)
+        rec["scan_err"] = _nerr(y, ss.selective_scan_plain(*args))
+        log(f"  scan kernel at the ranks' shape (B {B}, S {S}, d_inner "
+            f"{di_local}, N {N}) vs plain {rec['scan_err']:.3e}")
+        check(rec["scan_err"] <= TOL, f"scan at the mesh shape "
+              f"{rec['scan_err']:.3e} > {TOL}")
+        del args, y
+
+    # the period's weights, drawn once on the card, then each rank's slice
+    t0 = time.time()
+    model = LMModel.create(cfg, seed=0, device=DEVICE)
+    check(model.n_params == HYBRID_PARAMS, f"one Jamba period holds "
+          f"{model.n_params} parameters, not {HYBRID_PARAMS:,}")
+    if DEVICE == "cuda":
+        torch.cuda.empty_cache()      # the float32 draws' cached blocks
+    specs = lm_param_specs(cfg)
+    prefill, _ = make_prefill_step(cfg, mesh=mesh, param_specs=specs,
+                                   params_shape=model.params,
+                                   backend=MESH_BACKEND)
+    _sync()
+    rec["init_s"] = time.time() - t0
+    t0 = time.time()
+    handle = reshard(model.params, mesh, prefill.pspecs)
+    rec.update(transport_s=time.time() - t0, transport_bytes=handle.nbytes,
+               rank_gb=[m["allocated_gb"] for m in group.memory()])
+    log(f"  {model.n_params:,} params ({cfg.dtype}) drawn in "
+        f"{rec['init_s']:.1f}s; {handle.nbytes / 1e9:.2f} GB sent to the "
+        f"ranks (CUDA IPC on the card) in {rec['transport_s']:.2f}s; ranks "
+        f"hold " + ", ".join(f"{g:.2f}" for g in rec["rank_gb"]) + " GB")
+
+    # (a) prefill on the mesh, the main path
+    rng = np.random.default_rng(13)
+    tokens = torch.as_tensor(rng.integers(0, cfg.vocab, (B, S)),
+                             device=DEVICE)
+    pos = positions(B, S)
+    group.memory(reset=True)
+    _reset_peak()
+    prefill.timing = True
+    runs = MESH_WARMUP + MESH_ITERS
+    times, stats = [], []
+    _rank_scan_counts(group)
+    _reset_counts()
+    for i in range(runs):
+        _sync()
+        t1 = time.perf_counter()
+        logits, kvs = prefill(handle, tokens, pos)
+        _sync()
+        kvs.drop()
+        if i >= MESH_WARMUP:
+            times.append((time.perf_counter() - t1) * 1e3)
+            stats.append(prefill.last_stats)
+    counts = _rank_scan_counts(group)
+    parent = _all_counts()
+    scans = sum(s.kind == "mamba" for s in cfg.period) * cfg.repeats
+    plain = MESH_BACKEND != "cuda"
+    want = [(0, runs * scans) if plain else (runs * scans, 0)] * mesh.size
+    check(counts == want, f"mesh prefill scan launches by rank {counts} != "
+          f"{want}")
+    check(not any(parent.values()), f"the caller launched {parent}")
+    check(bool(torch.isfinite(logits).all())
+          and tuple(logits.shape) == (B, cfg.vocab),
+          f"mesh prefill logits {tuple(logits.shape)}, finite "
+          f"{bool(torch.isfinite(logits).all())}")
+    mem = group.memory()
+    rec.update(
+        prefill_ms=statistics.median(times), prefill_ms_all=times,
+        prompt_tok_per_s=B * S / (statistics.median(times) / 1e3),
+        rank_device_ms=[statistics.median(s[r]["device_ms"] for s in stats)
+                        if "device_ms" in stats[0][r] else None
+                        for r in range(mesh.size)],
+        rank_collective_ms=[statistics.median(s[r]["collective_ms"]
+                                              for s in stats)
+                            for r in range(mesh.size)],
+        rank_peak_gb=[m["peak_gb"] for m in mem],
+        caller_peak_gb=_peak_gb(),
+        card_used_gb=_card_used_gb(),
+        launches_mesh=sum(c[1] if plain else c[0] for c in counts),
+        prefills=runs)
+    rec["launches_mesh_per_prefill"] = rec["launches_mesh"] / runs
+    log(f"  (a) prefill B={B} S={S}: {rec['prefill_ms']:.1f} ms wall (median "
+        f"of {MESH_ITERS}; " + ", ".join(f"{t:.1f}" for t in times)
+        + f"), {rec['prompt_tok_per_s']:.0f} prompt tok/s; per rank device "
+        f"span " + ", ".join("n/a" if d is None else f"{d:.1f}"
+                             for d in rec["rank_device_ms"])
+        + " ms, in collectives " + ", ".join(
+            f"{c:.1f}" for c in rec["rank_collective_ms"]) + " ms; peak GB "
+        "by rank " + ", ".join(f"{g:.2f}" for g in rec["rank_peak_gb"])
+        + f", caller {rec['caller_peak_gb']:.2f}, card in use "
+        f"{rec['card_used_gb']:.2f}; scan launches {rec['launches_mesh']} "
+        f"over {runs} prefills ({rec['launches_mesh_per_prefill']:.0f} a "
+        f"prefill, {scans} a rank)")
+
+    # the bf16 period against one device (reported): the single-device
+    # run's own spread under a one-ulp nudge of every weight beside it
+    one = make_prefill_step(cfg, backend=MESH_BACKEND)
+    with torch.no_grad():
+        ref = one(model.params, tokens, pos)[0]
+        _ulp_nudge(model.params, +1)
+        nudged = one(model.params, tokens, pos)[0]
+        _ulp_nudge(model.params, -1)
+    rec.update(bf16_prefill_err=_nerr(logits, ref),
+               bf16_prefill_ulp_spread=_nerr(nudged, ref))
+    del nudged
+
+    # (b) decode from step 0: a 16-token prompt, 16 greedy tokens
+    T = MESH_PROMPT + MESH_GEN
+    cache = init_lm_cache(cfg, B, max_seq=T, device=DEVICE)
+    decode, _, _ = make_decode_step(cfg, mesh=mesh, param_specs=specs,
+                                    params_shape=model.params,
+                                    cache_shape=cache)
+    prompt = torch.as_tensor(rng.integers(0, cfg.vocab, (B, MESH_PROMPT)),
+                             device=DEVICE)
+    cache = reshard(cache, mesh, decode.cspecs)
+    decode.timing = True
+    fed, got, dstats = [], [], []
+    prev = None
+    _sync()
+    t1 = time.perf_counter()
+    for t in range(T):
+        tok = prompt[:, t] if t < MESH_PROMPT else prev
+        logits, cache = decode(handle, cache, tok, t)
+        prev = logits.argmax(-1)
+        fed.append(tok)
+        got.append(logits)
+        dstats.append(decode.last_stats)
+    _sync()
+    dt = time.perf_counter() - t1
+    cache.drop()
+    rec.update(decode_tok_per_s=B * T / dt, decode_ms_per_step=dt / T * 1e3,
+               decode_rank_collective_ms=[
+                   statistics.median(s[r]["collective_ms"] for s in dstats)
+                   for r in range(mesh.size)],
+               decode_rank_wall_ms=[
+                   statistics.median(s[r]["wall_ms"] for s in dstats)
+                   for r in range(mesh.size)])
+    fed = torch.stack(fed, dim=1)
+    check(all(bool(torch.isfinite(g).all()) for g in got),
+          "mesh decode logits not finite")
+    one_dec = make_decode_step(cfg)
+    want_dec = _decode_logits(one_dec, model.params,
+                              init_lm_cache(cfg, B, max_seq=T, device=DEVICE),
+                              fed)
+    _ulp_nudge(model.params, +1)
+    nudged_dec = _decode_logits(one_dec, model.params,
+                                init_lm_cache(cfg, B, max_seq=T,
+                                              device=DEVICE), fed)
+    _ulp_nudge(model.params, -1)
+    rec.update(
+        bf16_decode_err=max(_nerr(a, b) for a, b in zip(got, want_dec)),
+        bf16_decode_ulp_spread=max(_nerr(a, b)
+                                   for a, b in zip(nudged_dec, want_dec)))
+    log(f"  (b) decode from step 0, B={B}, {MESH_PROMPT} prompt + "
+        f"{MESH_GEN} generated tokens: {rec['decode_tok_per_s']:.1f} tok/s "
+        f"({rec['decode_ms_per_step']:.1f} ms a step; a rank's step "
+        + ", ".join(f"{w:.1f}" for w in rec["decode_rank_wall_ms"])
+        + " ms, in collectives " + ", ".join(
+            f"{c:.1f}" for c in rec["decode_rank_collective_ms"]) + " ms)")
+    log(f"  bf16 period vs one device (reported): prefill logits "
+        f"{rec['bf16_prefill_err']:.3e} (one device under a one-ulp weight "
+        f"nudge {rec['bf16_prefill_ulp_spread']:.3e}); decode logits, worst "
+        f"step {rec['bf16_decode_err']:.3e} (nudge "
+        f"{rec['bf16_decode_ulp_spread']:.3e})")
+    handle.drop()
+    del model, handle, logits, got, want_dec, nudged_dec, ref, one, one_dec
+    if DEVICE == "cuda":
+        torch.cuda.empty_cache()
+
+    # (c) float32, a layer of each kind alone, sharded over data and model
+    t0 = time.time()
+    mesh22 = make_mesh(MESH_CHECK_SHAPE, MESH_AXES, device=DEVICE,
+                       dist_backend=be)
+    moe = dataclasses.replace(cfg.moe, capacity_factor=cfg.moe.n_experts
+                              / cfg.moe.topk)
+    tokens = torch.as_tensor(rng.integers(0, cfg.vocab, (B, MESH_F32_SEQ)),
+                             device=DEVICE)
+    pos = positions(B, MESH_F32_SEQ)
+    group.memory(reset=True)
+    _reset_peak()
+    errs, keep = {}, None
+    for name, slot in MESH_F32_SLOTS:
+        c1 = dataclasses.replace(cfg, dtype=torch.float32, n_layers=1,
+                                 period=(cfg.period[slot],), moe=moe)
+        m1 = LMModel.create(c1, seed=slot + 1, device=DEVICE)
+        shapes = LMModel.create(c1, device="meta").params
+        s1 = lm_param_specs(c1)
+        step, _ = make_prefill_step(c1, mesh=mesh22, param_specs=s1,
+                                    params_shape=shapes,
+                                    backend=MESH_BACKEND)
+        h1 = reshard(m1.params, mesh22, step.pspecs)
+        b, kv_b = make_prefill_step(c1, backend=MESH_BACKEND)(
+            m1.params, tokens, pos)
+        del m1
+        if DEVICE == "cuda":
+            torch.cuda.empty_cache()
+        a, kv_a = step(h1, tokens, pos)
+        errs[name] = _nerr(a, b)
+        if kv_b[0] is not None:
+            errs[name + " kv"] = max(_nerr(x, y) for x, y in
+                                     zip(gather(kv_a, DEVICE)[0], kv_b[0]))
+        kv_a.drop()
+        if name == MESH_F32_SLOTS[-1][0]:
+            keep = (c1, shapes, s1, h1, a)
+        else:
+            h1.drop()
+        del b, kv_b
+    rec.update(f32_errs=errs, f32_rank_peak_gb=[
+        m["peak_gb"] for m in group.memory()], f32_caller_peak_gb=_peak_gb(),
+        f32_s=time.time() - t0)
+    log(f"  (c) float32 on {MESH_CHECK_SHAPE}, B={B} S={MESH_F32_SEQ}, "
+        f"capacity factor {moe.capacity_factor}, mesh vs one device: "
+        + ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
+        + "; peak GB by rank " + ", ".join(
+            f"{g:.2f}" for g in rec["f32_rank_peak_gb"])
+        + f", caller {rec['f32_caller_peak_gb']:.2f} "
+        f"({rec['f32_s']:.1f}s)")
+    for k, v in errs.items():
+        check(v <= MESH_F32_TOL, f"float32 {k} on the mesh vs one device "
+              f"{v:.3e} > {MESH_F32_TOL}")
+
+    # (d) elastic: the float32 Mamba + GLU layer moved from (2, 2) onto
+    # (1, 4) through host memory
+    c1, p1, s1, h1, a = keep
+    t0 = time.time()
+    moved = remesh_state(h1, s1, mesh)
+    rec.update(remesh_s=time.time() - t0, remesh_bytes=moved.nbytes)
+    h1.drop()
+    step, _ = make_prefill_step(c1, mesh=mesh, param_specs=s1,
+                                params_shape=p1, backend=MESH_BACKEND)
+    b, kv = step(moved, tokens, pos)
+    kv.drop()
+    moved.drop()
+    rec["remesh_err"] = _nerr(b, a)
+    log(f"  (d) remesh_state {MESH_CHECK_SHAPE} -> {MESH_SHAPE}: "
+        f"{rec['remesh_bytes'] / 1e9:.2f} GB through host memory in "
+        f"{rec['remesh_s']:.1f}s; logits vs {MESH_CHECK_SHAPE} "
+        f"{rec['remesh_err']:.3e}")
+    check(rec["remesh_err"] <= MESH_ELASTIC_TOL, f"re-meshed logits "
+          f"{rec['remesh_err']:.3e} > {MESH_ELASTIC_TOL}")
+    del keep, p1, a, b
+    if DEVICE == "cuda":
+        torch.cuda.empty_cache()
+    rec["seconds"] = time.time() - t_phase
+    detail["lm_mesh"] = rec
+    return rec
+
+
+def _sync() -> None:
+    import torch
+    if DEVICE == "cuda":
+        torch.cuda.synchronize()
+
+
+def _reset_peak() -> None:
+    import torch
+    if DEVICE == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+
+
+def _peak_gb() -> float:
+    import torch
+    return torch.cuda.max_memory_allocated() / 1e9 if DEVICE == "cuda" else 0.0
+
+
+def _card_used_gb() -> float:
+    """Device memory in use on card 0 by every process."""
+    import torch
+    if DEVICE != "cuda":
+        return 0.0
+    free, total = torch.cuda.mem_get_info(0)
+    return (total - free) / 1e9
 
 
 PHASES = {"kernels": kernel_sweeps, "hub": hub_probe, "serving": serving,
@@ -4276,13 +4683,13 @@ PHASES = {"kernels": kernel_sweeps, "hub": hub_probe, "serving": serving,
           "training": training, "sampled": sampled_training,
           "dynamic": dynamic_plans, "profile": profiling, "scan": scan_checks,
           "lm": lm_serving, "lm-hybrid": lm_hybrid, "lm-train": lm_train,
-          "advisor": advisor, "sharded": sharded}
+          "advisor": advisor, "sharded": sharded, "lm-mesh": lm_mesh}
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--phases", default=",".join(PHASES),
-                    help="comma-separated subset of phases 2-12 to run "
+                    help="comma-separated subset of phases 2-13 to run "
                          f"({', '.join(PHASES)}; default all); the device "
                          "phase always runs")
     ap.add_argument("--scan-variants", default="",
@@ -4338,9 +4745,17 @@ def main(argv=None) -> int:
                 t0 = time.time()
                 done[name] = fn(detail)
                 log(f"phase {name}: {time.time() - t0:.1f}s")
+                # the same line on stderr, with the running total: a run
+                # stopped at its time limit shows there how far it got
+                print(f"[chip_smoke] phase {name}: {time.time() - t0:.1f}s "
+                      f"(total {time.time() - t_start:.1f}s)",
+                      file=sys.stderr, flush=True)
     except SmokeFailure as e:
         log(f"FAIL: {e}")
         return 1
+    finally:
+        from repro_torch.distributed.ranks import close_groups
+        close_groups()
 
     from repro_torch.kernels import selective_scan as ss
     from repro_torch.kernels.group_aggregate import (
@@ -4446,6 +4861,10 @@ def main(argv=None) -> int:
             "launches_per_prefill": lm.get("launches_per_prefill"),
             "prefill_ms": lm.get("prefill_ms"),
             "launches_hybrid": done.get("lm-hybrid", {}).get("launches"),
+            **({"launches_mesh": done["lm-mesh"]["launches_mesh"],
+                "launches_mesh_per_prefill":
+                    done["lm-mesh"]["launches_mesh_per_prefill"]}
+               if "lm-mesh" in done else {}),
             **({"launches_sharded": done["sharded"]["launches"].get(
                 ss.KERNEL, 0)} if "sharded" in done else {})})
     detail["kernels"] = kernels

@@ -237,7 +237,8 @@ def patch_partition_bwd(p_old: GroupPartition, edge_perm_old: np.ndarray,
     fwd_idx = np.flatnonzero(m2)
     row_t = src2_e[fwd_idx]                          # transposed row = src
     col_t = np.repeat(np.arange(n2, dtype=np.int64), g2.degrees)[fwd_idx]
-    order_t = np.lexsort((col_t, row_t))             # (src, dst) sorted
+    # (src, dst) sorted: ``col_t`` ascends, so a stable sort on ``row_t``
+    order_t = np.argsort(row_t, kind="stable")
     p_sub = partition_graph(
         _square_sub(n2, row_t[order_t], col_t[order_t]),
         gs=gs, gpt=gpt, ont=ont, src_win=src_win)

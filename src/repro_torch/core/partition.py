@@ -120,9 +120,12 @@ def _sort_rows_by_neighbor(g: CSRGraph, edge_vals: Optional[np.ndarray]):
     indices = g.indices.copy()
     vals = None if edge_vals is None else np.asarray(edge_vals, dtype=np.float32).copy()
     indptr = g.indptr
-    # Row-wise sort via a global stable sort on (row, nbr).
+    # Row-wise sort via a global stable sort on (row, nbr), packed into one
+    # int64 key: the order lexsort((indices, rows)) gives, and a near-linear
+    # pass on rows that arrive sorted
     rows = np.repeat(np.arange(g.num_nodes, dtype=np.int64), g.degrees)
-    order = np.lexsort((indices, rows))
+    width = int(indices.max()) + 1 if len(indices) else 1
+    order = np.argsort(rows * width + indices, kind="stable")
     indices = indices[order]
     if vals is not None:
         vals = vals[order]
@@ -195,14 +198,11 @@ def partition_graph(g: CSRGraph, *, gs: int = 16, gpt: int = 16, ont: int = 8,
     slot[order] = slot_sorted
 
     # --- tile metadata ---
-    tile_of_bucket_w = np.zeros(T, dtype=np.int32)
-    tile_of_bucket_b = np.zeros(T, dtype=np.int32)
+    # bucket bi owns tiles [bpad_start[bi], bpad_start[bi + 1]) / gpt
     bucket_w = grp_win[order][bstart]
     bucket_b = grp_block[order][bstart]
-    for bi in range(len(bstart)):                 # few buckets; loop is fine
-        t0, t1 = bpad_start[bi] // gpt, bpad_start[bi + 1] // gpt
-        tile_of_bucket_w[t0:t1] = bucket_w[bi]
-        tile_of_bucket_b[t0:t1] = bucket_b[bi]
+    tile_of_bucket_w = np.repeat(bucket_w, bpad // gpt).astype(np.int32)
+    tile_of_bucket_b = np.repeat(bucket_b, bpad // gpt).astype(np.int32)
 
     # --- fill flat group arrays ---
     nbrs = np.empty((g_pad_total, gs), dtype=np.int32)
@@ -291,7 +291,8 @@ def transpose_graph(g: CSRGraph, edge_vals: Optional[np.ndarray] = None,
     # transposed edge: new row = cols, new neighbor = rows; CSR wants edges
     # sorted by (new_row, new_nbr) to match partition's row-wise sorting
     # convention (and permute()'s lexsort order).
-    order = np.lexsort((rows, cols))
+    # ``rows`` ascend, so a stable sort on ``cols`` alone is that order
+    order = np.argsort(cols, kind="stable")
     counts = np.bincount(cols, minlength=n).astype(np.int64)
     new_indptr = np.concatenate([[0], np.cumsum(counts)])
     gT = CSRGraph(new_indptr, rows[order].astype(np.int32))

@@ -31,7 +31,7 @@ def community_labels(g: CSRGraph, *, rounds: int = 8, seed: int = 0) -> np.ndarr
     """Label-propagation communities (compacted labels in [0, C)).
 
     Fully vectorized semi-synchronous propagation: each round counts every
-    node's neighbor labels with one lexsort + run-length pass and updates a
+    node's neighbor labels with one sort + run-length pass and updates a
     seeded random half of the nodes to their plurality label (ties broken
     toward the smallest label id, keeping the current label when it is
     among the maxima).  Updating only half the nodes per round breaks the
@@ -48,9 +48,11 @@ def community_labels(g: CSRGraph, *, rounds: int = 8, seed: int = 0) -> np.ndarr
     rows = np.repeat(np.arange(n, dtype=np.int64), g.degrees)
     cols = g.indices.astype(np.int64)
     for r in range(rounds):
-        nl = labels[cols]
-        order = np.lexsort((nl, rows))
-        r_s, l_s = rows[order], nl[order]
+        # (node, neighbor label) pairs in order, sorted as one packed key
+        pair = rows * n + labels[cols]
+        pair.sort()
+        r_s = pair // n
+        l_s = pair - r_s * n
         run = np.ones(len(r_s), dtype=bool)
         run[1:] = (r_s[1:] != r_s[:-1]) | (l_s[1:] != l_s[:-1])
         run_row = r_s[run]                      # (R,) per-run node id
@@ -59,13 +61,16 @@ def community_labels(g: CSRGraph, *, rounds: int = 8, seed: int = 0) -> np.ndarr
         # plurality with stability: +0.5 keeps the current label when tied
         score = counts.astype(np.float64)
         score[run_label == labels[run_row]] += 0.5
-        # per-node argmax(score), ties -> smallest label: sort by
-        # (node, -score, label) and keep each node's first run
-        best = np.lexsort((run_label, -score, run_row))
-        first = np.ones(len(best), dtype=bool)
-        first[1:] = run_row[best][1:] != run_row[best][:-1]
-        upd_nodes = run_row[best][first]
-        upd_labels = run_label[best][first]
+        # per-node argmax(score), ties -> smallest label: runs ascend by
+        # (node, label), so each node's first run at its top score
+        node_start = np.flatnonzero(np.r_[True, run_row[1:] != run_row[:-1]])
+        upd_nodes = run_row[node_start]
+        top = np.maximum.reduceat(score, node_start)
+        at_top = np.flatnonzero(score == np.repeat(
+            top, np.diff(np.append(node_start, len(score)))))
+        first = np.ones(len(at_top), dtype=bool)
+        first[1:] = run_row[at_top[1:]] != run_row[at_top[:-1]]
+        upd_labels = run_label[at_top[first]]
         # semi-synchronous: flip a random half of the nodes each round
         take = rng.random(len(upd_nodes)) < 0.5 if r < rounds - 1 else \
             np.ones(len(upd_nodes), dtype=bool)

@@ -37,7 +37,7 @@ from repro_torch.core.partition import (GroupPartition,
                                         pad_partition_tiles, partition_graph,
                                         transpose_graph)
 from repro_torch.core.plan import Plan
-from repro_torch.graphs.csr import CSRGraph
+from repro_torch.graphs.csr import CSRGraph, sorted_unique
 
 __all__ = ["PlanShards", "ShardSpec", "halo_sources", "shard_graph",
            "shard_plan", "update_shards"]
@@ -75,7 +75,7 @@ def halo_sources(g: CSRGraph, spec: ShardSpec) -> list[np.ndarray]:
         lo, hi = p * spec.n_local, (p + 1) * spec.n_local
         e_lo, e_hi = (g.indptr[min(lo, g.num_nodes)],
                       g.indptr[min(hi, g.num_nodes)])
-        srcs = np.unique(g.indices[e_lo:e_hi])
+        srcs = sorted_unique(g.indices[e_lo:e_hi])
         out.append(srcs[(srcs < lo) | (srcs >= hi)].astype(np.int64))
     return out
 
@@ -152,7 +152,7 @@ class PlanShards:
         edges = np.array([p.partition.num_edges for p in self.plans])
         halo = np.array([len(h) for h in self.halo])
         local_src = np.array(
-            [max(len(np.unique(p.graph.indices)), 1) for p in self.plans])
+            [max(len(sorted_unique(p.graph.indices)), 1) for p in self.plans])
         return {
             "num_shards": self.spec.num_shards,
             "n_local": self.spec.n_local,
@@ -306,7 +306,7 @@ def update_shards(shards: PlanShards, parent2: Plan,
                                       with_backward))
         lo, hi = p * spec.n_local, (p + 1) * spec.n_local
         e_lo, e_hi = int(g2.indptr[min(lo, n2)]), int(g2.indptr[min(hi, n2)])
-        srcs = np.unique(g2.indices[e_lo:e_hi])
+        srcs = sorted_unique(g2.indices[e_lo:e_hi])
         halo2.append(srcs[(srcs < lo) | (srcs >= hi)].astype(np.int64))
 
     # uniformize tile counts; clean shards keep their objects when the

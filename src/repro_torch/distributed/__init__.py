@@ -1,10 +1,12 @@
 """Distribution substrate: micro-batched gradient accumulation
 (`accumulate`), the rank group that stands for the reference's device
 mesh (`ranks`: ``P`` spawned processes under `torch.distributed`, driven
-from one caller), and multi-rank halo-exchange graph execution
-(`graph_shard`).  The LM mesh (`distributed/sharding.py`,
-`runtime/elastic.py`, `launch/mesh.py`, the ``mesh=`` paths of the LM
-stack) waits for ROADMAP Queue 1, item 5b."""
+from one caller, with per-axis process groups for a named mesh),
+multi-rank halo-exchange graph execution (`graph_shard`) and the LM
+mesh's specs and placements (`sharding`; the mesh is
+`repro_torch.launch.mesh`, the elastic re-shard
+`repro_torch.runtime.elastic`).  The sharded LM train step waits for
+ROADMAP Queue 1, item 5c."""
 from repro_torch.distributed.accumulate import (accumulate_gradients,
                                                 split_batch)
 from repro_torch.distributed.graph_shard import (ShardedExecutor,

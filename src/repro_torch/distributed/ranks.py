@@ -42,10 +42,24 @@ holds a gloo group over the same ranks for collectives on CPU tensors
 (`compressed_psum` on the host).
 
 The collective helpers (`all_gather_rows`, `reduce_scatter_rows`,
-`all_reduce_`) run inside a rank.  With `collective_timing` on they
-record each collective's span (CUDA events on the card, the host clock
-on the CPU), so a step's time in collectives can be read apart from the
-kernels' (`collective_ms`).
+`all_reduce_`) run inside a rank, over the whole group or over the
+process group of one mesh axis (``group=``).  With `collective_timing`
+on they record each collective's span (CUDA events on the card, the host
+clock on the CPU), so a step's time in collectives can be read apart
+from the kernels' (`collective_ms`).
+
+Axis groups (`AxisGroups`, for `repro_torch.launch.mesh`): the group's
+ranks laid out row-major on a mesh of shape ``(..., data, model)``.
+Every rank builds, in one order, one `torch.distributed` subgroup per
+slice of each axis of size above 1 (the ranks that differ only in that
+axis), so a collective "over ``model``" runs among the ranks of this
+rank's ``model`` slice, in their order along the axis.  Axis groups take
+tensors on the group's device.
+
+CUDA tensors in a message cross by CUDA IPC (`torch.multiprocessing`'s
+reductions): the receiving rank maps the sender's memory and copies
+what it keeps, so tens of GB of weights reach the ranks at device-copy
+speed.  The sender keeps the tensor alive until the call returns.
 """
 from __future__ import annotations
 
@@ -67,8 +81,9 @@ from typing import Any, Callable, Optional, Sequence
 
 import numpy as np
 import torch
+import torch.multiprocessing  # noqa: F401  registers the CUDA IPC reductions
 
-__all__ = ["DIST_BACKENDS", "Rank", "RankError",
+__all__ = ["AxisGroups", "DIST_BACKENDS", "Rank", "RankError",
            "RankGroup", "all_gather_rows", "all_reduce_", "check_dist_backend",
            "close_groups", "collective_ms", "collective_timing",
            "current_rank", "default_dist_backend", "from_wire",
@@ -206,9 +221,12 @@ def current_rank() -> Rank:
     return _RANK
 
 
-def _group_for(t: torch.Tensor):
-    """The process group for a collective on ``t``: the default group,
-    or under NCCL the gloo side group for a CPU tensor."""
+def _group_for(t: torch.Tensor, group=None):
+    """The process group for a collective on ``t``: ``group`` when given,
+    else the default group, or under NCCL the gloo side group for a CPU
+    tensor."""
+    if group is not None:
+        return group
     return None if t.is_cuda else current_rank().host_group
 
 
@@ -253,38 +271,119 @@ def collective_ms() -> float:
     return sum(a.elapsed_time(b) for a, b in _TIMING)
 
 
-def all_gather_rows(x: torch.Tensor) -> torch.Tensor:
-    """Every rank's ``x`` (n, ...) stacked in rank order: (P n, ...)."""
+def all_gather_rows(x: torch.Tensor, group=None) -> torch.Tensor:
+    """Every rank's ``x`` (n, ...) stacked in rank order: (P n, ...), over
+    the whole group or over ``group``."""
     import torch.distributed as dist
-    r = current_rank()
+    g = _group_for(x, group)
+    world = dist.get_world_size(g)
     x = x.contiguous()
-    out = x.new_empty((r.world * x.shape[0],) + tuple(x.shape[1:]))
+    out = x.new_empty((world * x.shape[0],) + tuple(x.shape[1:]))
     with _Span():
-        dist.all_gather_into_tensor(out, x, group=_group_for(x))
+        dist.all_gather_into_tensor(out, x, group=g)
     return out
 
 
-def reduce_scatter_rows(x: torch.Tensor) -> torch.Tensor:
-    """Sum ``x`` (P n, ...) over the ranks and keep this rank's n rows."""
+def reduce_scatter_rows(x: torch.Tensor, group=None) -> torch.Tensor:
+    """Sum ``x`` (P n, ...) over the ranks (of ``group``) and keep this
+    rank's n rows."""
     import torch.distributed as dist
-    r = current_rank()
+    g = _group_for(x, group)
+    world = dist.get_world_size(g)
     x = x.contiguous()
-    if x.shape[0] % r.world:
-        raise ValueError(f"{x.shape[0]} rows do not split over {r.world} "
+    if x.shape[0] % world:
+        raise ValueError(f"{x.shape[0]} rows do not split over {world} "
                          f"ranks")
-    out = x.new_empty((x.shape[0] // r.world,) + tuple(x.shape[1:]))
+    out = x.new_empty((x.shape[0] // world,) + tuple(x.shape[1:]))
     with _Span():
-        dist.reduce_scatter_tensor(out, x, group=_group_for(x))
+        dist.reduce_scatter_tensor(out, x, group=g)
     return out
 
 
-def all_reduce_(x: torch.Tensor, op: str = "sum") -> torch.Tensor:
-    """In-place all-reduce of ``x`` (``op`` "sum" or "max"); returns x."""
+def all_reduce_(x: torch.Tensor, op: str = "sum",
+                group=None) -> torch.Tensor:
+    """In-place all-reduce of ``x`` (``op`` "sum" or "max") over the
+    whole group or over ``group``; returns x."""
     import torch.distributed as dist
     rop = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX}[op]
     with _Span():
-        dist.all_reduce(x, op=rop, group=_group_for(x))
+        dist.all_reduce(x, op=rop, group=_group_for(x, group))
     return x
+
+
+class AxisGroups:
+    """Inside a rank: its place on a mesh of the group's ranks (row-major,
+    ``shape`` over ``axes``) and the process groups of its axis slices.
+    Built by every rank at once (`new_subgroups_by_enumeration` is a
+    collective over the whole group), in one order."""
+
+    def __init__(self, shape: Sequence[int], axes: Sequence[str],
+                 rank: int):
+        self.axis_names = tuple(axes)
+        self.shape = dict(zip(self.axis_names, (int(n) for n in shape)))
+        self._grid = np.arange(int(np.prod(shape))).reshape(tuple(shape))
+        self.coords = {a: int(c) for a, c in zip(
+            self.axis_names, np.unravel_index(rank, self._grid.shape))}
+        self._groups: dict = {}
+        for a in self.axis_names:
+            self._group((a,))
+
+    def _norm(self, axes) -> tuple:
+        axes = (axes,) if isinstance(axes, str) else tuple(axes)
+        return tuple(a for a in axes if a in self.shape)
+
+    def size(self, axes) -> int:
+        """Ranks along ``axes`` (a name or a tuple; missing axes count 1)."""
+        return int(np.prod([self.shape[a] for a in self._norm(axes)]))
+
+    def index(self, axes) -> int:
+        """This rank's index along ``axes``, the first name major."""
+        axes = self._norm(axes)
+        if not axes:
+            return 0
+        return int(np.ravel_multi_index([self.coords[a] for a in axes],
+                                        [self.shape[a] for a in axes]))
+
+    def _group(self, axes: tuple):
+        """The process group of this rank's slice along ``axes`` (None:
+        the whole group), built on first use, by every rank at once."""
+        if axes in self._groups:
+            return self._groups[axes]
+        import torch.distributed as dist
+        if set(axes) == set(self.axis_names):
+            grp = None
+        else:
+            dims = [self.axis_names.index(a) for a in axes]
+            if dims != sorted(dims):
+                raise ValueError(f"axes {axes} are not in the mesh's order "
+                                 f"{self.axis_names}")
+            rest = [d for d in range(self._grid.ndim) if d not in dims]
+            members = np.transpose(self._grid, rest + dims).reshape(
+                -1, self.size(axes))
+            grp, _ = dist.new_subgroups_by_enumeration(members.tolist())
+        self._groups[axes] = grp
+        return grp
+
+    def all_reduce(self, x: torch.Tensor, axes, op: str = "sum"
+                   ) -> torch.Tensor:
+        """In-place all-reduce of ``x`` over ``axes``; returns x."""
+        axes = self._norm(axes)
+        if self.size(axes) == 1:
+            return x
+        return all_reduce_(x, op, group=self._group(axes))
+
+    def all_gather(self, x: torch.Tensor, axes, dim: int = 0
+                   ) -> torch.Tensor:
+        """The ranks' ``x`` along ``axes`` concatenated on ``dim``, in
+        their order along the axes (contiguous: a gathered weight is
+        used whole, and a strided one would be copied again)."""
+        axes = self._norm(axes)
+        if self.size(axes) == 1:
+            return x
+        if dim % x.dim() == 0:
+            return all_gather_rows(x, group=self._group(axes))
+        parts = all_gather_rows(x.unsqueeze(0), group=self._group(axes))
+        return torch.cat(parts.unbind(0), dim=dim)
 
 
 def _watch_parent(parent_pid: int) -> None:
@@ -337,8 +436,12 @@ def _rank_main(rank: int, world: int, backend: str, init_method: str,
             msg = pickle.loads(data)
             if msg is None:
                 break
-            fn, args = msg
+            fn, args, drops = msg
+            for key in drops:
+                _RANK.state.pop(key, None)
             reply = ("ok", fn(_RANK, *args))
+            # close the sender's CUDA IPC mappings before answering
+            del msg, args
             buf = io.BytesIO()
             _Pickler(buf, spill_dir).dump(reply)
         except BaseException:
@@ -371,6 +474,17 @@ def _r_drop(r: Rank, key) -> None:
     r.state.pop(key, None)
     if r.device.type == "cuda":
         torch.cuda.empty_cache()
+
+
+def _r_memory(r: Rank, reset: bool) -> dict:
+    """This rank's allocated and peak device GB (0 on the CPU)."""
+    if r.device.type != "cuda":
+        return {"allocated_gb": 0.0, "peak_gb": 0.0}
+    out = {"allocated_gb": torch.cuda.memory_allocated(r.device) / 1e9,
+           "peak_gb": torch.cuda.max_memory_allocated(r.device) / 1e9}
+    if reset:
+        torch.cuda.reset_peak_memory_stats(r.device)
+    return out
 
 
 _start_lock = threading.Lock()
@@ -416,6 +530,7 @@ class RankGroup:
         self.dist_backend = backend
         self.timeout = timeout
         self._keys = 0
+        self._released: list = []
         self._closed = False
         self._pool_key = None
         self._conns, self._procs, self._tmp = [], [], None
@@ -496,10 +611,11 @@ class RankGroup:
         if self._closed:
             raise RankError("the rank group is closed")
         name = getattr(fn, "__name__", str(fn))
+        drops, self._released = tuple(self._released), []
         try:
             for r, conn in enumerate(self._conns):
                 extra = tuple(per_rank[r]) if per_rank is not None else ()
-                _send(conn, (fn, tuple(args) + extra), self._tmp)
+                _send(conn, (fn, tuple(args) + extra, drops), self._tmp)
         except (OSError, BrokenPipeError) as e:
             self.close(force=True)
             raise RankError(f"{name}: a rank is gone ({e}); the group was "
@@ -512,10 +628,21 @@ class RankGroup:
         ``reset``)."""
         return self.run(_r_launches, None, reset)
 
+    def memory(self, reset: bool = False) -> list:
+        """Every rank's allocated and peak device GB (and reset the peak
+        with ``reset``)."""
+        return self.run(_r_memory, None, reset)
+
     def drop(self, key) -> None:
         """Free what the ranks hold under ``key`` (no-op once closed)."""
         if not self._closed:
             self.run(_r_drop, None, key)
+
+    def release(self, key) -> None:
+        """Free what the ranks hold under ``key`` with the next call (safe
+        from a finalizer: sends nothing now)."""
+        if not self._closed:
+            self._released.append(key)
 
     def close(self, force: bool = False) -> None:
         """End every rank and join it: politely (each leaves its process
@@ -582,11 +709,12 @@ def shard_group(num_shards: int, *, device="cuda",
     return grp
 
 
-def close_groups() -> None:
-    """End every pooled group's ranks."""
-    for grp in list(_POOL.values()):
-        grp.close()
-    _POOL.clear()
+def close_groups(keep: Sequence[RankGroup] = ()) -> None:
+    """End every pooled group's ranks but those in ``keep``."""
+    for key, grp in list(_POOL.items()):
+        if not any(grp is k for k in keep):
+            grp.close()
+            _POOL.pop(key, None)
 
 
 atexit.register(close_groups)

@@ -20,6 +20,7 @@ __all__ = [
     "random_power_law",
     "random_community_graph",
     "grid_graph",
+    "sorted_unique",
 ]
 
 
@@ -83,7 +84,10 @@ class CSRGraph:
         assert perm.shape == (self.num_nodes,)
         new_rows = np.repeat(perm, self.degrees)
         new_cols = perm[self.indices]
-        return np.lexsort((new_cols, new_rows)), new_cols
+        # lexsort((new_cols, new_rows))'s order, as one stable packed sort
+        width = int(new_cols.max()) + 1 if len(new_cols) else 1
+        return (np.argsort(new_rows.astype(np.int64) * width + new_cols,
+                           kind="stable"), new_cols)
 
     def permute(self, perm: np.ndarray) -> "CSRGraph":
         """Relabel nodes: new id of old node v is perm[v].
@@ -122,6 +126,19 @@ class CSRGraph:
         return apply_delta(self, delta)
 
 
+def sorted_unique(a) -> np.ndarray:
+    """``np.unique(a)`` of a 1-D integer array, by one sort: numpy 2.3's
+    hash-table ``unique`` takes tens of seconds on the tens of millions of
+    mostly distinct keys a full-reddit graph holds."""
+    s = np.sort(np.asarray(a))
+    if len(s) == 0:
+        return s
+    keep = np.empty(len(s), dtype=bool)
+    keep[0] = True
+    np.not_equal(s[1:], s[:-1], out=keep[1:])
+    return s[keep]
+
+
 def from_edges(num_nodes: int, src: np.ndarray, dst: np.ndarray,
                symmetrize: bool = False, dedup: bool = True) -> CSRGraph:
     """Build CSR from an edge list src->dst (aggregation direction: dst gathers src)."""
@@ -131,13 +148,13 @@ def from_edges(num_nodes: int, src: np.ndarray, dst: np.ndarray,
         src, dst = np.concatenate([src, dst]), np.concatenate([dst, src])
     if dedup:
         key = dst * num_nodes + src
-        key = np.unique(key)
+        key = sorted_unique(key)      # sorted: dst ascends already
         dst, src = key // num_nodes, key % num_nodes
-    order = np.argsort(dst, kind="stable")
-    src, dst = src[order], dst[order]
+    else:
+        order = np.argsort(dst, kind="stable")
+        src, dst = src[order], dst[order]
     indptr = np.zeros(num_nodes + 1, dtype=np.int64)
-    np.add.at(indptr, dst + 1, 1)
-    indptr = np.cumsum(indptr)
+    indptr[1:] = np.cumsum(np.bincount(dst, minlength=num_nodes))
     return CSRGraph(indptr, src.astype(np.int32))
 
 

@@ -23,6 +23,7 @@ caps large ones for CPU-friendliness — pass scale=1.0 for full size).
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Dict
 
 import numpy as np
@@ -90,6 +91,19 @@ def make_dataset(name: str, *, scale: float = 1.0, max_nodes: int | None = None,
     if max_nodes is not None:
         n = min(n, max_nodes)
     n = max(n, 16)
+    g = _replica_graph(name, n, seed)
+    rng = np.random.default_rng(seed + 1)
+    dim = spec.dim if max_dim is None else min(spec.dim, max_dim)
+    feat = rng.standard_normal((g.num_nodes, dim)).astype(np.float32)
+    return g, spec, feat
+
+
+@functools.lru_cache(maxsize=4)
+def _replica_graph(name: str, n: int, seed: int) -> CSRGraph:
+    """The replica's graph at ``n`` nodes, a pure function of its
+    arguments, kept for the next call in this process (full reddit takes
+    most of a minute to generate); callers do not mutate it."""
+    spec = PAPER_DATASETS[name]
     avg_deg = spec.num_edges / spec.num_nodes
     if spec.gtype == "II":
         # batched small graphs: avg component size in these datasets ~ 20-40.
@@ -109,10 +123,7 @@ def make_dataset(name: str, *, scale: float = 1.0, max_nodes: int | None = None,
         )
     else:
         g = random_power_law(n, avg_deg, seed=seed)
-    rng = np.random.default_rng(seed + 1)
-    dim = spec.dim if max_dim is None else min(spec.dim, max_dim)
-    feat = rng.standard_normal((g.num_nodes, dim)).astype(np.float32)
-    return g, spec, feat
+    return g
 
 
 def interaction_stream(g: CSRGraph, *, num_batches: int,

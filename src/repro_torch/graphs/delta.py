@@ -225,7 +225,9 @@ def apply_delta(g: CSRGraph, delta: GraphDelta) -> DeltaResult:
     cols_d = np.concatenate([cols_e[d_old], ins_src])
     orig_d = np.concatenate([d_old, np.full(len(ins_dst), -1, np.int64)])
     val_d = np.concatenate([np.zeros(len(d_old), np.float32), ins_val])
-    order = np.lexsort((cols_d, rows_d))             # (row, nbr) sorted
+    # (row, nbr) sorted: lexsort((cols_d, rows_d))'s order, as one stable
+    # sort of a packed key (the surviving edges arrive nearly in order)
+    order = np.argsort(rows_d * n2 + cols_d, kind="stable")
     rows_ds, cols_ds = rows_d[order], cols_d[order]
 
     deg2 = np.zeros(n2, np.int64)
@@ -247,7 +249,9 @@ def apply_delta(g: CSRGraph, delta: GraphDelta) -> DeltaResult:
         orig2[out_c] = c_idx
     if len(rows_ds):
         # rank within row = position minus the row's first occurrence
-        within = np.arange(len(rows_ds)) - np.searchsorted(rows_ds, rows_ds)
+        pos = np.arange(len(rows_ds))
+        first = np.where(np.r_[True, rows_ds[1:] != rows_ds[:-1]], pos, 0)
+        within = pos - np.maximum.accumulate(first)
         out_d = indptr2[rows_ds] + within
         cols2[out_d] = cols_ds.astype(np.int32)
         orig2[out_d] = orig_d[order]

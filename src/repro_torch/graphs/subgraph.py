@@ -22,7 +22,7 @@ from typing import Optional, Sequence
 
 import numpy as np
 
-from repro_torch.graphs.csr import CSRGraph
+from repro_torch.graphs.csr import CSRGraph, sorted_unique
 
 __all__ = [
     "EgoGraph",
@@ -96,7 +96,7 @@ def k_hop_nodes(g: CSRGraph, seeds: np.ndarray, k: int) -> np.ndarray:
         if len(frontier) == 0:
             break
         flat, _ = _gather_rows(g, frontier)
-        nbrs = np.unique(g.indices[flat].astype(np.int64))
+        nbrs = sorted_unique(g.indices[flat].astype(np.int64))
         frontier = nbrs[~visited[nbrs]]
         visited[frontier] = True
     return np.flatnonzero(visited)

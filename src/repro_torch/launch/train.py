@@ -73,8 +73,9 @@ puts every rank on card 0:
     PYTHONPATH=src python -m repro_torch.launch.train --arch gcn \
         --dataset cora --steps 20 --shards 2 --device cpu --backend torch
 
-GAT is refused with ``--shards`` (as in the reference), and so are the
-LM archs, whose mesh is not ported (ROADMAP.md Queue 1, item 5b).
+``--shards`` takes GCN and GIN only, as in the reference: GAT and the
+LM archs are refused (an LM mesh is driven through the factories,
+`repro_torch.models.lm.make_prefill_step(mesh=...)` and friends).
 """
 from __future__ import annotations
 
@@ -219,12 +220,8 @@ def parse_args(argv=None) -> argparse.Namespace:
                 "loader owns the swap protocol)")
     if args.shards < 1:
         p.error("--shards must be >= 1")
-    if args.shards > 1 and args.arch not in GNN_ARCHS:
-        p.error("--shards with an LM arch: the LM mesh is not ported yet "
-                "(ROADMAP.md Queue 1, item 5b)")
     if args.shards > 1 and args.arch not in ("gcn", "gin"):
-        p.error("--shards supports gcn/gin only (the reference refuses GAT "
-                "too)")
+        p.error("--shards supports gcn/gin only")
     if args.dist_backend == "nccl" and args.device == "cpu":
         p.error("--dist-backend nccl runs on the card only; on the CPU pass "
                 "--dist-backend gloo")

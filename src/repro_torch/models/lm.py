@@ -2,13 +2,31 @@
 factories the drivers consume.
 
 Port of `src/repro/models/lm.py`: `LMModel` (:38), `TrainStepFns` (:59),
-`make_train_step` (:84), `make_prefill_step` (:135) and
-`make_decode_step` (:184), with the reference's step signatures,
-``step(params, opt_state, batch)``, ``prefill(params, inputs, pos)`` and
-``decode(params, cache, tok, t)``, and without the mesh and sharding
-arguments (sharding waits for ROADMAP Queue 1 item 5; `TrainStepFns`'
-shardings are None).  Prefill and decode run under `torch.no_grad()`,
-the train step with grad enabled.
+`make_train_step` (:84), `make_prefill_step` (:135),
+`decode_cache_specs` (:156) and `make_decode_step` (:184), with the
+reference's step signatures, ``step(params, opt_state, batch)``,
+``prefill(params, inputs, pos)`` and ``decode(params, cache, tok, t)``.
+Prefill and decode run under `torch.no_grad()`, the train step with grad
+enabled.  Without a mesh the factories return the step alone (the
+reference returns it beside ``None`` shardings).  The sharded train step
+(``make_train_step(mesh=)``) is not ported yet (ROADMAP Queue 1, item
+5c): it raises.
+
+With a mesh (`repro_torch.launch.mesh.Mesh`) prefill and decode run on
+the mesh's ranks (`repro_torch.nn.tensor_parallel` writes the layout
+out) and the factories return the step beside the placements, as the
+reference's do: ``(prefill, param_shardings)`` and ``(decode,
+param_shardings, cache_shardings)``.  The parameters and the cache stay
+on the ranks between calls: a step takes a
+`repro_torch.runtime.elastic.ShardedTree` (from `reshard`), or a whole
+tree that it lays out first; it returns the logits whole on the
+caller's device (the inputs' device) and the KV / cache as a
+`ShardedTree` (`gather` brings it back).  Decode's MoE counts its
+capacity over each rank's tokens (the mesh rule); the reference's
+decode counts it over the whole batch, which gives the same result
+wherever no choice is dropped: at most 8 tokens a rank a step, since a
+capacity is at least 8.  ``step.timing = True`` records each rank's
+span and its time in collectives in ``step.last_stats``.
 
 ``backend="cuda"`` prefills the Mamba slots through the hand-written scan
 kernel, ``"torch"`` through its plain version (on the card too, for the
@@ -25,6 +43,7 @@ gradients, moments) back to the reference's stacked layout.
 from __future__ import annotations
 
 import dataclasses
+import time
 from typing import Any, Optional
 
 import numpy as np
@@ -32,14 +51,19 @@ import torch
 
 from repro_torch.device import resolve_device, set_matmul_precision
 from repro_torch.distributed.accumulate import accumulate_gradients
+from repro_torch.distributed.sharding import (P, batch_axes_for, constrain,
+                                              join_batch, named_shardings,
+                                              prune_specs_for_mesh,
+                                              tree_flatten, tree_map)
 from repro_torch.nn.mamba import BACKENDS
 from repro_torch.nn.transformer import (LMConfig, lm_decode_step, lm_init,
                                         lm_loss, lm_prefill, param_count)
 from repro_torch.optim.adamw import AdamWConfig, adamw_update, adamw_update_
 
-__all__ = ["LMModel", "TrainStepFns", "make_train_step", "make_prefill_step",
-           "make_decode_step", "lm_params_from_jax", "lm_params_to_jax",
-           "train_config", "weight_decay_mask"]
+__all__ = ["LMModel", "TrainStepFns", "decode_cache_specs",
+           "make_train_step", "make_prefill_step", "make_decode_step",
+           "lm_params_from_jax", "lm_params_to_jax", "train_config",
+           "weight_decay_mask"]
 
 _TORCH_DTYPE = {"float32": torch.float32, "bfloat16": torch.bfloat16,
                 "float16": torch.float16}
@@ -101,15 +125,20 @@ def weight_decay_mask(params: dict) -> dict:
     return mask(params, False)
 
 
-def make_train_step(cfg: LMConfig, opt: AdamWConfig, *, n_micro: int = 1,
-                    donate: bool = True) -> TrainStepFns:
+def make_train_step(cfg: LMConfig, opt: AdamWConfig, *, mesh=None,
+                    n_micro: int = 1, donate: bool = True) -> TrainStepFns:
     """The train step: gradients over ``n_micro`` micro-batches (summed
     in float32 when more than one), then AdamW.  ``step(params,
     opt_state, batch)`` returns ``(params, opt_state, metrics)`` with
     ``grad_norm`` and ``lr`` merged into `lm_loss`'s metrics (0-d
     tensors).  ``donate=True`` updates ``params`` and the moments in
     place (the reference donates both buffers); ``donate=False`` returns
-    new tensors and leaves the inputs untouched."""
+    new tensors and leaves the inputs untouched.  A mesh is refused:
+    the sharded step is ROADMAP Queue 1, item 5c."""
+    if mesh is not None:
+        raise NotImplementedError(
+            "make_train_step(mesh=...): the sharded train step is not "
+            "ported yet (ROADMAP Queue 1, item 5c)")
     cfg = train_config(cfg)
     set_matmul_precision()
     update = adamw_update_ if donate else adamw_update
@@ -127,13 +156,22 @@ def make_train_step(cfg: LMConfig, opt: AdamWConfig, *, n_micro: int = 1,
     return TrainStepFns(step=step)
 
 
-def make_prefill_step(cfg: LMConfig, *, backend: str = "cuda"):
+def make_prefill_step(cfg: LMConfig, *, mesh=None, param_specs=None,
+                      params_shape=None, backend: str = "cuda"):
     """Prefill: (params, inputs, pos) -> (last-token logits, kvs).
     ``inputs`` tokens (B, S) or embeds (B, S, d); ``pos`` (B, S), or (B,
-    3, S) for mrope."""
+    3, S) for mrope.  With a mesh: ``(prefill, param_shardings)``;
+    ``param_specs`` (`lm_param_specs`) and ``params_shape`` (anything
+    shaped like the parameters: meta tensors do) are required, and
+    ``kvs`` comes back as a `ShardedTree` laid out by
+    `decode_cache_specs`."""
     if backend not in BACKENDS:
         raise ValueError(f"backend must be one of {BACKENDS}, got {backend!r}")
     set_matmul_precision()
+    if mesh is not None:
+        pspecs = _param_specs(mesh, param_specs, params_shape)
+        return (_MeshPrefill(cfg, mesh, pspecs, backend),
+                named_shardings(mesh, pspecs))
 
     @torch.no_grad()
     def prefill(params, inputs, pos):
@@ -142,17 +180,206 @@ def make_prefill_step(cfg: LMConfig, *, backend: str = "cuda"):
     return prefill
 
 
-def make_decode_step(cfg: LMConfig):
+def decode_cache_specs(cfg: LMConfig, mesh, cache_shape, *,
+                       model_axis: str = "model"):
+    """KV-cache `PartitionSpec`s: batch over (pod, data); kv heads over
+    ``model_axis`` when divisible, else the cache sequence over it
+    (sequence-sharded KV).  Attention slot leaves: (R, B, S, K, hd);
+    Mamba ``h``: (R, B, d_inner, N); Mamba ``conv``: (R, B, d_conv-1,
+    d_inner)."""
+    b = batch_axes_for(mesh)
+    tp = mesh.shape[model_axis] if model_axis in mesh.axis_names else 1
+
+    def spec_for(leaf):
+        shape = tuple(leaf.shape)
+        if len(shape) == 5:                      # attention KV (R,B,S,K,hd)
+            if cfg.n_kv % tp == 0 and tp > 1:
+                return P(None, b, None, model_axis, None)
+            if shape[2] % tp == 0 and tp > 1:
+                return P(None, b, model_axis, None, None)
+            return P(None, b, None, None, None)
+        if len(shape) == 4 and cfg.mamba is not None and \
+                shape[2] == cfg.mamba.d_conv - 1:  # (R,B,dc-1,di)
+            return P(None, b, None, model_axis)
+        if len(shape) == 4:                      # mamba h (R,B,di,N)
+            return P(None, b, model_axis, None)
+        return P(*([None] * len(shape)))
+
+    return tree_map(spec_for, cache_shape)
+
+
+def make_decode_step(cfg: LMConfig, *, mesh=None, param_specs=None,
+                     params_shape=None, cache_shape=None):
     """Decode: (params, cache, token_or_embed, t) -> (logits, cache), the
     cache updated in place; ``t`` the step's position (an int).  Decode
-    runs no kernel, so there is no backend to choose."""
+    runs no kernel, so there is no backend to choose.  With a mesh:
+    ``(decode, param_shardings, cache_shardings)``; ``cache_shape``
+    (anything shaped like `init_lm_cache`'s cache) is required too, and
+    the cache stays on the ranks as a `ShardedTree`."""
     set_matmul_precision()
+    if mesh is not None:
+        if cache_shape is None:
+            raise ValueError("make_decode_step(mesh=...) needs cache_shape")
+        pspecs = _param_specs(mesh, param_specs, params_shape)
+        cspecs = prune_specs_for_mesh(
+            mesh, decode_cache_specs(cfg, mesh, cache_shape), cache_shape)
+        return (_MeshDecode(cfg, mesh, pspecs, cspecs),
+                named_shardings(mesh, pspecs), named_shardings(mesh, cspecs))
 
     @torch.no_grad()
     def decode(params, cache, tok, t):
         return lm_decode_step(params, cfg, cache, tok, t)
 
     return decode
+
+
+# ---------------------------------------------------------------------------
+# the mesh paths: the caller's side and the ranks'
+
+def _param_specs(mesh, param_specs, params_shape):
+    if param_specs is None or params_shape is None:
+        raise ValueError("a mesh step needs param_specs (lm_param_specs) "
+                         "and params_shape")
+    return prune_specs_for_mesh(mesh, param_specs, params_shape)
+
+
+def _on_ranks(tree, mesh, specs):
+    """``tree`` as a `ShardedTree` on ``mesh``: laid out here unless it is
+    one already (on this mesh)."""
+    from repro_torch.runtime.elastic import ShardedTree, reshard
+    if isinstance(tree, ShardedTree):
+        if tree.mesh is not mesh:
+            raise ValueError("the tree lies on another mesh; move it with "
+                             "runtime.elastic.remesh_state")
+        return tree
+    return reshard(tree, mesh, specs)
+
+
+class _RankClock:
+    """Inside a rank: the span of a step (CUDA events on the card, the
+    host clock on the CPU) and, with ``timing``, its time in
+    collectives."""
+
+    def __init__(self, r, timing: bool):
+        self.r, self.timing, self.stats = r, timing, {}
+
+    def __enter__(self):
+        from repro_torch.distributed.ranks import collective_timing
+        if self.timing:
+            collective_timing(True)
+        self.t0 = time.perf_counter()
+        if self.r.device.type == "cuda":
+            self.ev = torch.cuda.Event(enable_timing=True)
+            self.ev.record()
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.distributed.ranks import (collective_ms,
+                                                   collective_timing)
+        if self.r.device.type == "cuda":
+            end = torch.cuda.Event(enable_timing=True)
+            end.record()
+            end.synchronize()
+            self.stats["device_ms"] = self.ev.elapsed_time(end)
+        self.stats["wall_ms"] = (time.perf_counter() - self.t0) * 1e3
+        if self.timing:
+            self.stats["collective_ms"] = collective_ms()
+            collective_timing(False)
+
+
+def _r_prefill(r, mesh_key: str, params_key: str, kv_key: str, cfg,
+               backend: str, inputs_w, pos_w, kv_specs, timing: bool):
+    from repro_torch.distributed.ranks import from_wire, to_wire
+    from repro_torch.distributed.sharding import Local
+    from repro_torch.nn.tensor_parallel import MODEL, lm_prefill_tp
+    set_matmul_precision()
+    mesh = r.state[mesh_key]
+    bspec = P(batch_axes_for(mesh))
+    inputs = constrain(from_wire(inputs_w, r.device), mesh, bspec)
+    pos = constrain(from_wire(pos_w, r.device), mesh, bspec)
+    with torch.no_grad(), _RankClock(r, timing) as clock:
+        logits, kvs = lm_prefill_tp(r.state[params_key], cfg, mesh, inputs,
+                                    pos, backend=backend, kv_specs=kv_specs)
+    r.state[kv_key] = Local(kvs, kv_specs, mesh)
+    return (to_wire(logits) if mesh.index(MODEL) == 0 else None,
+            clock.stats)
+
+
+def _r_decode(r, mesh_key: str, params_key: str, cache_key: str, cfg,
+              tok_w, t: int, timing: bool):
+    from repro_torch.distributed.ranks import from_wire, to_wire
+    from repro_torch.nn.tensor_parallel import MODEL, lm_decode_tp
+    set_matmul_precision()
+    mesh = r.state[mesh_key]
+    tok = constrain(from_wire(tok_w, r.device), mesh,
+                    P(batch_axes_for(mesh)))
+    with torch.no_grad(), _RankClock(r, timing) as clock:
+        logits = lm_decode_tp(r.state[params_key], cfg, mesh,
+                              r.state[cache_key], tok, t)
+    return (to_wire(logits) if mesh.index(MODEL) == 0 else None,
+            clock.stats)
+
+
+class _MeshStep:
+    def __init__(self, cfg: LMConfig, mesh, pspecs):
+        self.cfg, self.mesh, self.pspecs = cfg, mesh, pspecs
+        self.timing = False
+        self.last_stats: list = []
+
+    def _logits(self, got: list, batch: int, device) -> torch.Tensor:
+        from repro_torch.distributed.ranks import from_wire
+        self.last_stats = [g[1] for g in got]
+        parts = [None if g[0] is None else from_wire(g[0], device)
+                 for g in got]
+        return join_batch(self.mesh, batch_axes_for(self.mesh), parts, batch)
+
+
+class _MeshPrefill(_MeshStep):
+    """The mesh prefill: ``(params, inputs, pos) -> (logits, kvs)``."""
+
+    def __init__(self, cfg, mesh, pspecs, backend):
+        super().__init__(cfg, mesh, pspecs)
+        self.backend = backend
+
+    def __call__(self, params, inputs, pos):
+        from repro_torch.distributed.ranks import to_wire
+        from repro_torch.runtime.elastic import ShardedTree
+        cfg, mesh = self.cfg, self.mesh
+        handle = _on_ranks(params, mesh, self.pspecs)
+        B, S = inputs.shape[:2]
+        kv = torch.empty((cfg.repeats, B, S, cfg.n_kv, cfg.head_dim),
+                         device="meta")
+        shapes = tuple((kv, kv) if spec.kind == "attn" else None
+                       for spec in cfg.period)
+        kv_specs = prune_specs_for_mesh(
+            mesh, decode_cache_specs(cfg, mesh, shapes), shapes)
+        kv_key = mesh.group.new_key("kv")
+        got = mesh.group.run(_r_prefill, None, mesh.key, handle.key, kv_key,
+                             cfg, self.backend, to_wire(inputs), to_wire(pos),
+                             kv_specs, self.timing)
+        leaves, skeleton = tree_flatten(shapes)
+        kvs = ShardedTree(mesh=mesh, key=kv_key, skeleton=skeleton,
+                          specs=kv_specs,
+                          shapes=[tuple(t.shape) for t in leaves],
+                          dtypes=[cfg.dtype] * len(leaves))
+        return self._logits(got, B, inputs.device), kvs
+
+
+class _MeshDecode(_MeshStep):
+    """The mesh decode: ``(params, cache, tok, t) -> (logits, cache)``."""
+
+    def __init__(self, cfg, mesh, pspecs, cspecs):
+        super().__init__(cfg, mesh, pspecs)
+        self.cspecs = cspecs
+
+    def __call__(self, params, cache, tok, t):
+        from repro_torch.distributed.ranks import to_wire
+        handle = _on_ranks(params, self.mesh, self.pspecs)
+        cache = _on_ranks(cache, self.mesh, self.cspecs)
+        got = self.mesh.group.run(_r_decode, None, self.mesh.key, handle.key,
+                                  cache.key, self.cfg, to_wire(tok), int(t),
+                                  self.timing)
+        return self._logits(got, tok.shape[0], tok.device), cache
 
 
 def _to_torch(x: Any, dev: torch.device) -> torch.Tensor:

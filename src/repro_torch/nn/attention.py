@@ -34,7 +34,8 @@ from repro_torch.nn.layers import Initializer
 
 __all__ = ["AttnParams", "attention_init", "rope", "m_rope",
            "blockwise_attention", "decode_attention", "attention_forward",
-           "attention_decode", "init_cache", "CAUSAL_MODES"]
+           "attention_decode", "attention_axes", "init_cache",
+           "CAUSAL_MODES"]
 
 CAUSAL_MODES = ("flash", "masked_full", "triangle")
 _NEG = -1e30
@@ -126,6 +127,24 @@ def attention_init(init: Initializer, d_model: int, ap: AttnParams) -> dict:
         p["qnorm"] = init.weight((hd,), zero=True)
         p["knorm"] = init.weight((hd,), zero=True)
     return p
+
+
+def attention_axes(ap: AttnParams) -> dict:
+    """Logical axes of `attention_init`'s leaves (the reference declares
+    them in its init)."""
+    ax = {}
+    if ap.fused_qkv:
+        ax["wqkv"] = ("embed", "heads", "head_dim")
+    else:
+        ax["wq"] = ("embed", "heads", "head_dim")
+        ax["wk"] = ax["wv"] = ("embed", "kv_heads", "head_dim")
+    ax["wo"] = ("heads", "head_dim", "embed")
+    if ap.bias:
+        ax.update(bq=("heads", "head_dim"), bk=("kv_heads", "head_dim"),
+                  bv=("kv_heads", "head_dim"), bo=("embed",))
+    if ap.qk_norm:
+        ax["qnorm"] = ax["knorm"] = ("head_dim",)
+    return ax
 
 
 def _project(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:

@@ -17,6 +17,7 @@ plain one.
 """
 from __future__ import annotations
 
+import dataclasses
 import functools
 import math
 from typing import Callable, Optional
@@ -24,11 +25,89 @@ from typing import Callable, Optional
 import torch
 import torch.nn.functional as F
 
-__all__ = ["Initializer", "linear", "apply_linear", "rmsnorm",
-           "apply_rmsnorm", "layernorm", "apply_layernorm", "glu_mlp",
-           "apply_glu_mlp", "mlp", "apply_mlp", "gelu_tanh"]
+__all__ = ["DEFAULT_MAPPING", "DEFAULT_RULES", "Initializer",
+           "PartitionSpec", "ShardingRules", "linear", "apply_linear",
+           "rmsnorm", "apply_rmsnorm", "layernorm", "apply_layernorm",
+           "glu_mlp", "apply_glu_mlp", "glu_mlp_axes", "mlp", "apply_mlp",
+           "mlp_axes", "norm_axes", "gelu_tanh"]
 
 gelu_tanh = functools.partial(F.gelu, approximate="tanh")
+
+
+# ---------------------------------------------------------------------------
+# sharding rules: logical axis names -> mesh axes
+# ---------------------------------------------------------------------------
+
+class PartitionSpec(tuple):
+    """How a tensor's dims lie over a mesh: one entry per dim, a mesh
+    axis name, a tuple of names (the dim split over their product,
+    the first name major) or None (not split); dims past the last
+    entry are not split.  The counterpart of
+    `jax.sharding.PartitionSpec`, and like it a tuple whose entries are
+    canonical: a one-name tuple is the name, an empty one None."""
+
+    def __new__(cls, *entries):
+        def canon(e):
+            if not isinstance(e, (tuple, list)):
+                return e
+            return None if not e else e[0] if len(e) == 1 else tuple(e)
+        return super().__new__(cls, tuple(canon(e) for e in entries))
+
+    def __repr__(self) -> str:
+        return "PartitionSpec" + tuple.__repr__(self)
+
+    def __reduce__(self):
+        return PartitionSpec, tuple(self)
+
+
+@dataclasses.dataclass(frozen=True)
+class ShardingRules:
+    """Logical -> physical mesh-axis mapping (the MaxText pattern: layers
+    name each weight dim with a logical axis; the rules place it)."""
+
+    mapping: dict = dataclasses.field(
+        default_factory=lambda: dict(DEFAULT_MAPPING))
+
+    def spec(self, *logical: Optional[str]) -> PartitionSpec:
+        phys, used = [], set()
+        for name in logical:
+            ax = self.mapping.get(name) if name is not None else None
+            # never map two dims of one tensor onto the same mesh axis
+            flat = tuple(ax) if isinstance(ax, (tuple, list)) else (ax,)
+            if any(a in used for a in flat if a is not None):
+                ax = None
+            used.update(a for a in flat if a is not None)
+            phys.append(ax)
+        return PartitionSpec(*phys)
+
+    def replace(self, **updates) -> "ShardingRules":
+        return ShardingRules(mapping={**self.mapping, **updates})
+
+
+DEFAULT_MAPPING = {
+    # weight dims
+    "embed": "data",          # FSDP / ZeRO-3: model dim of weights over data
+    "mlp": "model",           # TP column/row parallel
+    "vocab": "model",
+    "heads": "model",
+    "kv_heads": None,         # replicated when kv < tp (Megatron GQA pattern)
+    "head_dim": None,
+    "experts": "model",       # EP
+    "expert_mlp": "data",     # FSDP inside each expert
+    "inner": "model",         # mamba d_inner
+    "state": None,
+    "conv": None,
+    "layers": None,           # the reference's stacked-layer dim
+    # activation dims
+    "batch": ("pod", "data"),
+    "seq": None,
+    "act_embed": None,
+    "act_heads": "model",
+    "cache_seq": None,
+    "cache_kv": None,
+}
+
+DEFAULT_RULES = ShardingRules()
 
 
 class Initializer:
@@ -75,6 +154,12 @@ def apply_linear(p: dict, x: torch.Tensor) -> torch.Tensor:
     return y
 
 
+def norm_axes(norm: str = "rms") -> dict:
+    """Logical axes of `rmsnorm` (``"rms"``) or `layernorm`'s leaves."""
+    return ({"g": ("act_embed",)} if norm == "rms"
+            else {"g": ("act_embed",), "b": ("act_embed",)})
+
+
 def rmsnorm(init: Initializer, dim: int) -> dict:
     """Gemma-style ``(1 + g)`` gain, zero-initialized."""
     return {"g": init.weight((dim,), zero=True)}
@@ -110,6 +195,10 @@ def glu_mlp(init: Initializer, dim: int, hidden: int) -> dict:
             "wo": init.weight((hidden, dim))}
 
 
+def glu_mlp_axes() -> dict:
+    return {"wi": ("embed", None, "mlp"), "wo": ("mlp", "embed")}
+
+
 def apply_glu_mlp(p: dict, x: torch.Tensor,
                   act: Callable = F.silu) -> torch.Tensor:
     wi = p["wi"].to(x.dtype)
@@ -125,6 +214,11 @@ def mlp(init: Initializer, dim: int, hidden: int) -> dict:
             "b1": init.weight((hidden,), zero=True),
             "w2": init.weight((hidden, dim)),
             "b2": init.weight((dim,), zero=True)}
+
+
+def mlp_axes() -> dict:
+    return {"w1": ("embed", "mlp"), "b1": ("mlp",), "w2": ("mlp", "embed"),
+            "b2": ("embed",)}
 
 
 def apply_mlp(p: dict, x: torch.Tensor,

@@ -25,6 +25,13 @@ Prefill runs one of two paths, as in the reference:
 Decode is the O(1) recurrent update: state (B, d_inner, d_state) plus a
 (d_conv-1)-deep causal-conv tail; it runs no kernel.
 
+On a mesh (`repro_torch.nn.tensor_parallel`) a rank holds a slice of
+``d_inner``: ``in_proj``, the conv, ``dt_proj`` and the scan are local
+per channel, and ``x_proj`` and ``out_proj`` contract ``d_inner``, so
+their products are partial sums: ``reduce`` (an all-reduce over the
+model axis) completes them.  Without it the block is the one-device
+block.
+
 Rounding points follow the reference: the in/out projections run in the
 activation dtype (bf16 on `falcon_mamba_7b.full()`), the conv, the SSM
 inputs and the scan in float32, and the decode cache keeps its conv tail
@@ -35,7 +42,7 @@ by default).
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Callable, Optional
 
 import torch
 import torch.nn.functional as F
@@ -45,8 +52,8 @@ from repro_torch.kernels.selective_scan import (refuse_grad, selective_scan,
                                                 selective_scan_plain)
 from repro_torch.nn.layers import Initializer
 
-__all__ = ["BACKENDS", "MambaParams", "mamba_init", "mamba_forward",
-           "mamba_decode", "init_mamba_state"]
+__all__ = ["BACKENDS", "MambaParams", "mamba_init", "mamba_axes",
+           "mamba_forward", "mamba_decode", "init_mamba_state"]
 
 BACKENDS = ("cuda", "torch")
 
@@ -94,6 +101,15 @@ def mamba_init(init: Initializer, d_model: int, mp: MambaParams) -> dict:
     return p
 
 
+def mamba_axes(mp: MambaParams) -> dict:
+    """Logical axes of `mamba_init`'s leaves: ``d_inner`` is "inner"."""
+    return {"in_proj": ("embed", None, "inner"), "conv_w": ("conv", "inner"),
+            "conv_b": ("inner",), "x_proj": ("inner", None),
+            "dt_proj": (None, "inner"), "dt_bias": ("inner",),
+            "A_log": ("inner", "state"), "D": ("inner",),
+            "out_proj": ("inner", "embed")}
+
+
 def _in_proj(p: dict, x: torch.Tensor) -> torch.Tensor:
     """x (B, S, d_model) -> xz (B, S, 2, d_inner) in x's dtype."""
     w = p["in_proj"].to(x.dtype)
@@ -118,10 +134,15 @@ def _causal_conv(p: dict, x: torch.Tensor, d_conv: int) -> torch.Tensor:
     return acc + p["conv_b"].float()
 
 
-def _ssm_inputs(p: dict, xc: torch.Tensor, mp: MambaParams):
+def _same(t: torch.Tensor) -> torch.Tensor:
+    return t
+
+
+def _ssm_inputs(p: dict, xc: torch.Tensor, mp: MambaParams,
+                reduce: Callable = _same):
     """xc (B, S', d_inner) f32 -> (a, b, C) for h_t = a_t h_{t-1} + b_t."""
     dt_rank = p["dt_proj"].shape[0]
-    xdbc = xc @ p["x_proj"].float()
+    xdbc = reduce(xc @ p["x_proj"].float())
     dt_low, b_ssm, c_ssm = torch.split(
         xdbc, [dt_rank, mp.d_state, mp.d_state], dim=-1)
     dt = softplus(dt_low @ p["dt_proj"].float() + p["dt_bias"].float())
@@ -154,19 +175,22 @@ def _check_backend(backend: str) -> None:
 
 def mamba_forward(p: dict, x: torch.Tensor, mp: MambaParams,
                   h0: Optional[torch.Tensor] = None,
-                  return_state: bool = False, *, backend: str = "cuda"):
+                  return_state: bool = False, *, backend: str = "cuda",
+                  reduce: Callable = _same):
     """x (B, S, d_model) -> (B, S, d_model).
 
     The fused path (``mp.fused_scan == "on"``, no ``h0``, no
     ``return_state``) takes any S.  The chunked path needs S divisible by
-    ``min(chunk, S)``; its live memory is O(B * chunk * d_inner * N)."""
+    ``min(chunk, S)``; its live memory is O(B * chunk * d_inner * N).
+    ``reduce`` completes the ``x_proj`` and ``out_proj`` products of a
+    ``d_inner`` slice (see the module docstring)."""
     _check_backend(backend)
     if mp.fused_scan == "on" and h0 is None and not return_state:
         refuse_grad(x, *p.values())
         if backend == "cuda" and not x.is_cuda:
             raise ValueError("backend='cuda' runs the scan kernel and needs "
                              "CUDA tensors; use backend='torch' on the CPU")
-        return _mamba_forward_fused(p, x, mp, backend=backend)
+        return _mamba_forward_fused(p, x, mp, backend=backend, reduce=reduce)
     bsz, seq, _ = x.shape
     c = min(mp.chunk, seq)
     if seq % c:
@@ -191,21 +215,22 @@ def mamba_forward(p: dict, x: torch.Tensor, mp: MambaParams,
         for i in range(mp.d_conv):
             acc = acc + hist[:, i:i + c] * w[i]
         xcv = F.silu(acc + p["conv_b"].float())
-        a, b, c_ssm = _ssm_inputs(p, xcv, mp)                     # (B,c,di,N)
+        a, b, c_ssm = _ssm_inputs(p, xcv, mp, reduce)             # (B,c,di,N)
         hs, h = _chunk_scan(a, b, h)
         y = (torch.einsum("bsdn,bsn->bsd", hs, c_ssm)
              + p["D"].float() * xcv)
         y = y * F.silu(z.float())
         outs.append(_out_proj(p, y, x.dtype))
         tail = hist[:, c:]
-    out = torch.cat(outs, dim=1)
+    out = reduce(torch.cat(outs, dim=1))
     if return_state:
         return out, h
     return out
 
 
 def _mamba_forward_fused(p: dict, x: torch.Tensor, mp: MambaParams, *,
-                         backend: str) -> torch.Tensor:
+                         backend: str, reduce: Callable = _same
+                         ) -> torch.Tensor:
     """Projections, conv and gating in PyTorch; the discretize + scan core
     in the fused-scan wrapper (``backend="cuda"``) or its plain version
     (``backend="torch"``).  Inference path (no backward)."""
@@ -213,7 +238,7 @@ def _mamba_forward_fused(p: dict, x: torch.Tensor, mp: MambaParams, *,
     xz = _in_proj(p, x)
     x_in, z = xz[:, :, 0], xz[:, :, 1]
     xcv = F.silu(_causal_conv(p, x_in, mp.d_conv))               # (B,S,di) f32
-    xdbc = xcv @ p["x_proj"].float()
+    xdbc = reduce(xcv @ p["x_proj"].float())
     dt_low, b_ssm, c_ssm = torch.split(
         xdbc, [dt_rank, mp.d_state, mp.d_state], dim=-1)
     dt_raw = dt_low @ p["dt_proj"].float()                        # pre-softplus
@@ -225,7 +250,7 @@ def _mamba_forward_fused(p: dict, x: torch.Tensor, mp: MambaParams, *,
     scan = selective_scan if backend == "cuda" else selective_scan_plain
     y = scan(*args)
     y = y * F.silu(z.float())
-    return _out_proj(p, y, x.dtype)
+    return reduce(_out_proj(p, y, x.dtype))
 
 
 def init_mamba_state(batch: int, d_model: int, mp: MambaParams,
@@ -238,7 +263,8 @@ def init_mamba_state(batch: int, d_model: int, mp: MambaParams,
     }
 
 
-def mamba_decode(p: dict, x: torch.Tensor, state: dict, mp: MambaParams):
+def mamba_decode(p: dict, x: torch.Tensor, state: dict, mp: MambaParams,
+                 reduce: Callable = _same):
     """One token. x (B, 1, d_model) -> (y (B, 1, d_model), new_state)."""
     xz = _in_proj(p, x)
     x_in, z = xz[:, 0, 0], xz[:, 0, 1]                            # (B, di)
@@ -246,10 +272,10 @@ def mamba_decode(p: dict, x: torch.Tensor, state: dict, mp: MambaParams):
     w = p["conv_w"].float()
     hist = torch.cat([state["conv"].float(), x_in[:, None].float()], dim=1)
     xc = F.silu(torch.einsum("bcd,cd->bd", hist, w) + p["conv_b"].float())
-    a, b, c_ssm = _ssm_inputs(p, xc[:, None, :], mp)
+    a, b, c_ssm = _ssm_inputs(p, xc[:, None, :], mp, reduce)
     h = a[:, 0] * state["h"] + b[:, 0]                            # (B, di, N)
     y = torch.einsum("bdn,bn->bd", h, c_ssm[:, 0]) + p["D"].float() * xc
     y = y * F.silu(z.float())
-    out = _out_proj(p, y, x.dtype)
+    out = reduce(_out_proj(p, y, x.dtype))
     new_state = {"h": h, "conv": hist[:, 1:].to(state["conv"].dtype)}
     return out[:, None, :], new_state

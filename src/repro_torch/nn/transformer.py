@@ -44,20 +44,23 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
-from repro_torch.nn.attention import (AttnParams, attention_decode,
-                                      attention_forward, attention_init,
-                                      init_cache)
-from repro_torch.nn.layers import (Initializer, apply_glu_mlp,
-                                   apply_layernorm, apply_mlp, apply_rmsnorm,
-                                   gelu_tanh, glu_mlp, layernorm, mlp,
-                                   rmsnorm)
+from repro_torch.nn.attention import (AttnParams, attention_axes,
+                                      attention_decode, attention_forward,
+                                      attention_init, init_cache)
+from repro_torch.nn.layers import (DEFAULT_RULES, Initializer,
+                                   PartitionSpec, ShardingRules,
+                                   apply_glu_mlp, apply_layernorm, apply_mlp,
+                                   apply_rmsnorm, gelu_tanh, glu_mlp,
+                                   glu_mlp_axes, layernorm, mlp, mlp_axes,
+                                   norm_axes, rmsnorm)
 from repro_torch.nn.losses import chunked_softmax_xent
-from repro_torch.nn.mamba import (MambaParams, init_mamba_state, mamba_decode,
-                                  mamba_forward, mamba_init)
-from repro_torch.nn.moe import MoEParams, moe_apply, moe_init
+from repro_torch.nn.mamba import (MambaParams, init_mamba_state, mamba_axes,
+                                  mamba_decode, mamba_forward, mamba_init)
+from repro_torch.nn.moe import MoEParams, moe_apply, moe_axes, moe_init
 
-__all__ = ["LayerSpec", "LMConfig", "lm_init", "lm_forward", "lm_loss",
-           "lm_prefill", "lm_decode_step", "init_lm_cache", "param_count"]
+__all__ = ["LayerSpec", "LMConfig", "lm_init", "lm_param_specs",
+           "lm_forward", "lm_loss", "lm_prefill", "lm_decode_step",
+           "init_lm_cache", "param_count"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -196,6 +199,54 @@ def lm_init(cfg: LMConfig, generator: Optional[torch.Generator], *,
     return p
 
 
+def _slot_axes(cfg: LMConfig, spec: LayerSpec) -> dict:
+    """Logical axes of `_slot_init`'s leaves."""
+    ax = {"norm1": norm_axes(cfg.norm)}
+    if spec.kind == "attn":
+        ax["attn"] = attention_axes(cfg.attn_params(spec))
+    else:
+        ax["mamba"] = mamba_axes(cfg.mamba)
+    if cfg.post_norm:
+        ax["post1"] = norm_axes(cfg.norm)
+    if spec.mlp != "none":
+        ax["norm2"] = norm_axes(cfg.norm)
+        if spec.mlp == "glu":
+            ax["ffn"] = glu_mlp_axes()
+        elif spec.mlp == "mlp":
+            ax["ffn"] = mlp_axes()
+        elif spec.mlp == "moe":
+            ax["ffn"] = moe_axes(cfg.moe)
+        else:
+            raise ValueError(spec.mlp)
+        if cfg.post_norm:
+            ax["post2"] = norm_axes(cfg.norm)
+    return ax
+
+
+def lm_param_specs(cfg: LMConfig,
+                   rules: ShardingRules = DEFAULT_RULES) -> dict:
+    """The `PartitionSpec` of every leaf of `lm_init`'s parameters, in
+    the same tree: the reference's specs (`src/repro/nn/transformer.py:192`
+    `lm_init`).  The reference stacks each block leaf on a leading
+    ``"layers"`` dim; a port block leaf is one layer, so its spec is the
+    reference's without that first entry."""
+    def block(axes: dict) -> dict:
+        return {k: block(v) if isinstance(v, dict)
+                else PartitionSpec(*rules.spec("layers", *v)[1:])
+                for k, v in axes.items()}
+
+    s = {}
+    if cfg.frontend == "tokens":
+        s["embed"] = rules.spec("vocab", "embed")
+    if not (cfg.tie_embeddings and cfg.frontend == "tokens"):
+        s["unembed"] = rules.spec("embed", "vocab")
+    s["final_norm"] = {k: rules.spec(*v)
+                       for k, v in norm_axes(cfg.norm).items()}
+    s["blocks"] = [tuple(block(_slot_axes(cfg, spec)) for spec in cfg.period)
+                   for _ in range(cfg.repeats)]
+    return s
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -302,6 +353,12 @@ def _embed_in(cfg: LMConfig, params: dict, inputs: torch.Tensor,
         x = params["embed"][inputs.long()].to(cfg.dtype)
     else:
         x = inputs.to(cfg.dtype)
+    return _embed_post(cfg, x, pos)
+
+
+def _embed_post(cfg: LMConfig, x: torch.Tensor,
+                pos: torch.Tensor) -> torch.Tensor:
+    """The embedding's scale and positional term, after the lookup."""
     # the scale is rounded to the model dtype first, as in the reference
     x = x * torch.tensor(cfg.embed_scale, dtype=cfg.dtype, device=x.device)
     if cfg.posemb == "sinusoidal":

@@ -113,10 +113,18 @@ def sample_frontier(g: CSRGraph, frontier: np.ndarray, fanout: int,
         z = np.zeros(0, dtype=np.int64)
         return z, z, np.zeros(0, dtype=np.float32)
     key = rng.random(total)
-    order = np.lexsort((key, rows_local))
-    rank = np.arange(total) - cum[:-1][rows_local[order]]
-    keep = order[rank < fanout]
-    keep.sort()                       # deterministic per-row CSR edge order
+    # a row keeps its min(d, fanout) edges of least (key, position): every
+    # edge of a row at or under the fanout, else one partial sort of the
+    # row's keys (equal keys taken by position) -- the edges a lexsort of
+    # every candidate by (row, key) ranks first, without that sort
+    keep_mask = np.ones(total, dtype=bool)
+    for r in np.flatnonzero(counts > fanout):
+        seg = key[cum[r]:cum[r + 1]]
+        kth = np.partition(seg, fanout - 1)[fanout - 1]
+        sel = seg < kth
+        sel[np.flatnonzero(seg == kth)[:fanout - int(sel.sum())]] = True
+        keep_mask[cum[r]:cum[r + 1]] = sel
+    keep = np.flatnonzero(keep_mask)  # deterministic per-row CSR edge order
     k = np.minimum(counts, fanout).astype(np.float64)
     scale = (counts.astype(np.float64) / np.maximum(k, 1.0))[rows_local[keep]]
     return rows_local[keep], flat[keep], scale.astype(np.float32)

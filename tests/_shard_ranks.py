@@ -59,3 +59,18 @@ def r_saved_calls(r, key) -> int:
     """How many aggregation calls' saved tensors this rank holds for the
     executor ``key``."""
     return len(r.state[key].get("saved", {}))
+
+
+def r_axis_collectives(r, mesh_key: str) -> dict:
+    """This rank's coordinates on the mesh under ``mesh_key`` and, over
+    each axis and over both, the all-reduced sum and the all-gather of
+    its global rank."""
+    mesh = r.state[mesh_key]
+    me = torch.tensor([float(r.rank)])
+    out = {"coords": dict(mesh.coords)}
+    for axes in [("data",), ("model",), ("data", "model")]:
+        out[axes] = (float(mesh.all_reduce(me.clone(), axes)[0]),
+                     mesh.all_gather(me, axes).tolist(),
+                     mesh.index(axes))
+    out["max"] = float(mesh.all_reduce(me.clone(), ("model",), op="max")[0])
+    return out

@@ -329,7 +329,7 @@ def test_driver_writes_metrics_and_trace(tmp_path):
 
 @pytest.mark.parametrize("flags,msg", [
     (["--arch", "gemma2-2b", "--sampled"], "gcn/gin only"),
-    (["--arch", "gemma2-2b", "--shards", "2"], "Queue 1, item 5"),
+    (["--arch", "gemma2-2b", "--shards", "2"], "gcn/gin only"),
     (["--arch", "gemma2-2b", "--n-micro", "3"], "divide --global-batch"),
     (["--arch", "llama-7b"], "unknown arch"),
 ])

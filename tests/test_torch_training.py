@@ -351,7 +351,7 @@ def test_driver_fail_at_reproduces_clean_run(tmp_path):
 
 @pytest.mark.parametrize("flags,msg", [
     (["--arch", "gat", "--sampled"], "gcn/gin only"),
-    (["--arch", "h2o-danube-1.8b", "--shards", "2"], "Queue 1, item 5"),
+    (["--arch", "h2o-danube-1.8b", "--shards", "2"], "gcn/gin only"),
     (["--arch", "gcn", "--stream-deltas", "2"], "requires --sampled"),
     (["--arch", "gat", "--shards", "2"], "gcn/gin only"),
     (["--arch", "mamba2-130m"], "unknown arch"),
