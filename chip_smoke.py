@@ -338,9 +338,39 @@ Phases, each timed, any failure exits non-zero before the result line:
      GLU layer moved from (2, 2) onto (1, 4) by `remesh_state` (through
      host memory; bytes and seconds printed): its logits within 1e-5 of
      those on (2, 2).
+  14. lm-mesh-train — the sharded LM train step (``make_train_step(
+     mesh=)`` in `models/lm.py`, the backward of `nn/tensor_parallel.py`,
+     the differentiable collectives of `distributed/ranks.py`,
+     `nn/losses.py`'s vocab-parallel cross-entropy, `distributed/
+     accumulate.py` on ranks, the sharded AdamW) on the 4 ranks of phase
+     12 (the same backend rule), n_micro 2.  (a) float32, the sharded
+     step against the one-device `make_train_step` on the same weights
+     and numpy-made batch (B 4, S 256): h2o-danube-1.8b at full width
+     (d 2560, 32 heads, 8 kv heads, d_ff 6912, V 32000) with 2 of its 24
+     layers on (2, 2), reduced Jamba (attention, Mamba on the chunked
+     path, MoE at a capacity factor of n_experts / topk) on (2, 2),
+     reduced gemma2-2b on (1, 4): loss, ``grad_norm`` and every
+     gradient leaf (from the parameter delta under ``AdamWConfig(lr=1,
+     eps=1, weight_decay=0, grad_clip=None)``) within 1e-4 in
+     ``max|a-b|/(1+max|b|)`` (gemma2-2b 1e-3), or within 3 times the
+     one-device step's own move under a one-ulp nudge of every weight,
+     taken in the same run, where that is larger (random weights at full
+     width move a gradient leaf past 1e-4 so); (b) bf16 h2o-danube-1.8b
+     at full width on (2, 2), 4 of 24 layers at B 4 x S 2048 under gloo
+     (cut for time; full depth at B 8 x S 4096 under NCCL), 3 default
+     AdamW steps from handles: step ms, each rank's device span and ms
+     in collectives, peak GB by rank and the card's memory in use, the
+     losses beside the one-device port's on the same batch; the loss
+     must fall; (c) reduced h2o in float32, 2 steps on (2, 2), the live
+     parameters and `OptState` moved to (1, 4) by `remesh_state`, 2 more:
+     losses within 1e-5 of 4 steps on (2, 2); (d) ``seq_shard_carry`` on
+     (1, 4) against the same step without it: loss and gradients within
+     1e-5.  Every kernel counter on every rank and in the caller is
+     zeroed at the start and read at the end: all 0 (training runs no
+     kernel; the scan has no backward).
 
 
-``--phases`` runs a subset of phases 2-13 (names in `PHASES`); with no
+``--phases`` runs a subset of phases 2-14 (names in `PHASES`); with no
 arguments every phase runs.  The line before the last is the
 ``{"kernels": [...]}`` record (times are
 medians of 20 CUDA-event-timed calls after 3 warm-up calls, on warm
@@ -368,7 +398,9 @@ timed shape, its ``launches`` those of phase 7a's six prefills,
 ``launches_hybrid`` those of phase 9a's six, ``launches_mesh`` every
 rank's in phase 13a's four (with ``launches_mesh_per_prefill``),
 ``sfu_ms`` the exp/log term beside ``bound_ms``, and ``library_ms``
-null: no one PyTorch call computes a selective scan); the last line is
+null: no one PyTorch call computes a selective scan); every record's
+``launches_mesh_train`` counts its kernel's launches on the ranks in
+phase 14 (0: no kernel is on the training path); the last line is
 ``{"ok": true, "device": {...}}``.  Details of every check go to
 ``chiprun_out/chip_smoke_detail.json`` when that directory exists.
 """
@@ -4652,6 +4684,294 @@ def lm_mesh(detail: dict) -> dict:
     return rec
 
 
+# phase 14: the sharded LM train step on four ranks
+MT_AXES = ("data", "model")
+MT_N_MICRO = 2
+# (a): float32 cells, the sharded step against the one-device step
+MT_F32_CELLS = (("h2o-danube-1.8b", "full", 2, (2, 2)),
+                ("jamba-v0.1-52b", "reduced", None, (2, 2)),
+                ("gemma2-2b", "reduced", None, (1, 4)))
+MT_F32_BATCH, MT_F32_SEQ = 4, 256
+MT_F32_TOL = {"gemma2-2b": 1e-3}     # its one-device noise floor; else 1e-4
+MT_F32_DEFAULT_TOL = 1e-4
+# a gate is never tighter than this many times the one-device step's own
+# move under a one-ulp nudge of every weight, taken in the same run:
+# random full-width weights move a gradient leaf past 1e-4 that way
+MT_F32_SPREAD = 3.0
+# (b): bf16 h2o-danube-1.8b at full width: (layers, B, S) by transport;
+# gloo keeps four ranks on one card, so the depth is cut for time
+MT_BF16 = {"gloo": (4, 4, 2048), "nccl": (24, 8, 4096)}
+MT_BF16_STEPS = 3
+# (c) and (d): reduced h2o in float32
+MT_SMALL_BATCH, MT_SMALL_SEQ = 4, 64
+MT_REMESH_STEPS = 2                  # on (2, 2), then as many on (1, 4)
+MT_TRAJ_TOL = 1e-5
+MT_SEQ_TOL = 1e-5
+
+
+def _mt_batch(cfg, B: int, S: int, seed: int) -> dict:
+    """A numpy-made token batch on the card: next-token labels."""
+    import numpy as np
+    import torch
+    rng = np.random.default_rng(seed)
+    tok = rng.integers(0, cfg.vocab, (B, S + 1))
+    return {"tokens": torch.as_tensor(tok[:, :-1], device=DEVICE),
+            "labels": torch.as_tensor(tok[:, 1:], device=DEVICE),
+            "pos": torch.arange(S, device=DEVICE).expand(B, S).contiguous()}
+
+
+def _mt_linear_grads(cfg, params, batch, mesh=None, specs=None):
+    """The train step's gradient from its parameter delta under the
+    linearising AdamW (``g / (|g| + 1)`` a parameter, so ``g = d / (1 -
+    |d|)``), on ``mesh`` or on one device; returns (leaves, metrics)."""
+    from repro_torch.distributed.sharding import tree_leaves
+    from repro_torch.models.lm import make_train_step
+    from repro_torch.optim.adamw import AdamWConfig, adamw_init
+    from repro_torch.runtime.elastic import gather
+    opt = AdamWConfig(lr=1.0, eps=1.0, weight_decay=0.0, grad_clip=None)
+    kw = ({"mesh": mesh, "param_specs": specs, "params_shape": params}
+          if mesh is not None else {})
+    fns = make_train_step(cfg, opt, n_micro=MT_N_MICRO, donate=False, **kw)
+    new, _, metrics = fns.step(params, adamw_init(params), batch)
+    if mesh is not None:
+        new = gather(new, DEVICE)
+    grads = []
+    for p, q in zip(tree_leaves(params), tree_leaves(new)):
+        d = p.float() - q.float()
+        grads.append(d / (1 - d.abs()))
+    return grads, metrics
+
+
+def _mt_rank_counts(group) -> dict:
+    """Every kernel counter summed over the ranks (and zeroed)."""
+    out: dict = {}
+    for c in group.launches(reset=True):
+        for k, v in c.items():
+            out[k] = out.get(k, 0) + v
+    return out
+
+
+def lm_mesh_train(detail: dict) -> dict:
+    """Phase 14: the sharded LM train step (`models/lm.py:make_train_step(
+    mesh=)`, `nn/tensor_parallel.py`'s backward, the differentiable
+    collectives of `distributed/ranks.py`, `nn/losses.py`'s vocab-parallel
+    cross-entropy, `distributed/accumulate.py` on ranks, the sharded
+    AdamW) on four ranks: float32 cells against the one-device step, bf16
+    h2o-danube-1.8b at full width, a re-mesh mid-training and
+    ``seq_shard_carry``."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.distributed.sharding import tree_leaves
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models.lm import LMModel, make_train_step
+    from repro_torch.nn.transformer import lm_param_specs
+    from repro_torch.optim.adamw import AdamWConfig, adamw_init
+    from repro_torch.runtime.elastic import remesh_state, reshard
+
+    rec = {}
+    t_phase = time.time()
+    be = _dist_backend()
+    meshes = {shape: make_mesh(shape, MT_AXES, device=DEVICE,
+                               dist_backend=be)
+              for shape in ((2, 2), (1, 4))}
+    group = meshes[(2, 2)].group
+    rec.update(dist_backend=be, mesh_start_s=time.time() - t_phase)
+    log(f"lm-mesh-train: meshes (2, 2) and (1, 4) over {MT_AXES} on "
+        f"{group.num_shards} ranks, {be} ("
+        f"{'a card a rank' if be == 'nccl' else 'all on card 0'}), ready in "
+        f"{rec['mesh_start_s']:.1f}s")
+    _mt_rank_counts(group)
+    _reset_counts()
+
+    # (a) float32: the sharded step against the one-device step
+    errs = {}
+    for name, size, layers, shape in MT_F32_CELLS:
+        t0 = time.time()
+        cfg = getattr(configs.get_arch(name), size)()
+        cfg = dataclasses.replace(cfg, dtype=torch.float32,
+                                  **({"n_layers": layers} if layers else {}))
+        if cfg.moe is not None:
+            cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+                cfg.moe, capacity_factor=cfg.moe.n_experts / cfg.moe.topk))
+        params = LMModel.create(cfg, seed=3, device=DEVICE).params
+        batch = _mt_batch(cfg, MT_F32_BATCH, MT_F32_SEQ, seed=4)
+        specs = lm_param_specs(cfg)
+        got, m_mesh = _mt_linear_grads(cfg, params, batch, meshes[shape],
+                                       specs)
+        want, m_one = _mt_linear_grads(cfg, params, batch)
+        e = {"loss": _nerr(m_mesh["loss"], m_one["loss"]),
+             "grad_norm": _nerr(m_mesh["grad_norm"], m_one["grad_norm"]),
+             "grads": max(_nerr(a, b) for a, b in zip(got, want))}
+        # the one-device step's own move under a one-ulp weight nudge
+        _ulp_nudge(params, +1)
+        nudged, m_nudged = _mt_linear_grads(cfg, params, batch)
+        _ulp_nudge(params, -1)
+        spread = {"loss": _nerr(m_nudged["loss"], m_one["loss"]),
+                  "grad_norm": _nerr(m_nudged["grad_norm"],
+                                     m_one["grad_norm"]),
+                  "grads": max(_nerr(a, b) for a, b in zip(nudged, want))}
+        base = MT_F32_TOL.get(name, MT_F32_DEFAULT_TOL)
+        tol = {k: max(base, MT_F32_SPREAD * v) for k, v in spread.items()}
+        errs[f"{name} {size} {shape}"] = dict(
+            e, tol=tol, ulp_spread=spread, loss=float(m_one["loss"]),
+            n_params=sum(t.numel() for t in tree_leaves(params)),
+            seconds=time.time() - t0)
+        log(f"  (a) {name} {size}"
+            + (f" ({layers} layers)" if layers else "")
+            + f" float32 on {shape}, B {MT_F32_BATCH} S {MT_F32_SEQ}, "
+            f"n_micro {MT_N_MICRO}, mesh vs one device (one device under a "
+            f"one-ulp nudge; limit): " + ", ".join(
+                f"{k} {e[k]:.2e} ({spread[k]:.2e}; {tol[k]:.1e})"
+                for k in e) + f"; {time.time() - t0:.1f}s")
+        for k, v in e.items():
+            check(v <= tol[k], f"mesh train {name} {k} {v:.3e} > "
+                  f"{tol[k]:.3e}")
+        del params, got, want, nudged
+        if DEVICE == "cuda":
+            torch.cuda.empty_cache()
+    rec["f32"] = errs
+
+    # (b) bf16 h2o-danube-1.8b at full width on (2, 2), the main path
+    layers, B, S = MT_BF16[be]
+    cfg = dataclasses.replace(configs.get_arch("h2o-danube-1.8b").full(),
+                              n_layers=layers)
+    mesh = meshes[(2, 2)]
+    t0 = time.time()
+    model = LMModel.create(cfg, seed=5, device=DEVICE)
+    batch = _mt_batch(cfg, B, S, seed=6)
+    opt = AdamWConfig()
+    fns = make_train_step(cfg, opt, mesh=mesh, n_micro=MT_N_MICRO,
+                          param_specs=lm_param_specs(cfg),
+                          params_shape=model.params)
+    hp = reshard(model.params, mesh, fns.step.pspecs)
+    ho = reshard(adamw_init(model.params), mesh, fns.step.ospecs)
+    rec["bf16_setup_s"] = time.time() - t0
+    group.memory(reset=True)
+    fns.step.timing = True
+    losses, times, stats = [], [], []
+    for _ in range(MT_BF16_STEPS):
+        _sync()
+        t1 = time.perf_counter()
+        hp, ho, m = fns.step(hp, ho, batch)
+        times.append((time.perf_counter() - t1) * 1e3)
+        losses.append(float(m["loss"]))
+        stats.append(fns.step.last_stats)
+    mem = group.memory()
+    rec.update(card_used_gb=_card_used_gb())
+    hp.drop()
+    ho.drop()
+    # the one-device port on the same weights and batch, beside it
+    one = make_train_step(cfg, opt, n_micro=MT_N_MICRO).step
+    _reset_peak()
+    one_losses, one_times = [], []
+    state = adamw_init(model.params)
+    for _ in range(MT_BF16_STEPS):
+        _sync()
+        t1 = time.perf_counter()
+        _, state, m = one(model.params, state, batch)
+        one_losses.append(float(m["loss"]))
+        _sync()
+        one_times.append((time.perf_counter() - t1) * 1e3)
+    del model, state, one
+    if DEVICE == "cuda":
+        torch.cuda.empty_cache()
+    rec["bf16"] = dict(
+        layers=layers, B=B, S=S, n_micro=MT_N_MICRO, steps=MT_BF16_STEPS,
+        step_ms=times, losses=losses, one_device_losses=one_losses,
+        one_device_step_ms=one_times, one_device_peak_gb=_peak_gb(),
+        rank_device_ms=[[s[r].get("device_ms") for s in stats]
+                        for r in range(mesh.size)],
+        rank_collective_ms=[[s[r]["collective_ms"] for s in stats]
+                            for r in range(mesh.size)],
+        rank_peak_gb=[x["peak_gb"] for x in mem],
+        card_used_gb=rec["card_used_gb"], setup_s=rec["bf16_setup_s"])
+    log(f"  (b) h2o-danube-1.8b full width, {layers} of 24 layers, bf16 on "
+        f"(2, 2), B {B} x S {S}, n_micro {MT_N_MICRO}: step ms "
+        + ", ".join(f"{t:.1f}" for t in times) + "; losses "
+        + ", ".join(f"{x:.5f}" for x in losses) + " (one device "
+        + ", ".join(f"{x:.5f}" for x in one_losses) + ", step ms "
+        + ", ".join(f"{t:.1f}" for t in one_times) + "); rank device span "
+        + "; ".join(", ".join("n/a" if d is None else f"{d:.1f}" for d in r)
+                    for r in rec["bf16"]["rank_device_ms"])
+        + " ms, in collectives " + "; ".join(
+            ", ".join(f"{c:.1f}" for c in r)
+            for r in rec["bf16"]["rank_collective_ms"])
+        + " ms; peak GB by rank " + ", ".join(
+            f"{g:.2f}" for g in rec["bf16"]["rank_peak_gb"])
+        + f", card in use {rec['card_used_gb']:.2f}, one device's peak "
+        f"{rec['bf16']['one_device_peak_gb']:.2f}")
+    check(all(x == x and abs(x) < float("inf") for x in losses),
+          f"bf16 mesh losses {losses}")
+    check(losses[-1] < losses[0], f"bf16 mesh loss did not fall: {losses}")
+
+    # (c) a re-mesh mid-training: (2, 2) -> (1, 4) against (2, 2) alone
+    t0 = time.time()
+    small = dataclasses.replace(
+        configs.get_arch("h2o-danube-1.8b").reduced(), dtype=torch.float32)
+    params = LMModel.create(small, seed=7, device=DEVICE).params
+    batch = _mt_batch(small, MT_SMALL_BATCH, MT_SMALL_SEQ, seed=8)
+    specs = lm_param_specs(small)
+    runs = []
+    for remesh in (False, True):
+        fns = make_train_step(small, opt, mesh=meshes[(2, 2)],
+                              n_micro=MT_N_MICRO, param_specs=specs,
+                              params_shape=params)
+        hp = reshard(params, meshes[(2, 2)], fns.step.pspecs)
+        ho = reshard(adamw_init(params), meshes[(2, 2)], fns.step.ospecs)
+        run = []
+        for i in range(2 * MT_REMESH_STEPS):
+            if remesh and i == MT_REMESH_STEPS:
+                fns = make_train_step(small, opt, mesh=meshes[(1, 4)],
+                                      n_micro=MT_N_MICRO, param_specs=specs,
+                                      params_shape=params)
+                hp = remesh_state(hp, fns.step.pspecs, meshes[(1, 4)])
+                ho = remesh_state(ho, fns.step.ospecs, meshes[(1, 4)])
+            hp, ho, m = fns.step(hp, ho, batch)
+            run.append(float(m["loss"]))
+        hp.drop()
+        ho.drop()
+        runs.append(run)
+    rec["remesh"] = dict(losses=runs[0], remeshed=runs[1],
+                         err=max(abs(a - b) for a, b in zip(*runs)),
+                         seconds=time.time() - t0)
+    log(f"  (c) re-mesh (2, 2) -> (1, 4) after {MT_REMESH_STEPS} steps "
+        f"(reduced h2o, float32): losses " + ", ".join(
+            f"{x:.6f}" for x in runs[1]) + " vs (2, 2) alone " + ", ".join(
+            f"{x:.6f}" for x in runs[0])
+        + f", max |diff| {rec['remesh']['err']:.2e} "
+        f"({rec['remesh']['seconds']:.1f}s)")
+    check(rec["remesh"]["err"] <= MT_TRAJ_TOL, f"re-meshed trajectory "
+          f"{rec['remesh']['err']:.3e} > {MT_TRAJ_TOL}")
+
+    # (d) seq_shard_carry on (1, 4) against the same step without it
+    seq_cfg = dataclasses.replace(small, seq_shard_carry=True)
+    got, m_seq = _mt_linear_grads(seq_cfg, params, batch, meshes[(1, 4)],
+                                  specs)
+    want, m_plain = _mt_linear_grads(small, params, batch, meshes[(1, 4)],
+                                     specs)
+    rec["seq_shard"] = {"loss": _nerr(m_seq["loss"], m_plain["loss"]),
+                        "grads": max(_nerr(a, b) for a, b in zip(got, want))}
+    log(f"  (d) seq_shard_carry on (1, 4) vs without: loss "
+        f"{rec['seq_shard']['loss']:.2e}, gradients "
+        f"{rec['seq_shard']['grads']:.2e}")
+    for k, v in rec["seq_shard"].items():
+        check(v <= MT_SEQ_TOL, f"seq_shard_carry {k} {v:.3e} > {MT_SEQ_TOL}")
+
+    ranks = _mt_rank_counts(group)
+    parent = _all_counts()
+    rec["launches"] = ranks
+    log(f"  every kernel counter over the phase: ranks {ranks}, caller "
+        f"{parent}")
+    check(not any(ranks.values()) and not any(parent.values()),
+          f"the training path launched {ranks} on the ranks, {parent} here")
+    rec["seconds"] = time.time() - t_phase
+    detail["lm_mesh_train"] = rec
+    return rec
+
+
 def _sync() -> None:
     import torch
     if DEVICE == "cuda":
@@ -4683,13 +5003,14 @@ PHASES = {"kernels": kernel_sweeps, "hub": hub_probe, "serving": serving,
           "training": training, "sampled": sampled_training,
           "dynamic": dynamic_plans, "profile": profiling, "scan": scan_checks,
           "lm": lm_serving, "lm-hybrid": lm_hybrid, "lm-train": lm_train,
-          "advisor": advisor, "sharded": sharded, "lm-mesh": lm_mesh}
+          "advisor": advisor, "sharded": sharded, "lm-mesh": lm_mesh,
+          "lm-mesh-train": lm_mesh_train}
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--phases", default=",".join(PHASES),
-                    help="comma-separated subset of phases 2-13 to run "
+                    help="comma-separated subset of phases 2-14 to run "
                          f"({', '.join(PHASES)}; default all); the device "
                          "phase always runs")
     ap.add_argument("--scan-variants", default="",
@@ -4805,7 +5126,9 @@ def main(argv=None) -> int:
             **({"launches_advisor": done["advisor"]["launches"].get(kname, 0)}
                if "advisor" in done else {}),
             **({"launches_sharded": done["sharded"]["launches"].get(kname, 0)}
-               if "sharded" in done else {})})
+               if "sharded" in done else {}),
+            **({"launches_mesh_train": done["lm-mesh-train"]["launches"].get(
+                kname, 0)} if "lm-mesh-train" in done else {})})
     for variant, rname in EDGE_GRAD_RECORDS.items():
         if rname not in at_training:
             continue
@@ -4838,7 +5161,10 @@ def main(argv=None) -> int:
                if "advisor" in done else {}),
             **({"launches_sharded": done["sharded"]["launches"].get(
                 EDGE_GRAD_KERNEL_OF_VARIANT[variant], 0)}
-               if "sharded" in done else {})})
+               if "sharded" in done else {}),
+            **({"launches_mesh_train": done["lm-mesh-train"]["launches"].get(
+                EDGE_GRAD_KERNEL_OF_VARIANT[variant], 0)}
+               if "lm-mesh-train" in done else {})})
     if "scan" in done:
         checks = list(done["scan"].values())
         rec = done["scan"][SCAN_TIMED]
@@ -4866,7 +5192,9 @@ def main(argv=None) -> int:
                     done["lm-mesh"]["launches_mesh_per_prefill"]}
                if "lm-mesh" in done else {}),
             **({"launches_sharded": done["sharded"]["launches"].get(
-                ss.KERNEL, 0)} if "sharded" in done else {})})
+                ss.KERNEL, 0)} if "sharded" in done else {}),
+            **({"launches_mesh_train": done["lm-mesh-train"]["launches"].get(
+                ss.KERNEL, 0)} if "lm-mesh-train" in done else {})})
     detail["kernels"] = kernels
     out_dir = os.path.join(ROOT, "chiprun_out")
     if os.path.isdir(out_dir):

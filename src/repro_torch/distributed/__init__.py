@@ -5,8 +5,10 @@ from one caller, with per-axis process groups for a named mesh),
 multi-rank halo-exchange graph execution (`graph_shard`) and the LM
 mesh's specs and placements (`sharding`; the mesh is
 `repro_torch.launch.mesh`, the elastic re-shard
-`repro_torch.runtime.elastic`).  The sharded LM train step waits for
-ROADMAP Queue 1, item 5c."""
+`repro_torch.runtime.elastic`; the rank side of the LM steps is
+`repro_torch.nn.tensor_parallel`, with the differentiable collectives of
+`ranks` and `accumulate`'s rank-side micro-batching for the sharded
+train step)."""
 from repro_torch.distributed.accumulate import (accumulate_gradients,
                                                 split_batch)
 from repro_torch.distributed.graph_shard import (ShardedExecutor,

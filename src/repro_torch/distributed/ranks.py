@@ -56,6 +56,40 @@ axis), so a collective "over ``model``" runs among the ranks of this
 rank's ``model`` slice, in their order along the axis.  Axis groups take
 tensors on the group's device.
 
+Gradients through the axis collectives (`reduce_from`, `copy_to`,
+`gather_from`, `scatter_to`: `torch.autograd.Function`s, timed like the
+rest).  One convention, Megatron's: the loss a rank differentiates is
+its batch rows' part of the global loss (the global loss is the sum of
+the parts over the batch axes ``(pod, data)``), and every rank of a
+``model`` slice holds the same value of it.  Then a tensor that every
+model rank holds whole, and uses whole, carries its whole gradient on
+each rank, and a tensor of which a model rank computes only a part of
+the loss carries the gradient of that part.  The adjoints follow:
+
+  * `reduce_from`, a sum over axes whose result every rank uses whole
+    (a row-parallel output, the vocab-parallel embedding, routing
+    statistics): backward is the identity;
+  * `copy_to`, the identity into a region where each model rank computes
+    a part (the input of a column-parallel layer, and a leaf replicated
+    over ``model`` but read there: ``wk`` / ``wv`` / their biases and
+    norms, of which a rank reads only some kv heads, the MoE ``router``;
+    under sequence parallelism also the norm gains and biases of the
+    sequence-split residual): backward sums over the axes, so the
+    gradient of such a leaf is whole on every rank, not ``tp`` times it
+    and not a part of it;
+  * `gather_from`, an all-gather along a dim: backward is this rank's
+    slice of the gradient summed over ``sum_grad`` (the FSDP gather over
+    ``data`` sums: a reduce-scatter, in float32; the gather over
+    ``model`` of a tensor used whole sums nothing: the slice);
+  * `scatter_to`, a reduce-scatter along a dim (sequence parallelism's
+    exit from a row-parallel layer): backward is the all-gather;
+  * a local ``narrow`` of a whole leaf is autograd's own (zeros
+    elsewhere), after a `copy_to` over the axes it is narrowed along.
+
+After the backward a leaf's gradient is whole over ``model`` on every
+rank; it still needs the sum over the batch axes its spec does not split
+it over (a leaf split over ``data`` had its reduce-scatter).
+
 CUDA tensors in a message cross by CUDA IPC (`torch.multiprocessing`'s
 reductions): the receiving rank maps the sender's memory and copies
 what it keeps, so tens of GB of weights reach the ranks at device-copy
@@ -85,9 +119,10 @@ import torch.multiprocessing  # noqa: F401  registers the CUDA IPC reductions
 
 __all__ = ["AxisGroups", "DIST_BACKENDS", "Rank", "RankError",
            "RankGroup", "all_gather_rows", "all_reduce_", "check_dist_backend",
-           "close_groups", "collective_ms", "collective_timing",
+           "close_groups", "collective_ms", "collective_timing", "copy_to",
            "current_rank", "default_dist_backend", "from_wire",
-           "reduce_scatter_rows", "shard_group", "to_wire"]
+           "gather_from", "reduce_from", "reduce_scatter_rows",
+           "scatter_to", "shard_group", "to_wire"]
 
 DIST_BACKENDS = ("nccl", "gloo")
 INIT_TIMEOUT_S = 180.0
@@ -137,7 +172,9 @@ def to_wire(t: Optional[torch.Tensor]):
     name = str(t.dtype).removeprefix("torch.")
     if t.dtype == torch.bfloat16:
         t = t.view(torch.int16)
-    return np.ascontiguousarray(t.cpu().numpy()), name
+    a = t.cpu().numpy()
+    # `ascontiguousarray` turns a 0-d array (a step counter) into (1,)
+    return (np.ascontiguousarray(a) if a.ndim else a.copy()), name
 
 
 def from_wire(w, device) -> Optional[torch.Tensor]:
@@ -145,7 +182,8 @@ def from_wire(w, device) -> Optional[torch.Tensor]:
     if w is None:
         return None
     arr, name = w
-    t = torch.from_numpy(np.ascontiguousarray(arr))
+    t = torch.from_numpy(np.ascontiguousarray(arr) if arr.ndim
+                         else np.array(arr))
     if name == "bfloat16":
         t = t.view(torch.bfloat16)
     return t.to(device)
@@ -384,6 +422,130 @@ class AxisGroups:
             return all_gather_rows(x, group=self._group(axes))
         parts = all_gather_rows(x.unsqueeze(0), group=self._group(axes))
         return torch.cat(parts.unbind(0), dim=dim)
+
+    def reduce_scatter(self, x: torch.Tensor, axes, dim: int = 0
+                       ) -> torch.Tensor:
+        """``x`` summed over ``axes``, this rank's chunk of ``dim`` kept
+        (chunks in the ranks' order along the axes)."""
+        axes = self._norm(axes)
+        if self.size(axes) == 1:
+            return x
+        out = reduce_scatter_rows(x.movedim(dim, 0), group=self._group(axes))
+        return out.movedim(0, dim)
+
+    def chunk(self, x: torch.Tensor, axes, dim: int) -> torch.Tensor:
+        """This rank's chunk of ``dim`` along ``axes`` (a local view)."""
+        n = self.size(axes)
+        if x.shape[dim] % n:
+            raise ValueError(f"dim {dim} of size {x.shape[dim]} does not "
+                             f"split over {axes} ({n} ranks)")
+        c = x.shape[dim] // n
+        return x.narrow(dim, self.index(axes) * c, c)
+
+
+# ---------------------------------------------------------------------------
+# differentiable collectives over an `AxisGroups` (the convention is in the
+# module docstring)
+
+def _needs_grad(x: torch.Tensor) -> bool:
+    return torch.is_grad_enabled() and x.requires_grad
+
+
+class _ReduceFrom(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axes):
+        return mesh.all_reduce(x.clone(), axes)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None, None
+
+
+class _CopyTo(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axes):
+        ctx.mesh, ctx.axes = mesh, axes
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.mesh.all_reduce(g.clone(), ctx.axes), None, None
+
+
+class _GatherFrom(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axes, dim, sum_grad):
+        ctx.mesh, ctx.axes, ctx.dim, ctx.sum_grad = mesh, axes, dim, sum_grad
+        ctx.dtype = x.dtype
+        return mesh.all_gather(x, axes, dim=dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        mesh, axes, dim = ctx.mesh, ctx.axes, ctx.dim
+        if ctx.sum_grad == axes:
+            g = mesh.reduce_scatter(g.float(), axes, dim=dim)
+        else:
+            if ctx.sum_grad:
+                g = mesh.all_reduce(g.float(), ctx.sum_grad)
+            g = mesh.chunk(g, axes, dim)
+        return g.to(ctx.dtype), None, None, None, None
+
+
+class _ScatterTo(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axes, dim):
+        ctx.mesh, ctx.axes, ctx.dim = mesh, axes, dim
+        return mesh.reduce_scatter(x, axes, dim=dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return (ctx.mesh.all_gather(g, ctx.axes, dim=ctx.dim), None, None,
+                None)
+
+
+def reduce_from(x: torch.Tensor, mesh: "AxisGroups", axes) -> torch.Tensor:
+    """Sum ``x`` over ``axes``; backward the identity.  Without a
+    gradient to carry it sums in place."""
+    axes = mesh._norm(axes)
+    if mesh.size(axes) == 1:
+        return x
+    if not _needs_grad(x):
+        return mesh.all_reduce(x, axes)
+    return _ReduceFrom.apply(x, mesh, axes)
+
+
+def copy_to(x: torch.Tensor, mesh: "AxisGroups", axes) -> torch.Tensor:
+    """``x`` as it is; backward sums the gradient over ``axes``."""
+    axes = mesh._norm(axes)
+    if mesh.size(axes) == 1 or not _needs_grad(x):
+        return x
+    return _CopyTo.apply(x, mesh, axes)
+
+
+def gather_from(x: torch.Tensor, mesh: "AxisGroups", axes, dim: int, *,
+                sum_grad=()) -> torch.Tensor:
+    """All-gather ``x`` along ``dim`` over ``axes``; backward this rank's
+    slice of the gradient summed (in float32) over ``sum_grad``, a
+    subset of ``axes`` (all of them: a reduce-scatter)."""
+    axes = mesh._norm(axes)
+    if mesh.size(axes) == 1:
+        return x
+    if not _needs_grad(x):
+        return mesh.all_gather(x, axes, dim=dim)
+    sum_grad = tuple(a for a in axes if a in mesh._norm(sum_grad))
+    return _GatherFrom.apply(x, mesh, axes, dim % x.dim(), sum_grad)
+
+
+def scatter_to(x: torch.Tensor, mesh: "AxisGroups", axes,
+               dim: int) -> torch.Tensor:
+    """Sum ``x`` over ``axes`` and keep this rank's chunk of ``dim``;
+    backward the all-gather along ``dim``."""
+    axes = mesh._norm(axes)
+    if mesh.size(axes) == 1:
+        return x
+    if not _needs_grad(x):
+        return mesh.reduce_scatter(x, axes, dim=dim)
+    return _ScatterTo.apply(x, mesh, axes, dim % x.dim())
 
 
 def _watch_parent(parent_pid: int) -> None:

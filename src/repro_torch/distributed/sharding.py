@@ -31,7 +31,8 @@ from repro_torch.nn.layers import PartitionSpec
 
 __all__ = ["Local", "NamedSharding", "batch_axes_for", "batch_spec",
            "constrain", "join_batch", "named_shardings", "prune_specs_for_mesh",
-           "relayout", "replicated", "shard_index", "tree_flatten",
+           "relayout", "replicated", "shard_index", "split_axes",
+           "tree_flatten",
            "tree_leaves", "tree_map", "tree_unflatten", "valid_spec"]
 
 P = PartitionSpec
@@ -54,8 +55,11 @@ def tree_map(fn: Callable, tree, *rest):
         return {k: tree_map(fn, v, *(r[k] for r in rest))
                 for k, v in tree.items()}
     if _is_node(tree):
-        return type(tree)(tree_map(fn, v, *(r[i] for r in rest))
-                          for i, v in enumerate(tree))
+        children = [tree_map(fn, v, *(r[i] for r in rest))
+                    for i, v in enumerate(tree)]
+        if hasattr(tree, "_fields"):            # a NamedTuple (OptState)
+            return type(tree)(*children)
+        return type(tree)(children)
     return fn(tree, *rest)
 
 
@@ -96,6 +100,11 @@ def batch_spec(mesh, extra_dims: int = 1) -> P:
 
 def _axes(entry) -> tuple:
     return entry if isinstance(entry, (tuple, list)) else (entry,)
+
+
+def split_axes(spec) -> tuple:
+    """The mesh axes ``spec`` splits a leaf over, in its order."""
+    return tuple(a for e in spec for a in _axes(e) if a is not None)
 
 
 def valid_spec(mesh, spec, shape: tuple) -> P:
@@ -197,21 +206,26 @@ def relayout(x: torch.Tensor, have, want, mesh) -> torch.Tensor:
     """Inside a rank: ``x``, this rank's slice of a leaf laid out by
     ``have``, as its slice under ``want`` (all-gathers over the axes a
     dim is split over and not wanted; a local slice along the axes it is
-    wanted over).  Raises when a wanted split does not divide its dim."""
+    wanted over).  Raises when a wanted split does not divide its dim.
+
+    Under autograd (`repro_torch.distributed.ranks`' convention): the
+    gather's backward sums over the batch axes among those gathered (the
+    FSDP reduce-scatter over ``data``) and takes the slice along the
+    others; the local slice of a leaf held whole along ``w`` is read by
+    each rank of ``w`` in part, so its gradient is summed over ``w``
+    (`copy_to`) before the slice is taken."""
+    from repro_torch.distributed.ranks import copy_to, gather_from
+    batch = batch_axes_for(mesh)
     for d in range(x.dim()):
         h = _present(mesh, have[d] if d < len(have) else None)
         w = _present(mesh, want[d] if d < len(want) else None)
         if h == w:
             continue
         if h:
-            x = mesh.all_gather(x, h, dim=d)
+            x = gather_from(x, mesh, h, d, sum_grad=tuple(
+                a for a in h if a in batch))
         if w:
-            n = mesh.size(w)
-            if x.shape[d] % n:
-                raise ValueError(f"dim {d} of size {x.shape[d]} does not "
-                                 f"split over {w} ({n} ranks)")
-            c = x.shape[d] // n
-            x = x.narrow(d, mesh.index(w) * c, c)
+            x = mesh.chunk(copy_to(x, mesh, w), w, d)
     return x
 
 

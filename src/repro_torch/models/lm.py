@@ -8,15 +8,18 @@ reference's step signatures, ``step(params, opt_state, batch)``,
 ``prefill(params, inputs, pos)`` and ``decode(params, cache, tok, t)``.
 Prefill and decode run under `torch.no_grad()`, the train step with grad
 enabled.  Without a mesh the factories return the step alone (the
-reference returns it beside ``None`` shardings).  The sharded train step
-(``make_train_step(mesh=)``) is not ported yet (ROADMAP Queue 1, item
-5c): it raises.
+reference returns it beside ``None`` shardings).
 
-With a mesh (`repro_torch.launch.mesh.Mesh`) prefill and decode run on
-the mesh's ranks (`repro_torch.nn.tensor_parallel` writes the layout
-out) and the factories return the step beside the placements, as the
-reference's do: ``(prefill, param_shardings)`` and ``(decode,
-param_shardings, cache_shardings)``.  The parameters and the cache stay
+With a mesh (`repro_torch.launch.mesh.Mesh`) every step runs on the
+mesh's ranks (`repro_torch.nn.tensor_parallel` writes the layout out)
+and the factories return the step beside the placements, as the
+reference's do: `TrainStepFns` with ``in_shardings`` /
+``out_shardings`` / ``batch_spec``, ``(prefill, param_shardings)`` and
+``(decode, param_shardings, cache_shardings)``.  The sharded train step
+takes the parameters and the optimizer state (its moments laid out like
+the parameters, its step whole on every rank) as `ShardedTree` handles
+or whole trees, and returns handles (``gather`` brings them back) and
+the whole batch's metrics.  The parameters and the cache stay
 on the ranks between calls: a step takes a
 `repro_torch.runtime.elastic.ShardedTree` (from `reshard`), or a whole
 tree that it lays out first; it returns the logits whole on the
@@ -51,19 +54,21 @@ import torch
 
 from repro_torch.device import resolve_device, set_matmul_precision
 from repro_torch.distributed.accumulate import accumulate_gradients
-from repro_torch.distributed.sharding import (P, batch_axes_for, constrain,
+from repro_torch.distributed.sharding import (NamedSharding, P,
+                                              batch_axes_for, constrain,
                                               join_batch, named_shardings,
                                               prune_specs_for_mesh,
                                               tree_flatten, tree_map)
 from repro_torch.nn.mamba import BACKENDS
 from repro_torch.nn.transformer import (LMConfig, lm_decode_step, lm_init,
                                         lm_loss, lm_prefill, param_count)
-from repro_torch.optim.adamw import AdamWConfig, adamw_update, adamw_update_
+from repro_torch.optim.adamw import (AdamWConfig, OptState, adamw_update,
+                                     adamw_update_)
 
 __all__ = ["LMModel", "TrainStepFns", "decode_cache_specs",
            "make_train_step", "make_prefill_step", "make_decode_step",
-           "lm_params_from_jax", "lm_params_to_jax", "train_config",
-           "weight_decay_mask"]
+           "lm_params_from_jax", "lm_params_to_jax", "opt_state_specs",
+           "train_config", "weight_decay_mask"]
 
 _TORCH_DTYPE = {"float32": torch.float32, "bfloat16": torch.bfloat16,
                 "float16": torch.float16}
@@ -125,22 +130,62 @@ def weight_decay_mask(params: dict) -> dict:
     return mask(params, False)
 
 
+def _batch_specs(cfg: LMConfig, mesh) -> dict:
+    """`PartitionSpec`s of the training batch dict (the reference's
+    `src/repro/models/lm.py:69`): every leaf's rows over (pod, data)."""
+    if mesh is None:
+        return {}
+    b = batch_axes_for(mesh)
+    specs = {"labels": P(b, None), "pos": P(b, None)}
+    if cfg.rope == "mrope":
+        specs["pos"] = P(b, None, None)
+    if cfg.frontend == "tokens":
+        specs["tokens"] = P(b, None)
+    else:
+        specs["embeds"] = P(b, None, None)
+    return specs
+
+
+def opt_state_specs(param_specs) -> OptState:
+    """The optimizer state's specs: the moments mirror the parameters,
+    the step counter is whole on every rank."""
+    return OptState(step=P(), m=param_specs, v=param_specs)
+
+
 def make_train_step(cfg: LMConfig, opt: AdamWConfig, *, mesh=None,
-                    n_micro: int = 1, donate: bool = True) -> TrainStepFns:
+                    n_micro: int = 1, param_specs=None, params_shape=None,
+                    donate: bool = True) -> TrainStepFns:
     """The train step: gradients over ``n_micro`` micro-batches (summed
     in float32 when more than one), then AdamW.  ``step(params,
     opt_state, batch)`` returns ``(params, opt_state, metrics)`` with
     ``grad_norm`` and ``lr`` merged into `lm_loss`'s metrics (0-d
     tensors).  ``donate=True`` updates ``params`` and the moments in
     place (the reference donates both buffers); ``donate=False`` returns
-    new tensors and leaves the inputs untouched.  A mesh is refused:
-    the sharded step is ROADMAP Queue 1, item 5c."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "make_train_step(mesh=...): the sharded train step is not "
-            "ported yet (ROADMAP Queue 1, item 5c)")
+    new tensors and leaves the inputs untouched.
+
+    With a mesh, ``param_specs`` (`lm_param_specs`) and ``params_shape``
+    are required; the step runs on the mesh's ranks, parameters split
+    FSDP / TP by their specs, the moments alike, the batch over (pod,
+    data) (micro-batch ``i`` is the global rows ``[i mb, (i+1) mb)``, a
+    mask counted over the whole micro-batch); the gradient's norm, the
+    clipping and the metrics are the whole batch's.  ``params`` and
+    ``opt_state`` may be whole trees or `ShardedTree` handles on the
+    mesh (`reshard` by ``step.pspecs`` / ``step.ospecs``); the step
+    returns handles: with ``donate=True`` the ones it was given (their
+    tensors updated on the ranks), else new ones."""
     cfg = train_config(cfg)
     set_matmul_precision()
+    if mesh is not None:
+        pspecs = _param_specs(mesh, param_specs, params_shape)
+        p_shard = named_shardings(mesh, pspecs)
+        o_shard = OptState(step=NamedSharding(mesh, P()), m=p_shard,
+                           v=p_shard)
+        bspecs = _batch_specs(cfg, mesh)
+        b_shard = {k: NamedSharding(mesh, v) for k, v in bspecs.items()}
+        return TrainStepFns(
+            step=_MeshTrain(cfg, mesh, pspecs, opt, n_micro, donate),
+            in_shardings=(p_shard, o_shard, b_shard),
+            out_shardings=(p_shard, o_shard, None), batch_spec=bspecs)
     update = adamw_update_ if donate else adamw_update
 
     def loss_fn(params, mb):
@@ -380,6 +425,87 @@ class _MeshDecode(_MeshStep):
                                   cache.key, self.cfg, to_wire(tok), int(t),
                                   self.timing)
         return self._logits(got, tok.shape[0], tok.device), cache
+
+
+def _r_train(r, mesh_key: str, params_key: str, opt_key: str, out_keys,
+             cfg, opt: AdamWConfig, n_micro: int, batch_w: dict,
+             bspecs: dict, timing: bool):
+    """The train step on a rank: its slices of the gradient (the loss of
+    its rows of each micro-batch, the FSDP reduce-scatters in the
+    backward, the sums over the batch axes after), the whole gradient's
+    norm, and AdamW on its slices of the parameters and moments, in
+    place (``out_keys`` None) or into new tensors kept under
+    ``out_keys``.  Returns (the whole batch's metrics, clock stats)."""
+    from repro_torch.distributed.accumulate import \
+        accumulate_gradients_on_ranks
+    from repro_torch.distributed.ranks import from_wire
+    from repro_torch.distributed.sharding import Local
+    from repro_torch.nn.tensor_parallel import lm_loss_tp
+    from repro_torch.optim.adamw import global_norm
+    set_matmul_precision()
+    mesh = r.state[mesh_key]
+    lp, lo = r.state[params_key], r.state[opt_key]
+    batch = {k: from_wire(v, r.device) for k, v in batch_w.items()}
+    with _RankClock(r, timing) as clock:
+        grads, _loss, metrics = accumulate_gradients_on_ranks(
+            lambda local, mb, rep: lm_loss_tp(local, cfg, mesh, mb, rep=rep),
+            lp, batch, n_micro, bspecs)
+        gn = global_norm(grads, specs=lp.specs, mesh=mesh)
+        update = adamw_update_ if out_keys is None else adamw_update
+        new_p, new_o, opt_metrics = update(
+            opt, grads, lo.tree, lp.tree, decay=weight_decay_mask(lp.tree),
+            norm=gn)
+        del grads
+    if out_keys is None:
+        lo.tree = new_o
+    else:
+        r.state[out_keys[0]] = Local(new_p, lp.specs, mesh)
+        r.state[out_keys[1]] = Local(new_o, lo.specs, mesh)
+    metrics = dict(metrics, **opt_metrics)
+    return {k: float(v) for k, v in metrics.items()}, clock.stats
+
+
+class _MeshTrain(_MeshStep):
+    """The mesh train step: ``(params, opt_state, batch) -> (params,
+    opt_state, metrics)``."""
+
+    def __init__(self, cfg, mesh, pspecs, opt, n_micro, donate):
+        super().__init__(cfg, mesh, pspecs)
+        self.ospecs = opt_state_specs(pspecs)
+        self.opt, self.n_micro, self.donate = opt, n_micro, donate
+
+    def __call__(self, params, opt_state, batch):
+        from repro_torch.distributed.ranks import to_wire
+        from repro_torch.runtime.elastic import ShardedTree
+        mesh = self.mesh
+        rows = {k: v.shape[0] for k, v in batch.items()}
+        if len(set(rows.values())) != 1 or \
+                next(iter(rows.values())) % self.n_micro:
+            raise ValueError(f"batch rows {rows} do not split into "
+                             f"{self.n_micro} micro-batches")
+        handle = _on_ranks(params, mesh, self.pspecs)
+        o_handle = _on_ranks(opt_state, mesh, self.ospecs)
+        bspecs = dict(_batch_specs(self.cfg, mesh))
+        if "mask" in batch:
+            bspecs["mask"] = P(batch_axes_for(mesh), None)
+        out_keys = (None if self.donate else
+                    (mesh.group.new_key("tree"), mesh.group.new_key("tree")))
+        got = mesh.group.run(_r_train, None, mesh.key, handle.key,
+                             o_handle.key, out_keys, self.cfg, self.opt,
+                             self.n_micro,
+                             {k: to_wire(v) for k, v in batch.items()},
+                             bspecs, self.timing)
+        self.last_stats = [g[1] for g in got]
+        dev = next(iter(batch.values())).device
+        metrics = {k: torch.tensor(v, dtype=torch.float32, device=dev)
+                   for k, v in got[0][0].items()}
+        if out_keys is None:
+            return handle, o_handle, metrics
+        like = lambda h, key: ShardedTree(  # noqa: E731
+            mesh=mesh, key=key, skeleton=h.skeleton, specs=h.specs,
+            shapes=h.shapes, dtypes=h.dtypes)
+        return (like(handle, out_keys[0]), like(o_handle, out_keys[1]),
+                metrics)
 
 
 def _to_torch(x: Any, dev: torch.device) -> torch.Tensor:

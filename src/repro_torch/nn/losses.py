@@ -12,6 +12,10 @@ a model: `chunked_softmax_xent` walks the SEQUENCE in chunks, computes a
 backward does the same: it saves only ``x``, ``w``, ``labels`` and
 ``mask``, recomputes each chunk's softmax and accumulates ``dW`` in
 float32, so in both passes one (B, c, V) chunk is the only live logits.
+
+Port-only: `vocab_parallel_xent_sums`, the rank counterpart of
+`_ChunkedSums` on a mesh (`repro_torch.nn.tensor_parallel`), over the
+rank's vocab slice of the unembedding, with no logits gathered.
 """
 from __future__ import annotations
 
@@ -19,7 +23,8 @@ from typing import Optional
 
 import torch
 
-__all__ = ["chunked_softmax_xent", "softmax_xent_dense"]
+__all__ = ["chunked_softmax_xent", "softmax_xent_dense",
+           "vocab_parallel_xent_sums"]
 
 
 def _metrics(loss, correct, denom) -> dict:
@@ -152,3 +157,100 @@ def chunked_softmax_xent(x: torch.Tensor, w_unembed: torch.Tensor,
     denom = torch.clamp(m.sum(), min=1.0)
     loss = sum_loss / denom
     return loss, _metrics(loss, sum_correct, denom)
+
+
+class _VocabParallelSums(torch.autograd.Function):
+    """Inside a rank: x (B,S,d) f32, whole over ``axis``; w (d, V/tp) f32,
+    the rank's vocab slice ``[v0, v0 + V/tp)``; labels / mask (B,S) ->
+    (sum_loss, sum_correct) over the rank's rows, the same on every rank
+    of ``axis``.  Per chunk: a max all-reduce of the slices' maxima, then
+    one sum all-reduce of the slices' exp sums at that maximum, the
+    label's logit (from the rank that owns it), whether it is the
+    maximum, and how many logits before it reach the maximum (so
+    ``accuracy`` is the whole vocab's first-index argmax).  Saves ``x``,
+    ``w``, the labels, the mask and the (B,S) log-sum-exp; the backward
+    recomputes each chunk's logits slice and needs no collective.  Its
+    ``dx`` is the rank's part (the caller's copy into the layer sums it
+    over ``axis``); ``dw`` the rank's slice, whole."""
+
+    @staticmethod
+    def forward(ctx, x, w, labels, mask, c, z_loss, softcap, mesh, axis):
+        Vl = w.shape[1]
+        v0 = mesh.index(axis) * Vl
+        cols = torch.arange(v0, v0 + Vl, device=x.device)
+        sl = torch.zeros((), dtype=torch.float32, device=x.device)
+        sc = torch.zeros((), dtype=torch.float32, device=x.device)
+        lse = torch.empty(labels.shape, dtype=torch.float32, device=x.device)
+        for s in _chunks(x.shape[1], c):
+            logits, _ = _capped(x[:, s], w, softcap)            # (B, c, Vl)
+            yc = labels[:, s]
+            m = mesh.all_reduce(logits.amax(dim=-1), axis, op="max")
+            yl = yc - v0
+            own = (yl >= 0) & (yl < Vl)
+            ll = torch.gather(logits, -1, yl.clamp(0, Vl - 1)[..., None]
+                              )[..., 0]
+            top = logits == m[..., None]
+            packed = torch.stack([
+                torch.exp(logits - m[..., None]).sum(dim=-1),
+                torch.where(own, ll, 0.0),
+                (own & (ll == m)).float(),
+                (top & (cols < yc[..., None])).sum(dim=-1).float()], dim=-1)
+            packed = mesh.all_reduce(packed, axis)
+            lc = m + torch.log(packed[..., 0])
+            per_tok = lc - packed[..., 1]
+            if z_loss:
+                per_tok = per_tok + z_loss * lc ** 2
+            correct = ((packed[..., 2] > 0) & (packed[..., 3] == 0)).float()
+            mc = mask[:, s]
+            sl, sc = sl + (per_tok * mc).sum(), sc + (correct * mc).sum()
+            lse[:, s] = lc
+        ctx.save_for_backward(x, w, labels, mask, lse)
+        ctx.cfg = (c, z_loss, softcap, v0)
+        ctx.mark_non_differentiable(sc)
+        return sl, sc
+
+    @staticmethod
+    def backward(ctx, g_loss, _g_correct):
+        x, w, labels, mask, lse = ctx.saved_tensors
+        c, z_loss, softcap, v0 = ctx.cfg
+        Vl = w.shape[1]
+        dx = torch.empty_like(x) if ctx.needs_input_grad[0] else None
+        dw = torch.zeros_like(w, dtype=torch.float32)
+        for s in _chunks(x.shape[1], c):
+            xc, lc = x[:, s], lse[:, s]
+            logits, dcap = _capped(xc, w, softcap)
+            p = logits.sub_(lc[..., None]).exp_()
+            if z_loss:
+                p.mul_(1.0 + (2.0 * z_loss) * lc[..., None])
+            yl = labels[:, s] - v0
+            own = (yl >= 0) & (yl < Vl)
+            dlogits = p.scatter_add_(-1, yl.clamp(0, Vl - 1)[..., None],
+                                     -own[..., None].to(p.dtype))
+            dlogits.mul_((mask[:, s] * g_loss)[..., None])
+            if dcap is not None:
+                dlogits.mul_(dcap)
+            dw.addmm_(xc.flatten(0, 1).T, dlogits.flatten(0, 1))
+            if dx is not None:
+                dx[:, s] = dlogits @ w.T
+        return (dx, dw if ctx.needs_input_grad[1] else None,
+                None, None, None, None, None, None, None)
+
+
+def vocab_parallel_xent_sums(x: torch.Tensor, w: torch.Tensor,
+                             labels: torch.Tensor, mask: torch.Tensor, *,
+                             mesh, axis: str, chunk: int = 512,
+                             z_loss: float = 0.0,
+                             logit_softcap: Optional[float] = None):
+    """Inside a rank: `chunked_softmax_xent`'s sums over the vocab split
+    on ``axis`` of ``mesh`` (an `AxisGroups`).  x (B,S,d) whole over
+    ``axis``, w (d, V/tp) the rank's slice, labels / mask (B,S) ->
+    (sum_loss, sum_correct), the same on every rank of ``axis``
+    (``sum_correct`` takes no gradient).  Chunks as
+    `chunked_softmax_xent`'s."""
+    S = x.shape[1]
+    c = min(chunk, S)
+    while S % c:
+        c -= 1
+    return _VocabParallelSums.apply(
+        x.float(), w.float(), labels.long(), mask.float(), c, float(z_loss),
+        None if logit_softcap is None else float(logit_softcap), mesh, axis)

@@ -29,8 +29,11 @@ On a mesh (`repro_torch.nn.tensor_parallel`) a rank holds a slice of
 ``d_inner``: ``in_proj``, the conv, ``dt_proj`` and the scan are local
 per channel, and ``x_proj`` and ``out_proj`` contract ``d_inner``, so
 their products are partial sums: ``reduce`` (an all-reduce over the
-model axis) completes them.  Without it the block is the one-device
-block.
+model axis) completes them.  Under autograd the two sums differ in their
+backward: every rank reads the whole ``x_proj`` product in its own
+channels, so ``reduce_ssm`` (default ``reduce``) also sums its gradient,
+while ``reduce`` ends the block.  Without them the block is the
+one-device block.
 
 Rounding points follow the reference: the in/out projections run in the
 activation dtype (bf16 on `falcon_mamba_7b.full()`), the conv, the SSM
@@ -176,21 +179,25 @@ def _check_backend(backend: str) -> None:
 def mamba_forward(p: dict, x: torch.Tensor, mp: MambaParams,
                   h0: Optional[torch.Tensor] = None,
                   return_state: bool = False, *, backend: str = "cuda",
-                  reduce: Callable = _same):
+                  reduce: Callable = _same,
+                  reduce_ssm: Optional[Callable] = None):
     """x (B, S, d_model) -> (B, S, d_model).
 
     The fused path (``mp.fused_scan == "on"``, no ``h0``, no
     ``return_state``) takes any S.  The chunked path needs S divisible by
     ``min(chunk, S)``; its live memory is O(B * chunk * d_inner * N).
-    ``reduce`` completes the ``x_proj`` and ``out_proj`` products of a
-    ``d_inner`` slice (see the module docstring)."""
+    ``reduce`` completes the ``out_proj`` product of a ``d_inner`` slice
+    and ``reduce_ssm`` (default ``reduce``) the ``x_proj`` one (see the
+    module docstring)."""
     _check_backend(backend)
+    reduce_ssm = reduce if reduce_ssm is None else reduce_ssm
     if mp.fused_scan == "on" and h0 is None and not return_state:
         refuse_grad(x, *p.values())
         if backend == "cuda" and not x.is_cuda:
             raise ValueError("backend='cuda' runs the scan kernel and needs "
                              "CUDA tensors; use backend='torch' on the CPU")
-        return _mamba_forward_fused(p, x, mp, backend=backend, reduce=reduce)
+        return _mamba_forward_fused(p, x, mp, backend=backend, reduce=reduce,
+                                    reduce_ssm=reduce_ssm)
     bsz, seq, _ = x.shape
     c = min(mp.chunk, seq)
     if seq % c:
@@ -215,7 +222,7 @@ def mamba_forward(p: dict, x: torch.Tensor, mp: MambaParams,
         for i in range(mp.d_conv):
             acc = acc + hist[:, i:i + c] * w[i]
         xcv = F.silu(acc + p["conv_b"].float())
-        a, b, c_ssm = _ssm_inputs(p, xcv, mp, reduce)             # (B,c,di,N)
+        a, b, c_ssm = _ssm_inputs(p, xcv, mp, reduce_ssm)         # (B,c,di,N)
         hs, h = _chunk_scan(a, b, h)
         y = (torch.einsum("bsdn,bsn->bsd", hs, c_ssm)
              + p["D"].float() * xcv)
@@ -229,8 +236,8 @@ def mamba_forward(p: dict, x: torch.Tensor, mp: MambaParams,
 
 
 def _mamba_forward_fused(p: dict, x: torch.Tensor, mp: MambaParams, *,
-                         backend: str, reduce: Callable = _same
-                         ) -> torch.Tensor:
+                         backend: str, reduce: Callable = _same,
+                         reduce_ssm: Callable = _same) -> torch.Tensor:
     """Projections, conv and gating in PyTorch; the discretize + scan core
     in the fused-scan wrapper (``backend="cuda"``) or its plain version
     (``backend="torch"``).  Inference path (no backward)."""
@@ -238,7 +245,7 @@ def _mamba_forward_fused(p: dict, x: torch.Tensor, mp: MambaParams, *,
     xz = _in_proj(p, x)
     x_in, z = xz[:, :, 0], xz[:, :, 1]
     xcv = F.silu(_causal_conv(p, x_in, mp.d_conv))               # (B,S,di) f32
-    xdbc = reduce(xcv @ p["x_proj"].float())
+    xdbc = reduce_ssm(xcv @ p["x_proj"].float())
     dt_low, b_ssm, c_ssm = torch.split(
         xdbc, [dt_rank, mp.d_state, mp.d_state], dim=-1)
     dt_raw = dt_low @ p["dt_proj"].float()                        # pre-softplus

@@ -126,10 +126,21 @@ def _moe_local(router_w, wi, wo, x, mp: MoEParams, *, e_offset: int = 0,
     return out.reshape(B, S, d).to(x.dtype), stats, dropped
 
 
-def _moe_ranks(p, x, mp: MoEParams, *, mesh, batch_axes, ep_axis):
+def _moe_ranks(p, x, mp: MoEParams, *, mesh, batch_axes, ep_axis,
+               combine=None):
     """Inside a rank (``mesh`` its `AxisGroups`, ``p`` its `Local` slice
     of the MoE parameters, ``x`` its batch slice): expert parallelism
-    over ``ep_axis``."""
+    over ``ep_axis``.  ``combine`` ends the layer (default: the sum over
+    ``ep_axis``; sequence parallelism passes its reduce-scatter).
+
+    Gradients (`repro_torch.distributed.ranks`' convention): ``x`` comes
+    in as the caller's copy into the layer (its gradient is summed over
+    ``ep_axis`` there); the router is read whole by every rank but
+    weighs only the rank's experts, so it enters by `copy_to`; the
+    combine and the statistics' sum have the identity backward, so
+    each rank's share of the aux loss's gradient flows through its own
+    statistics and the router's gradient includes the aux term."""
+    from repro_torch.distributed.ranks import copy_to, reduce_from
     tp = mesh.size(ep_axis)
     if mp.n_experts % tp:
         raise ValueError(f"{mp.n_experts} experts do not split over "
@@ -137,7 +148,7 @@ def _moe_ranks(p, x, mp: MoEParams, *, mesh, batch_axes, ep_axis):
     e_local = mp.n_experts // tp
     # the FSDP unshard: every dim but the experts' whole (all-gathers
     # over the axes the stored specs split them over: the FSDP axis)
-    router_w = p.get("router")
+    router_w = copy_to(p.get("router"), mesh, ep_axis)
     wi = p.get("wi", ep_axis)
     wo = p.get("wo", ep_axis)
     out, (frac, mean_prob), dropped = _moe_local(
@@ -145,17 +156,18 @@ def _moe_ranks(p, x, mp: MoEParams, *, mesh, batch_axes, ep_axis):
         e_local=e_local)
     # combine in the activation dtype: each token's partials come from at
     # most topk ranks
-    out = mesh.all_reduce(out, ep_axis)
+    out = (reduce_from(out, mesh, ep_axis) if combine is None
+           else combine(out))
     # exact layout-invariant aux: average the routing statistics over all
     # ranks (model ranks see identical stats, batch ranks partition the
     # tokens), then form E * sum(frac * mean_prob)
     axes = tuple(a for a in batch_axes if a in mesh.shape) + (ep_axis,)
     n = mesh.size(axes)
-    flat = mesh.all_reduce(torch.cat([frac, mean_prob, dropped.reshape(1)]),
-                           axes) / n
+    flat = reduce_from(torch.cat([frac, mean_prob, dropped.reshape(1)]),
+                       mesh, axes) / n
     E = mp.n_experts
     aux = E * torch.sum(flat[:E] * flat[E:2 * E])
-    return out, aux, flat[2 * E]
+    return out, aux, flat[2 * E].detach()
 
 
 def _r_moe(r, mesh_key: str, key: str, mp: MoEParams, x_w, batch_axes,

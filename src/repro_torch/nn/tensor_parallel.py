@@ -1,45 +1,63 @@
-"""The LM forward inside a rank of a mesh: the ``mesh=`` paths of the LM
-stack, written out.
+"""The LM inside a rank of a mesh: the ``mesh=`` paths of the LM stack,
+written out, forward and backward.
 
 Port-only module.  The reference's ``mesh=`` paths
-(`src/repro/models/lm.py:135` `make_prefill_step`, :184
-`make_decode_step`, `src/repro/nn/transformer.py:320` `lm_forward` with
-its `_cx` constraints) leave the compute layout to GSPMD, which derives
-it from the parameter specs.  `torch.distributed` has no such
-propagation that knows the scan kernel or the MoE's scatters, so the
-port writes the layout out, Megatron style, from the same specs.  Every
-function here runs inside a rank: ``lp`` is the rank's
+(`src/repro/models/lm.py:84` `make_train_step`, :135
+`make_prefill_step`, :184 `make_decode_step`,
+`src/repro/nn/transformer.py:320` `lm_forward` with its `_cx`
+constraints) leave the compute layout to GSPMD, which derives it from
+the parameter specs.  `torch.distributed` has no such propagation that
+knows the scan kernel or the MoE's scatters, so the port writes the
+layout out, Megatron style, from the same specs.  Every function here
+runs inside a rank: ``lp`` is the rank's
 `repro_torch.distributed.sharding.Local` slice of the parameters (or of
 one layer's), ``mesh`` its `repro_torch.distributed.ranks.AxisGroups`,
 and activations are the rank's batch slice.
 
   * The batch is split over ``(pod, data)``; activations are whole over
-    ``model`` between blocks.  Weights whose dims the specs split over
-    ``data`` (FSDP) are all-gathered over ``data`` right before their
-    layer (`Local.get`).
+    ``model`` between blocks (the "carry"), or, in training with
+    ``seq_shard_carry``, split over the sequence on ``model`` (Megatron
+    sequence parallelism: a reduce-scatter along S ends each
+    row-parallel layer in place of the all-reduce, and an all-gather
+    along S comes after the next norm, before the column-parallel
+    layer; the reference's ``_cx(seq_shard=True)``).  Weights whose dims
+    the specs split over ``data`` (FSDP) are all-gathered over ``data``
+    right before their layer (`Local.get`).
   * Attention is split over query heads: rank ``r`` of ``model`` takes
     heads ``[r H/tp, (r+1) H/tp)`` and the kv heads they read.  Where
-    the decode cache splits kv heads over ``model`` (``n_kv % tp == 0``)
-    a rank computes its own ``n_kv / tp`` kv heads; otherwise every rank
-    computes all of them (``wk`` / ``wv`` are whole on every rank by the
-    default rules: ``kv_heads`` maps to no axis).  A fused ``wqkv`` is
-    gathered whole over ``model`` and sliced, since its one ``H + 2K``
-    dim does not split at the q / k / v boundaries.  ``wo`` is
-    row-parallel: one all-reduce over ``model``.
+    the decode cache splits kv heads over ``model`` (``n_kv % tp == 0``;
+    in training where ``n_kv % tp == 0``) a rank computes its own
+    ``n_kv / tp`` kv heads; otherwise every rank computes all of them
+    (``wk`` / ``wv`` are whole on every rank by the default rules:
+    ``kv_heads`` maps to no axis).  A fused ``wqkv`` is gathered whole
+    over ``model`` and sliced, since its one ``H + 2K`` dim does not
+    split at the q / k / v boundaries.  ``wo`` is row-parallel: one
+    all-reduce over ``model``.
   * Decode over a cache split by sequence (``n_kv % tp != 0``): every
     rank attends with all H query heads over its slots, and the shards
     combine by log-sum-exp: a max all-reduce of the logits' maxima and
     one sum all-reduce of the numerators and denominators.
   * The GLU / plain MLP is column- then row-parallel: one all-reduce.
   * Mamba is split over ``d_inner``: ``in_proj``, the conv, ``dt_proj``
-    and the scan (the hand-written kernel on ``backend="cuda"``) are
-    local per channel, ``x_proj`` and ``out_proj`` row-parallel with an
-    all-reduce each (`repro_torch.nn.mamba`'s ``reduce``).
+    and the scan (the hand-written kernel on ``backend="cuda"``; the
+    chunked path in training) are local per channel, ``x_proj`` and
+    ``out_proj`` row-parallel with an all-reduce each
+    (`repro_torch.nn.mamba`'s ``reduce_ssm`` and ``reduce``).
   * The embedding and the unembedding are vocab-parallel: a rank looks
     up the ids in its vocab slice and an all-reduce sums the rows (one
     rank holds each); the last-token logits are all-gathered over
-    ``model``.
-  * The MoE is `repro_torch.nn.moe.moe_apply` with the rank's mesh.
+    ``model``; the training loss is
+    `repro_torch.nn.losses.vocab_parallel_xent_sums` over the rank's
+    vocab slice, with no logits gathered.
+  * The MoE is `repro_torch.nn.moe`'s expert-parallel path on the rank's
+    mesh.
+
+Gradients follow `repro_torch.distributed.ranks`' convention: the
+collectives above are its differentiable ones (`_Carry` holds the four
+ways a layer meets the carry), so the same code serves prefill and
+decode under `torch.no_grad()` and training under autograd, and a
+remat'd period re-issues its collectives in the backward in the order
+of its forward, the same on every rank.
 
 Row-parallel partial sums are all-reduced in the activation dtype, as
 the MoE's combine is.  A dim a split needs (heads, ``d_ff``,
@@ -49,18 +67,23 @@ the call raises.
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import torch
 
-from repro_torch.distributed.sharding import Local
+from repro_torch.distributed.ranks import (copy_to, gather_from, reduce_from,
+                                           scatter_to)
+from repro_torch.distributed.sharding import Local, batch_axes_for
 from repro_torch.nn.attention import (_NEG, AttnParams, _apply_rope, _qkv,
                                       blockwise_attention, decode_attention,
                                       ring_positions)
 from repro_torch.nn.layers import apply_glu_mlp
+from repro_torch.nn.losses import vocab_parallel_xent_sums
 from repro_torch.nn.mamba import mamba_decode, mamba_forward
-from repro_torch.nn.moe import moe_apply
+from repro_torch.nn.moe import _moe_ranks
 
-__all__ = ["MODEL", "lm_decode_tp", "lm_prefill_tp"]
+__all__ = ["MODEL", "lm_decode_tp", "lm_forward_tp", "lm_loss_tp",
+           "lm_prefill_tp"]
 
 MODEL = "model"
 
@@ -89,37 +112,74 @@ def _kv_layout(spec) -> str:
     return "whole"
 
 
+@dataclasses.dataclass
+class _Carry:
+    """How the residual stream lies on ``model`` between layers: whole on
+    every model rank, or (``seq``) split over the sequence (dim 1)."""
+
+    mesh: object
+    seq: bool = False
+
+    def enter(self, h: torch.Tensor) -> torch.Tensor:
+        """``h`` (from the carry) as a layer whose model ranks each
+        compute a part takes it: whole, its gradient summed."""
+        if self.seq:
+            return gather_from(h, self.mesh, MODEL, 1, sum_grad=(MODEL,))
+        return copy_to(h, self.mesh, MODEL)
+
+    def exit(self, y: torch.Tensor) -> torch.Tensor:
+        """A layer's partial sums ``y`` (B, S, d) back onto the carry."""
+        if self.seq:
+            return scatter_to(y, self.mesh, MODEL, 1)
+        return reduce_from(y, self.mesh, MODEL)
+
+    def leaf(self, t: torch.Tensor) -> torch.Tensor:
+        """A leaf read on the carry (norm gains, output biases): on a
+        split carry each rank reads it for its tokens alone."""
+        return copy_to(t, self.mesh, MODEL) if self.seq else t
+
+    def positions(self, pos: torch.Tensor) -> torch.Tensor:
+        """``pos`` (B, S) or (B, 3, S) for the carry's tokens."""
+        return self.mesh.chunk(pos, MODEL, pos.dim() - 1) if self.seq else pos
+
+
 # ---------------------------------------------------------------------------
 # embedding, logits, norms
 
-def _embed(cfg, lp: Local, mesh, inputs: torch.Tensor, pos: torch.Tensor
-           ) -> torch.Tensor:
+def _embed(cfg, lp: Local, mesh, carry: _Carry, inputs: torch.Tensor,
+           pos: torch.Tensor) -> torch.Tensor:
     from repro_torch.nn.transformer import _embed_post
     if cfg.frontend == "tokens":
         w = lp.get("embed", MODEL)                          # (V/tp, d)
         ids = inputs.long() - mesh.index(MODEL) * w.shape[0]
         hit = (ids >= 0) & (ids < w.shape[0])
         rows = w[ids.clamp(0, w.shape[0] - 1)].to(cfg.dtype)
-        x = mesh.all_reduce(torch.where(hit[..., None], rows, 0), MODEL)
+        x = carry.exit(torch.where(hit[..., None], rows, 0))
     else:
         x = inputs.to(cfg.dtype)
-    return _embed_post(cfg, x, pos)
+        if carry.seq:
+            x = mesh.chunk(x, MODEL, 1)
+    return _embed_post(cfg, x, carry.positions(pos))
+
+
+def _unembed_local(cfg, lp: Local) -> torch.Tensor:
+    """The rank's vocab slice of the unembedding, (d, V/tp)."""
+    if cfg.tie_embeddings and cfg.frontend == "tokens":
+        return lp.get("embed", MODEL).T
+    return lp.get("unembed", None, MODEL)
 
 
 def _logits(cfg, lp: Local, mesh, last: torch.Tensor) -> torch.Tensor:
-    if cfg.tie_embeddings and cfg.frontend == "tokens":
-        w = lp.get("embed", MODEL).T
-    else:
-        w = lp.get("unembed", None, MODEL)
-    logits = last.float() @ w.float()
+    logits = last.float() @ _unembed_local(cfg, lp).float()
     if cfg.final_softcap is not None:
         logits = cfg.final_softcap * torch.tanh(logits / cfg.final_softcap)
     return mesh.all_gather(logits, MODEL, dim=-1)
 
 
-def _norm(cfg, lp: Local, x: torch.Tensor) -> torch.Tensor:
+def _norm(cfg, lp: Local, x: torch.Tensor, carry: _Carry) -> torch.Tensor:
     from repro_torch.nn.transformer import _apply_norm
-    return _apply_norm(cfg, lp.full(), x)
+    return _apply_norm(cfg, {k: carry.leaf(v) for k, v in lp.full().items()},
+                       x)
 
 
 # ---------------------------------------------------------------------------
@@ -140,48 +200,52 @@ def _heads(ap: AttnParams, lp: Local, mesh, *, q_all: bool,
            kv_split: bool) -> _Heads:
     """The rank's attention weights: its query heads (all of them with
     ``q_all``) and its kv heads (its ``K / tp`` with ``kv_split``, else
-    all ``K``)."""
+    all ``K``).  Leaves every model rank holds whole but reads in part
+    enter by `copy_to` (their gradients are summed over ``model``)."""
     H, K = ap.n_heads, ap.n_kv
     tp, r = mesh.size(MODEL), mesh.index(MODEL)
     Hl = H if q_all else _split(H, tp, "n_heads")
     hs = 0 if q_all else r * Hl
     Kl = _split(K, tp, "n_kv") if kv_split else K
     k0 = r * Kl if kv_split else 0
+    part = lambda t: copy_to(t, mesh, MODEL)  # noqa: E731
     if ap.fused_qkv:
-        w = lp.get("wqkv")
+        w = part(lp.get("wqkv"))
         p = {"wq": w[:, hs:hs + Hl], "wk": w[:, H + k0:H + k0 + Kl],
              "wv": w[:, H + K + k0:H + K + k0 + Kl]}
     else:
-        p = {"wq": lp.get("wq") if q_all else lp.get("wq", None, MODEL),
-             "wk": lp.get("wk")[:, k0:k0 + Kl],
-             "wv": lp.get("wv")[:, k0:k0 + Kl]}
+        p = {"wq": part(lp.get("wq")) if q_all
+             else lp.get("wq", None, MODEL),
+             "wk": part(lp.get("wk"))[:, k0:k0 + Kl],
+             "wv": part(lp.get("wv"))[:, k0:k0 + Kl]}
     if ap.bias:
-        p["bq"] = lp.get("bq") if q_all else lp.get("bq", MODEL)
-        p["bk"] = lp.get("bk")[k0:k0 + Kl]
-        p["bv"] = lp.get("bv")[k0:k0 + Kl]
+        p["bq"] = part(lp.get("bq")) if q_all else lp.get("bq", MODEL)
+        p["bk"] = part(lp.get("bk"))[k0:k0 + Kl]
+        p["bv"] = part(lp.get("bv"))[k0:k0 + Kl]
     if ap.qk_norm:
-        p["qnorm"], p["knorm"] = lp.get("qnorm"), lp.get("knorm")
+        p["qnorm"], p["knorm"] = part(lp.get("qnorm")), part(lp.get("knorm"))
     local = dataclasses.replace(ap, n_heads=Hl, n_kv=Kl, fused_qkv=False)
     return _Heads(p=p, ap=local, hs=hs, k0=k0)
 
 
-def _row_parallel_wo(ap: AttnParams, lp: Local, mesh, out: torch.Tensor,
-                     dtype) -> torch.Tensor:
+def _row_parallel_wo(ap: AttnParams, lp: Local, carry: _Carry,
+                     out: torch.Tensor, dtype) -> torch.Tensor:
     """``out`` (B, S, H/tp, hd), the rank's query heads, through ``wo``'s
-    rows for those heads, all-reduced over ``model``, plus the bias."""
+    rows for those heads, summed over ``model`` onto the carry, plus the
+    bias."""
     wo = lp.get("wo", MODEL)
-    y = out.to(dtype).flatten(-2) @ wo.to(dtype).reshape(-1, wo.shape[-1])
-    y = mesh.all_reduce(y, MODEL)
+    y = carry.exit(out.to(dtype).flatten(-2)
+                   @ wo.to(dtype).reshape(-1, wo.shape[-1]))
     if ap.bias:
-        y = y + lp.get("bo").to(dtype)
+        y = y + carry.leaf(lp.get("bo")).to(dtype)
     return y
 
 
-def _attention_prefill(cfg, ap: AttnParams, lp: Local, mesh, x, pos,
-                       kv_spec):
-    """Returns (y (B, S, d), (k, v) in the cache's layout)."""
-    layout = _kv_layout(kv_spec)
-    hd = _heads(ap, lp, mesh, q_all=False, kv_split=layout == "heads")
+def _attention(cfg, ap: AttnParams, lp: Local, mesh, x, pos, *,
+               kv_split: bool):
+    """The rank's query heads over the whole sequence ``x`` (B, S, d).
+    Returns (out (B, S, H/tp, hd) f32, k, v (B, S, K_l, hd))."""
+    hd = _heads(ap, lp, mesh, q_all=False, kv_split=kv_split)
     q, k, v = _qkv(hd.p, hd.ap, x)
     q, k = _apply_rope(hd.ap, q, k, pos)
     n_rep = ap.n_heads // ap.n_kv
@@ -194,13 +258,7 @@ def _attention_prefill(cfg, ap: AttnParams, lp: Local, mesh, x, pos,
                               softcap=ap.softcap, scale=ap.scale,
                               q_chunk=cfg.q_chunk, kv_chunk=cfg.kv_chunk,
                               causal_mode=cfg.causal_mode)
-    y = _row_parallel_wo(ap, lp, mesh, out, x.dtype)
-    if layout == "seq":
-        axes = _model_axes(kv_spec[2])
-        c = k.shape[1] // mesh.size(axes)
-        s0 = mesh.index(axes) * c
-        k, v = k[:, s0:s0 + c], v[:, s0:s0 + c]
-    return y, (k, v)
+    return out, k, v
 
 
 def _attention_decode(ap: AttnParams, lp: Local, mesh, x, cache: dict,
@@ -231,7 +289,7 @@ def _attention_decode(ap: AttnParams, lp: Local, mesh, x, cache: dict,
                                       ap, mesh, seq_axes)
         Hl = _split(ap.n_heads, mesh.size(MODEL), "n_heads")
         out = out[:, :, mesh.index(MODEL) * Hl:(mesh.index(MODEL) + 1) * Hl]
-    return _row_parallel_wo(ap, lp, mesh, out, x.dtype)
+    return _row_parallel_wo(ap, lp, _Carry(mesh), out, x.dtype)
 
 
 def _decode_attention_split(q, cache_k, cache_v, kv_pos, t: int,
@@ -275,45 +333,62 @@ def _mamba_local(mp, lp: Local, mesh):
         mp, d_inner=_split(mp.d_inner, tp, "d_inner"))
 
 
-def _ffn(cfg, spec, lp: Local, mesh, x: torch.Tensor):
+def _mamba(cfg, lp: Local, mesh, carry: _Carry, h: torch.Tensor, *,
+           backend: str) -> torch.Tensor:
+    """The rank's ``d_inner`` channels over the whole sequence ``h``; the
+    ``x_proj`` sum is read whole in every rank's channels, so its
+    gradient is summed too."""
+    p, mp = _mamba_local(cfg.mamba, lp, mesh)
+    return mamba_forward(
+        p, h, mp, backend=backend, reduce=carry.exit,
+        reduce_ssm=lambda t: copy_to(reduce_from(t, mesh, MODEL), mesh,
+                                     MODEL))
+
+
+def _ffn(cfg, spec, lp: Local, mesh, carry: _Carry, x: torch.Tensor):
     """The slot's FFN half; returns (x, aux or None)."""
     if spec.mlp == "none":
         return x, None
     aux = None
-    h = _norm(cfg, lp["norm2"], x)
+    h = carry.enter(_norm(cfg, lp["norm2"], x, carry))
     f = lp["ffn"]
     if spec.mlp == "glu":
-        h = mesh.all_reduce(apply_glu_mlp(
+        h = carry.exit(apply_glu_mlp(
             {"wi": f.get("wi", None, None, MODEL), "wo": f.get("wo", MODEL)},
-            h, act=cfg.activation), MODEL)
+            h, act=cfg.activation))
     elif spec.mlp == "mlp":
         dt = h.dtype
         u = cfg.activation((h @ f.get("w1", None, MODEL).to(dt)).float()
                            + f.get("b1", MODEL).float())
-        h = (mesh.all_reduce(u.to(dt) @ f.get("w2", MODEL).to(dt), MODEL)
-             + f.get("b2").to(dt))
+        h = (carry.exit(u.to(dt) @ f.get("w2", MODEL).to(dt))
+             + carry.leaf(f.get("b2")).to(dt))
     else:
-        h, aux, _dropped = moe_apply(f, h, cfg.moe, mesh=mesh)
+        h, aux, _dropped = _moe_ranks(f, h, cfg.moe, mesh=mesh,
+                                      batch_axes=("pod", "data"),
+                                      ep_axis=MODEL, combine=carry.exit)
     if cfg.post_norm:
-        h = _norm(cfg, lp["post2"], h)
+        h = _norm(cfg, lp["post2"], h, carry)
     return x + h, aux
 
 
-def _slot_prefill(cfg, spec, lp: Local, mesh, x, pos, *, backend: str,
-                  kv_spec):
-    h = _norm(cfg, lp["norm1"], x)
+def _slot(cfg, spec, lp: Local, mesh, carry: _Carry, x, pos, *,
+          backend: str, kv_split: bool):
+    """One layer on the carry.  Returns (x, aux or None, (k, v) or None:
+    the attention slot's keys and values, the rank's kv heads)."""
+    h = carry.enter(_norm(cfg, lp["norm1"], x, carry))
     kv = None
     if spec.kind == "attn":
-        h, kv = _attention_prefill(cfg, cfg.attn_params(spec), lp["attn"],
-                                   mesh, h, pos, kv_spec)
+        ap = cfg.attn_params(spec)
+        out, k, v = _attention(cfg, ap, lp["attn"], mesh, h, pos,
+                               kv_split=kv_split)
+        h = _row_parallel_wo(ap, lp["attn"], carry, out, x.dtype)
+        kv = (k, v)
     else:
-        p, mp = _mamba_local(cfg.mamba, lp["mamba"], mesh)
-        h = mamba_forward(p, h, mp, backend=backend,
-                          reduce=lambda t: mesh.all_reduce(t, MODEL))
+        h = _mamba(cfg, lp["mamba"], mesh, carry, h, backend=backend)
     if cfg.post_norm:
-        h = _norm(cfg, lp["post1"], h)
-    x, _aux = _ffn(cfg, spec, lp, mesh, x + h)
-    return x, kv
+        h = _norm(cfg, lp["post1"], h, carry)
+    x, aux = _ffn(cfg, spec, lp, mesh, carry, x + h)
+    return x, aux, kv
 
 
 def lm_prefill_tp(lp: Local, cfg, mesh, inputs: torch.Tensor,
@@ -321,19 +396,93 @@ def lm_prefill_tp(lp: Local, cfg, mesh, inputs: torch.Tensor,
     """`repro_torch.nn.transformer.lm_prefill` on a rank: returns (its
     batch rows' last-token logits (B_l, V) f32, whole over ``model``;
     its slices of ``kvs``, laid out by ``kv_specs``)."""
-    x = _embed(cfg, lp, mesh, inputs, pos)
+    carry = _Carry(mesh)
+    x = _embed(cfg, lp, mesh, carry, inputs, pos)
     per_slot = [[] for _ in cfg.period]
     for slots in lp["blocks"]:
         for s, (spec, bp) in enumerate(zip(cfg.period, slots)):
             kv_spec = kv_specs[s][0] if kv_specs[s] is not None else None
-            x, kv = _slot_prefill(cfg, spec, bp, mesh, x, pos,
-                                  backend=backend, kv_spec=kv_spec)
+            layout = _kv_layout(kv_spec) if kv_spec is not None else "whole"
+            x, _aux, kv = _slot(cfg, spec, bp, mesh, carry, x, pos,
+                                backend=backend, kv_split=layout == "heads")
+            if kv is not None and layout == "seq":
+                axes = _model_axes(kv_spec[2])
+                kv = tuple(mesh.chunk(t, axes, 1) for t in kv)
             per_slot[s].append(kv)
-    x = _norm(cfg, lp["final_norm"], x)
+    x = _norm(cfg, lp["final_norm"], x, carry)
     kvs = tuple(None if spec.kind != "attn" else
                 tuple(torch.stack(leaf) for leaf in zip(*got))
                 for spec, got in zip(cfg.period, per_slot))
     return _logits(cfg, lp, mesh, x[:, -1, :]), kvs
+
+
+def _period_tp(cfg, mesh, carry: _Carry, backend: str, kv_split: bool,
+               slots: Local, x: torch.Tensor, pos: torch.Tensor):
+    """One repeat of the period on a rank, the unit remat checkpoints.
+    Returns (x, aux)."""
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    for spec, bp in zip(cfg.period, slots):
+        x, a, _kv = _slot(cfg, spec, bp, mesh, carry, x, pos,
+                          backend=backend, kv_split=kv_split)
+        if a is not None:
+            aux = aux + a
+    return x, aux
+
+
+def lm_forward_tp(lp: Local, cfg, mesh, inputs: torch.Tensor,
+                  pos: torch.Tensor, *, backend: str = "cuda"):
+    """`repro_torch.nn.transformer.lm_forward` (no kv) on a rank: returns
+    (hidden (B_l, S, d), whole over ``model``, and the MoE aux loss).
+    Under grad mode each repeat of the period is checkpointed as
+    ``cfg.remat`` says; with ``cfg.seq_shard_carry`` (and S divisible
+    by the model axis, else the carry stays whole, as the reference's
+    constraint falls back) the carry is split over the sequence."""
+    from repro_torch.nn.transformer import _maybe_remat
+    tp = mesh.size(MODEL)
+    seq = cfg.seq_shard_carry and tp > 1 and inputs.shape[1] % tp == 0
+    carry = _Carry(mesh, seq)
+    kv_split = cfg.n_kv > 0 and cfg.n_kv % tp == 0
+    x = _embed(cfg, lp, mesh, carry, inputs, pos)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    body = functools.partial(_period_tp, cfg, mesh, carry, backend, kv_split)
+    if torch.is_grad_enabled():
+        body = _maybe_remat(cfg, body)
+    for slots in lp["blocks"]:
+        x, a = body(slots, x, pos)
+        aux = aux + a
+    x = _norm(cfg, lp["final_norm"], x, carry)
+    return carry.enter(x), aux
+
+
+def lm_loss_tp(lp: Local, cfg, mesh, batch: dict, *, rep: int = 1):
+    """`repro_torch.nn.transformer.lm_loss` on a rank, over its rows of a
+    micro-batch.  Returns (loss, metrics): ``loss`` is this rank's part
+    of the micro-batch's loss (the parts sum over the batch axes to the
+    whole; every rank of a ``model`` slice holds the same part), with
+    the cross-entropy divided by the micro-batch's whole mask count;
+    ``metrics`` (``xent``, ``accuracy``, ``tokens``, ``aux_loss``,
+    ``loss``) are the micro-batch's, whole, without gradients.  ``rep``:
+    how many batch ranks hold the same rows (the batch axes' size when
+    the micro-batch does not split over them, else 1)."""
+    inputs = batch["tokens"] if cfg.frontend == "tokens" else batch["embeds"]
+    hidden, aux = lm_forward_tp(lp, cfg, mesh, inputs, batch["pos"])
+    labels = batch["labels"]
+    mask = batch.get("mask")
+    m = (torch.ones(labels.shape, dtype=torch.float32, device=labels.device)
+         if mask is None else mask.float())
+    sum_loss, sum_correct = vocab_parallel_xent_sums(
+        hidden.float(), _unembed_local(cfg, lp).float(), labels.long(), m,
+        mesh=mesh, axis=MODEL, chunk=cfg.loss_chunk, z_loss=cfg.z_loss,
+        logit_softcap=cfg.final_softcap)
+    with torch.no_grad():
+        tot = torch.stack([sum_loss.detach(), sum_correct, m.sum()])
+        tot = mesh.all_reduce(tot, batch_axes_for(mesh)) / rep
+        denom = torch.clamp(tot[2], min=1.0)
+    loss = sum_loss / (denom * rep) + cfg.aux_loss_weight * aux
+    xent = tot[0] / denom
+    aux = aux.detach()
+    return loss, {"xent": xent, "accuracy": tot[1] / denom, "tokens": denom,
+                  "aux_loss": aux, "loss": xent + cfg.aux_loss_weight * aux}
 
 
 def lm_decode_tp(lp: Local, cfg, mesh, cache: Local, tok: torch.Tensor,
@@ -346,12 +495,13 @@ def lm_decode_tp(lp: Local, cfg, mesh, cache: Local, tok: torch.Tensor,
     pos_embed = torch.full((B, 1), t, dtype=torch.int32, device=inp.device)
     pos = (torch.full((B, 3, 1), t, dtype=torch.int32, device=inp.device)
            if cfg.rope == "mrope" else pos_embed)
-    x = _embed(cfg, lp, mesh, inp, pos_embed)
+    carry = _Carry(mesh)
+    x = _embed(cfg, lp, mesh, carry, inp, pos_embed)
     reduce = lambda y: mesh.all_reduce(y, MODEL)  # noqa: E731
     for r, slots in enumerate(lp["blocks"]):
         for s, (spec, bp) in enumerate(zip(cfg.period, slots)):
             layer = {k: v[r] for k, v in cache.tree[s].items()}
-            h = _norm(cfg, bp["norm1"], x)
+            h = _norm(cfg, bp["norm1"], x, carry)
             if spec.kind == "attn":
                 h = _attention_decode(cfg.attn_params(spec), bp["attn"], mesh,
                                       h, layer, cache.specs[s]["k"], t, pos)
@@ -361,7 +511,7 @@ def lm_decode_tp(lp: Local, cfg, mesh, cache: Local, tok: torch.Tensor,
                 for k, v in new.items():
                     layer[k].copy_(v)
             if cfg.post_norm:
-                h = _norm(cfg, bp["post1"], h)
-            x, _aux = _ffn(cfg, spec, bp, mesh, x + h)
-    x = _norm(cfg, lp["final_norm"], x)
+                h = _norm(cfg, bp["post1"], h, carry)
+            x, _aux = _ffn(cfg, spec, bp, mesh, carry, x + h)
+    x = _norm(cfg, lp["final_norm"], x, carry)
     return _logits(cfg, lp, mesh, x[:, 0])

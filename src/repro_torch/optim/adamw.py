@@ -80,10 +80,26 @@ def opt_state_from_jax(state, device) -> OptState:
                     m=tree(state.m), v=tree(state.v))
 
 
-def global_norm(tree: Tree) -> torch.Tensor:
-    """sqrt of the sum of squares of every leaf, in float32."""
-    return torch.sqrt(sum(torch.sum(torch.square(x.float()))
-                          for x in _leaves(tree)))
+def global_norm(tree: Tree, *, specs: Optional[Tree] = None,
+                mesh=None) -> torch.Tensor:
+    """sqrt of the sum of squares of every leaf, in float32.
+
+    Inside a rank of a mesh (``mesh`` its `AxisGroups`, ``specs`` the
+    leaves' pruned `PartitionSpec`s, ``tree`` the rank's slices): the
+    norm of the whole tree, each distinct slice counted once (a leaf
+    held whole over some axes counts ``1 / size`` on each of their
+    ranks), by one all-reduce over every axis; the same on every
+    rank."""
+    if mesh is None:
+        return torch.sqrt(sum(torch.sum(torch.square(x.float()))
+                              for x in _leaves(tree)))
+    from repro_torch.distributed.sharding import split_axes, tree_leaves
+    total = mesh.size(mesh.axis_names)
+    parts = [torch.sum(torch.square(x.float()))
+             * (mesh.size(split_axes(sp)) / total)
+             for x, sp in zip(tree_leaves(tree), tree_leaves(specs))]
+    sq = mesh.all_reduce(torch.stack(parts), mesh.axis_names)
+    return torch.sqrt(sum(sq.unbind(0)))
 
 
 def _clip_scale(gn: torch.Tensor, max_norm: float) -> torch.Tensor:
@@ -99,11 +115,12 @@ def clip_by_global_norm(grads: Tree, max_norm: float):
 
 
 def _update(cfg: AdamWConfig, grads: Tree, state: OptState, params: Tree,
-            decay: Optional[Tree], in_place: bool):
+            decay: Optional[Tree], in_place: bool,
+            norm: Optional[torch.Tensor] = None):
     """One AdamW step, leaf by leaf: each gradient leaf is cast to float32
     and clipped as it is used, so no float32 copy of the whole gradient
     tree exists."""
-    gn = global_norm(grads)
+    gn = global_norm(grads) if norm is None else norm
     scale = _clip_scale(gn, cfg.grad_clip) if cfg.grad_clip is not None \
         else None
     step = state.step + 1
@@ -144,21 +161,28 @@ def _update(cfg: AdamWConfig, grads: Tree, state: OptState, params: Tree,
 
 
 def adamw_update(cfg: AdamWConfig, grads: Tree, state: OptState,
-                 params: Tree, *, decay: Optional[Tree] = None):
+                 params: Tree, *, decay: Optional[Tree] = None,
+                 norm: Optional[torch.Tensor] = None):
     """One AdamW step.  Returns ``(new_params, new_state, metrics)``;
     metrics ``grad_norm`` (before clipping) and ``lr`` are 0-d tensors.
     ``decay``: a tree of bools shaped like ``params`` saying which leaves
-    take weight decay (default: ``ndim >= 2``)."""
-    return _update(cfg, grads, state, params, decay, in_place=False)
+    take weight decay (default: ``ndim >= 2``).  ``norm``: the gradient's
+    global norm when ``grads`` is a slice of it (a rank of a mesh: the
+    norm of the whole gradient, `global_norm` of the slice otherwise);
+    clipping and the ``grad_norm`` metric use it."""
+    return _update(cfg, grads, state, params, decay, in_place=False,
+                   norm=norm)
 
 
 @torch.no_grad()
 def adamw_update_(cfg: AdamWConfig, grads: Tree, state: OptState,
-                  params: Tree, *, decay: Optional[Tree] = None):
+                  params: Tree, *, decay: Optional[Tree] = None,
+                  norm: Optional[torch.Tensor] = None):
     """`adamw_update` written into ``params`` and ``state``'s moments in
     place; returns ``(params, new_state, metrics)`` with the same
     parameter and moment tensors (the step counter is a new tensor)."""
-    return _update(cfg, grads, state, params, decay, in_place=True)
+    return _update(cfg, grads, state, params, decay, in_place=True,
+                   norm=norm)
 
 
 def _as_f32(step: Step) -> torch.Tensor:

@@ -14,10 +14,14 @@ out of the caller's memory); a CPU leaf as a numpy array (a file past
 
 `remesh_state` goes through host memory, the reference's fallback
 (exactly what a restart after a failure does through
-`runtime.checkpoint`).  The reference's contract also covers training
-(a fixed global batch, so the optimizer's trajectory does not move
-across a re-mesh); that half waits for the sharded train step (ROADMAP
-Queue 1, item 5c): this module moves serving state.
+`runtime.checkpoint`).  It moves serving state (parameters, a decode
+cache) and training state alike: live parameters and their
+`repro_torch.optim.adamw.OptState` (moments laid out like the
+parameters, `repro_torch.models.lm.opt_state_specs`) move from one mesh
+to another and the sharded train step continues there.  The global
+batch stays fixed, so the optimizer's trajectory does not move across a
+re-mesh: the losses after it are the un-re-meshed run's, up to float32
+rounding of another layout.
 """
 from __future__ import annotations
 
@@ -158,8 +162,9 @@ def gather(handle: ShardedTree, device="cpu"):
 
 
 def remesh_state(state, specs, new_mesh: Mesh) -> ShardedTree:
-    """Move ``state`` (a `ShardedTree` or a tree of tensors) onto
-    ``new_mesh`` by the same logical ``specs``, through host memory."""
+    """Move ``state`` (a `ShardedTree` or a tree of tensors: parameters,
+    an `OptState` by `opt_state_specs`, a cache) onto ``new_mesh`` by the
+    same logical ``specs``, through host memory."""
     host = (gather(state) if isinstance(state, ShardedTree)
             else tree_map(lambda t: t.detach().cpu(), state))
     return reshard(host, new_mesh, specs)

@@ -33,11 +33,9 @@ from repro_torch import configs as t_configs
 from repro_torch.distributed.sharding import tree_leaves
 from repro_torch.launch.mesh import make_mesh, set_mesh, current_mesh
 from repro_torch.models.lm import (LMModel, lm_params_from_jax,
-                                   make_decode_step, make_prefill_step,
-                                   make_train_step)
+                                   make_decode_step, make_prefill_step)
 from repro_torch.nn.layers import PartitionSpec as P
 from repro_torch.nn.transformer import init_lm_cache, lm_param_specs
-from repro_torch.optim.adamw import AdamWConfig
 from repro_torch.runtime.elastic import gather, remesh_state, reshard
 
 BATCH, SEQ, DECODE_STEPS = 2, 32, 8
@@ -236,9 +234,3 @@ def test_remesh_state_keeps_the_logits(meshes):
     for a, b in zip(tree_leaves(gather(handles[1])), tree_leaves(params)):
         assert torch.equal(a, b)
     assert _nerr(outs[1], outs[0]) <= TOL
-
-
-def test_make_train_step_with_a_mesh_is_not_ported_yet(meshes):
-    _, t_cfg = _configs("h2o-danube-1.8b")
-    with pytest.raises(NotImplementedError, match="item 5c"):
-        make_train_step(t_cfg, AdamWConfig(), mesh=meshes[(2, 2)])
