@@ -168,7 +168,9 @@ Phases, each timed, any failure exits non-zero before the result line:
      and on phase 2's full-reddit gather plan (D 64, float32; built here
      when phase 2 did not run): p50 / p90 / device p50, model latency,
      residual, achieved bytes/s and edges/s, tiles; the attribution error
-     within 0.5, each forward row's device p50 within 1.5x of `time_ms`
+     of the device-only p50s (rows and total alike) within 0.5, the
+     host-clock one beside it, each forward row's device p50 within 1.5x
+     of `time_ms`
      (device only) on the same executor, and the kernel launched exactly
      as often as `measure`'s calls; (B) `select_variant_measured` on the
      smallest and the largest of a gcn-f32 serving run's ego plans at D 16
@@ -218,7 +220,9 @@ Phases, each timed, any failure exits non-zero before the result line:
      finite losses, the last below the first, no kernel launch and no
      plain call (the path holds no Mamba slot), then step ms (mean of
      steps 2-4), tok/s, the model-FLOP share
-     of the bf16 dense peak ((6 N + 12 L H hd S) T a step), peak memory
+     of the bf16 dense peak ((6 N_active + 12 L H hd S) T a step, the
+     dry-run's `model_flops` plus attention; the share over all N
+     parameters printed beside it), peak memory
      and one more step under `torch.profiler` (top device ops, idle
      share); (b) flash attention's backward against plain autograd
      through ``causal_mode="masked_full"`` at h2o's shape (B 1, S 4096,
@@ -368,9 +372,37 @@ Phases, each timed, any failure exits non-zero before the result line:
      1e-5.  Every kernel counter on every rank and in the caller is
      zeroed at the start and read at the end: all 0 (training runs no
      kernel; the scan has no backward).
+  15. dryrun — the dry-run tier (`launch/dryrun_lib.py`, `launch/cost.py`:
+     a rank program traced on fake tensors in a fake process group of
+     the mesh's size, under a per-op counter).  Its traces run no kernel
+     and allocate nothing on the card, so they run in three background
+     processes started before the build, beside phases 2-14; the phase
+     collects them (it fails when one fails or is not done within
+     `DRYRUN_WAIT_S`).  (a) Held against the card: phase 10's cell
+     (h2o-danube-1.8b, 12 layers, bf16, B 8 x S 4096, n_micro 2, one
+     rank) and phase 14 (b)'s (`MT_BF16` on its (2, 2) mesh, priced for
+     the phase's transport: gloo's reduce-scatter stages its operand on
+     the card): the predicted per-rank total (the rank's arguments plus
+     the step's peak of live storages) within 10% of the measured one
+     (phase 10's ``max_memory_allocated`` less what was allocated before
+     its run;
+     on a rank of phase 14 its parameter and moment slices plus the rise
+     of its peak over what it held before the steps), the collective
+     bytes and calls by kind equal to the ranks' counter
+     (`distributed/ranks.py:collective_bytes`) over phase 14's last step
+     (0 for the one-rank cell), and the counter's product FLOPs printed
+     beside `torch.profiler`'s ``with_flops`` over phase 10's profiled
+     step; when phase 10 or 14 did not run, one real step of its cell
+     runs here.  (b) `DRYRUN_PROD` at full config on ``pod16x16``:
+     qwen3-moe-235b-a22b x train_4k and jamba-v0.1-52b x prefill_32k
+     (through the scan's fake path, one call a Mamba layer): per-rank GB
+     against 80, ``fits``, FLOPs, bytes, collective bytes by kind and by
+     axis, the axes crossing 8-card nodes, the three roofline terms and
+     the dominant one; finite positive figures.  The caller's kernel
+     counters stay 0 over the phase.
 
 
-``--phases`` runs a subset of phases 2-14 (names in `PHASES`); with no
+``--phases`` runs a subset of phases 2-15 (names in `PHASES`); with no
 arguments every phase runs.  The line before the last is the
 ``{"kernels": [...]}`` record (times are
 medians of 20 CUDA-event-timed calls after 3 warm-up calls, on warm
@@ -400,9 +432,12 @@ rank's in phase 13a's four (with ``launches_mesh_per_prefill``),
 ``sfu_ms`` the exp/log term beside ``bound_ms``, and ``library_ms``
 null: no one PyTorch call computes a selective scan); every record's
 ``launches_mesh_train`` counts its kernel's launches on the ranks in
-phase 14 (0: no kernel is on the training path); the last line is
-``{"ok": true, "device": {...}}``.  Details of every check go to
-``chiprun_out/chip_smoke_detail.json`` when that directory exists.
+phase 14 (0: no kernel is on the training path) and
+``launches_dryrun`` in phase 15 (0: the dry-run launches nothing; the
+scan's record adds ``dryrun_fake_calls``, the calls its fake path
+stood in for); the last line is ``{"ok": true, "device": {...}}``.
+Details of every check go to ``chiprun_out/chip_smoke_detail.json``
+when that directory exists.
 """
 from __future__ import annotations
 
@@ -2095,6 +2130,24 @@ def _kind(name: str) -> str:
     return "reduce" if "reduce" in low else "other"
 
 
+# the products `torch.profiler`'s ``with_flops`` prices (2 m n k each)
+PROFILER_PRODUCTS = ("aten::mm", "aten::addmm", "aten::bmm", "aten::baddbmm")
+
+
+def _profile_flops(fn) -> int:
+    """The product FLOPs `torch.profiler` (``with_flops``, host ops only)
+    counts over one call of ``fn``, summed over its raw events."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU], record_shapes=True,
+                 with_flops=True) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(ev.flops() for ev in prof.profiler.kineto_results.events()
+               if ev.name() in PROFILER_PRODUCTS)
+
+
 def _profile(fn) -> dict:
     """One call of ``fn`` under `torch.profiler`: device time by kernel
     name (top 12) and by kind (`_kind`), and the device-busy share of the
@@ -2836,9 +2889,12 @@ def profiling(detail: dict) -> dict:
             _calls(s.measured, PROFILE_ITERS) for s in rep.schedules)
             + n_sched * _calls(rep.total, PROFILE_ITERS)},
                       f"profile {name}")
-        err = rep.attribution_error()
+        # the gate reads the device-only p50s (rows and total alike), which
+        # the host's load does not move; the host-clock reading beside it
+        err = rep.attribution_error(device=DEVICE == "cuda")
+        err_wall = rep.attribution_error()
         check(err <= ATTRIBUTION_LIMIT, f"profile {name}: attribution error "
-              f"{err:.3f} > {ATTRIBUTION_LIMIT}")
+              f"{err:.3f} > {ATTRIBUTION_LIMIT} (host clock {err_wall:.3f})")
         # the same executor under the other harness (time_ms, device only)
         ex = plan.executor(PROFILE_BACKEND, DEVICE)
         feat = torch.as_tensor(np.random.default_rng(0).standard_normal(
@@ -2877,10 +2933,14 @@ def profiling(detail: dict) -> dict:
                 f"runs={row['runs']} hub={row['hub_live_slots']} slots"
                 + (f" time_ms(device)={t_dev * 1e3:.1f}us" if which ==
                    "forward" else ""))
-        log(f"  {name}: total p50={rep.total.p50 * 1e6:.1f}us attribution "
-            f"error={err:.3f}")
+        log(f"  {name}: total p50={rep.total.p50 * 1e6:.1f}us dev p50="
+            f"{rep.total.device_p50 * 1e6:.1f}us attribution error "
+            f"{err:.3f} on the device (host clock {err_wall:.3f})")
         rows.append({"case": name, "schedule": f"{name}/total",
-                     "p50_us": rep.total.p50 * 1e6, "attribution_error": err})
+                     "p50_us": rep.total.p50 * 1e6,
+                     "dev_p50_us": rep.total.device_p50 * 1e6,
+                     "attribution_error": err,
+                     "attribution_error_wall": err_wall})
         del ex, feat
     out["profile_rows"] = rows
     torch.cuda.empty_cache()
@@ -3181,9 +3241,11 @@ def lm_train(detail: dict) -> dict:
     from repro_torch import configs
     from repro_torch.configs import falcon_mamba_7b, jamba_v0_1_52b
     from repro_torch.device import set_matmul_precision
+    from repro_torch.configs import ShapeDef
     from repro_torch.hw import H100_SXM
     from repro_torch.kernels import selective_scan as ss
     from repro_torch.launch import train as train_mod
+    from repro_torch.launch.dryrun_lib import model_flops
     from repro_torch.models.lm import LMModel, make_train_step
     from repro_torch.nn.attention import blockwise_attention
     from repro_torch.nn.losses import chunked_softmax_xent, softmax_xent_dense
@@ -3197,6 +3259,8 @@ def lm_train(detail: dict) -> dict:
     # (a) the full-width run, the main path: no kernel and no plain call
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
+    # what earlier phases left allocated (phase 15 takes it off the peak)
+    base_gb = torch.cuda.memory_allocated() / 1e9
     _reset_counts()
     get_arch = configs.get_arch
 
@@ -3226,16 +3290,23 @@ def lm_train(detail: dict) -> dict:
     seq = int(LM_TRAIN_ARGV[LM_TRAIN_ARGV.index("--seq-len") + 1])
     tokens = gb * seq
     step_s = res["avg_step_s"]                       # mean of steps 2..n
-    # model FLOPs a step: 6 N T for the dense products, plus the
-    # attention term 12 L H hd S T (forward and backward of QK^T and PV)
-    model_flop = (6 * n_params + 12 * cfg.n_layers * cfg.n_heads
-                  * cfg.head_dim * seq) * tokens
+    # model FLOPs a step: the dry-run's 6 N_active T (`model_flops`: the
+    # embedding gather is no product), plus the attention term 12 L H hd
+    # S T (forward and backward of QK^T and PV); the earlier 6 N T over
+    # every parameter is printed once beside it
+    attn_flop = 12 * cfg.n_layers * cfg.n_heads * cfg.head_dim * seq * tokens
+    model_flop = model_flops(cfg, trainer.state[0], "train_4k", ShapeDef(
+        "train_4k", "train", seq, gb)) + attn_flop
+    old_flop = 6 * n_params * tokens + attn_flop
     rec.update(arch=cfg.name, n_params=n_params, losses=losses,
                step_ms=step_s * 1e3,
                step_ms_all=[m["step_time_s"] * 1e3 for m in res["history"]],
                tok_per_s=tokens / step_s, model_flop=model_flop,
                mfu=model_flop / step_s / H100_SXM.peak_flops_bf16,
-               peak_gb=peak_gb, launches=counts, wall_s=res["wall_s"])
+               model_flop_all_params=old_flop,
+               mfu_all_params=old_flop / step_s / H100_SXM.peak_flops_bf16,
+               peak_gb=peak_gb, base_gb=base_gb, launches=counts,
+               wall_s=res["wall_s"])
     log(f"lm-train: {cfg.name} {n_params:,} params {cfg.dtype}, B {gb} x S "
         f"{seq} in 2 micro-batches, remat {cfg.remat}; losses "
         + ", ".join(f"{l:.4f}" for l in losses))
@@ -3244,12 +3315,22 @@ def lm_train(detail: dict) -> dict:
             f"{t:.1f}" for t in rec["step_ms_all"]) + ")")
     log(f"lm-train tok/s: {rec['tok_per_s']:.0f}")
     log(f"lm-train model-FLOP share of the bf16 dense peak "
-        f"({H100_SXM.peak_flops_bf16:.3g} FLOP/s; (6 N + 12 L H hd S) T = "
-        f"{model_flop:.4g} FLOP a step): {rec['mfu']:.4f}")
-    log(f"lm-train peak memory: {peak_gb:.2f} GB")
+        f"({H100_SXM.peak_flops_bf16:.3g} FLOP/s; (6 N_active + 12 L H hd "
+        f"S) T = {model_flop:.4g} FLOP a step, `model_flops`): "
+        f"{rec['mfu']:.4f} (with 6 N over all {n_params:,} parameters, as "
+        f"before: {old_flop:.4g} FLOP, {rec['mfu_all_params']:.4f})")
+    log(f"lm-train peak memory: {peak_gb:.2f} GB ({base_gb:.3f} GB "
+        f"allocated before the run)")
     batch = trainer.batch_fn(trainer.step)
     prof = _profile(lambda: trainer.step_fn(trainer.state, batch))
     rec["profile_step"] = prof
+    # the products' FLOPs by the profiler's count, over one more step, for
+    # phase 15 (its shape recording would swell the step above's host time)
+    t0 = time.time()
+    rec["profiler_product_flops"] = _profile_flops(
+        lambda: trainer.step_fn(trainer.state, batch))
+    log(f"lm-train profiler product FLOPs over one more step: "
+        f"{rec['profiler_product_flops']:.5g} ({time.time() - t0:.1f}s)")
     log(f"lm-train step profile: wall {prof['wall_ms']:.1f} ms, device "
         f"{prof['device_ms']:.1f} ms, idle share {prof['idle_share']:.4f}; "
         "by kind: " + ", ".join(f"{k} {v:.1f} ms" for k, v in sorted(
@@ -4701,6 +4782,7 @@ MT_F32_SPREAD = 3.0
 # (b): bf16 h2o-danube-1.8b at full width: (layers, B, S) by transport;
 # gloo keeps four ranks on one card, so the depth is cut for time
 MT_BF16 = {"gloo": (4, 4, 2048), "nccl": (24, 8, 4096)}
+MT_SHAPE_BF16 = (2, 2)
 MT_BF16_STEPS = 3
 # (c) and (d): reduced h2o in float32
 MT_SMALL_BATCH, MT_SMALL_SEQ = 4, 64
@@ -4838,7 +4920,7 @@ def lm_mesh_train(detail: dict) -> dict:
     layers, B, S = MT_BF16[be]
     cfg = dataclasses.replace(configs.get_arch("h2o-danube-1.8b").full(),
                               n_layers=layers)
-    mesh = meshes[(2, 2)]
+    mesh = meshes[MT_SHAPE_BF16]
     t0 = time.time()
     model = LMModel.create(cfg, seed=5, device=DEVICE)
     batch = _mt_batch(cfg, B, S, seed=6)
@@ -4849,17 +4931,23 @@ def lm_mesh_train(detail: dict) -> dict:
     hp = reshard(model.params, mesh, fns.step.pspecs)
     ho = reshard(adamw_init(model.params), mesh, fns.step.ospecs)
     rec["bf16_setup_s"] = time.time() - t0
-    group.memory(reset=True)
+    # each rank's allocation before the steps (its parameter and moment
+    # slices, and what earlier phases left), for phase 15
+    mem0 = group.memory(reset=True)
     fns.step.timing = True
     losses, times, stats = [], [], []
-    for _ in range(MT_BF16_STEPS):
+    for i in range(MT_BF16_STEPS):
+        if i == MT_BF16_STEPS - 1:
+            group.collectives(reset=True)
         _sync()
         t1 = time.perf_counter()
         hp, ho, m = fns.step(hp, ho, batch)
         times.append((time.perf_counter() - t1) * 1e3)
         losses.append(float(m["loss"]))
         stats.append(fns.step.last_stats)
+    coll = group.collectives(reset=True)         # the last step's
     mem = group.memory()
+    args_gb = (hp.nbytes + ho.nbytes) / mesh.size / 1e9
     rec.update(card_used_gb=_card_used_gb())
     hp.drop()
     ho.drop()
@@ -4887,6 +4975,8 @@ def lm_mesh_train(detail: dict) -> dict:
         rank_collective_ms=[[s[r]["collective_ms"] for s in stats]
                             for r in range(mesh.size)],
         rank_peak_gb=[x["peak_gb"] for x in mem],
+        rank_base_gb=[x["allocated_gb"] for x in mem0],
+        rank_args_gb=args_gb, rank_collectives=coll,
         card_used_gb=rec["card_used_gb"], setup_s=rec["bf16_setup_s"])
     log(f"  (b) h2o-danube-1.8b full width, {layers} of 24 layers, bf16 on "
         f"(2, 2), B {B} x S {S}, n_micro {MT_N_MICRO}: step ms "
@@ -4972,6 +5062,325 @@ def lm_mesh_train(detail: dict) -> dict:
     return rec
 
 
+# ---------------------------------------------------------------------------
+# phase 15: the dry-run
+
+# (b): production cells at full config on the (16, 16) mesh
+DRYRUN_PROD = (("qwen3-moe-235b-a22b", "train_4k"),
+               ("jamba-v0.1-52b", "prefill_32k"))
+DRYRUN_MESH = ("pod16x16", (16, 16))
+DRYRUN_PEAK_TOL = 0.10               # predicted vs measured per-rank peak
+DRYRUN_WAIT_S = 480.0                # the most phase 15 waits for its traces
+_DRYRUN: dict = {}                   # the background traces, while they run
+
+
+def _dryrun_cells(be: str) -> list:
+    """The cells phase 15 dry-runs, as `run_cell` keyword sets: (a) phase
+    10's cell on one rank and phase 14 (b)'s on its mesh, (b)
+    `DRYRUN_PROD`."""
+    gb = int(LM_TRAIN_ARGV[LM_TRAIN_ARGV.index("--global-batch") + 1])
+    seq = int(LM_TRAIN_ARGV[LM_TRAIN_ARGV.index("--seq-len") + 1])
+    n_micro = int(LM_TRAIN_ARGV[LM_TRAIN_ARGV.index("--n-micro") + 1])
+    layers, B, S = MT_BF16[be]
+    train = lambda b, s: {"name": "train_4k", "kind": "train",  # noqa: E731
+                          "seq_len": s, "global_batch": b}
+    return [
+        {"key": "lm-train", "arch": "h2o-danube-1.8b", "shape": "train_4k",
+         "mesh_shape": [1, 1], "mesh_name": "one", "n_micro": n_micro,
+         "shape_override": train(gb, seq),
+         "config_overrides": {"n_layers": LM_TRAIN_LAYERS}},
+        {"key": "lm-mesh-train", "arch": "h2o-danube-1.8b",
+         "shape": "train_4k", "mesh_shape": list(MT_SHAPE_BF16),
+         "mesh_name": "mt", "n_micro": MT_N_MICRO, "transport": be,
+         "shape_override": train(B, S),
+         "config_overrides": {"n_layers": layers}},
+    ] + [{"key": f"{a} x {sh}", "arch": a, "shape": sh,
+          "mesh_shape": list(DRYRUN_MESH[1]), "mesh_name": DRYRUN_MESH[0],
+          "n_micro": 1} for a, sh in DRYRUN_PROD]
+
+
+def _dryrun_worker(cells_json: str, out_path: str) -> None:
+    """Inside a background process: `run_cell` each cell, writing every
+    finished report (its per-op table under ``ops``) to ``out_path``."""
+    import tempfile
+    sys.path.insert(0, SRC)
+    from repro_torch.configs import ShapeDef
+    from repro_torch.launch.dryrun_lib import cell_filename, run_cell
+    done = {}
+    for cell in json.loads(cells_json):
+        kw = {k: v for k, v in cell.items() if k not in ("key", "arch",
+                                                         "shape")}
+        if "shape_override" in kw:
+            kw["shape_override"] = ShapeDef(**kw["shape_override"])
+        with tempfile.TemporaryDirectory() as tmp:
+            rep = run_cell(cell["arch"], cell["shape"], kw.pop("mesh_shape"),
+                           kw.pop("mesh_name"), out_dir=tmp, save_ops=True,
+                           verbose=False, **kw)
+            name = cell_filename(cell["arch"], cell["shape"],
+                                 rep["mesh"]).replace(".json", ".ops.json")
+            with open(os.path.join(tmp, name)) as f:
+                rep["ops"] = json.load(f)
+        done[cell["key"]] = rep
+        with open(out_path + ".part", "w") as f:
+            json.dump(done, f)
+        os.replace(out_path + ".part", out_path)
+
+
+def _start_dryruns(be: str) -> None:
+    """Start phase 15's traces in three background processes (each
+    production cell alone, the two checked cells together); phase 15
+    collects them.  They run no kernel and allocate
+    nothing on the card (fake tensors), but they see it: a CUDA build's
+    autograd engine refuses a process that has no visible card."""
+    import tempfile
+    cells = _dryrun_cells(be)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_dryrun_")
+    env = dict(os.environ,
+               PYTHONPATH=SRC + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    procs = []
+    for i, part in enumerate((cells[2:3], cells[3:4], cells[:2])):
+        out = os.path.join(tmp, f"reports{i}.json")
+        log_f = open(os.path.join(tmp, f"worker{i}.log"), "w")
+        code = (f"import sys; sys.path.insert(0, {ROOT!r}); import chip_smoke;"
+                f" chip_smoke._dryrun_worker(sys.argv[1], sys.argv[2])")
+        procs.append((subprocess.Popen(
+            [sys.executable, "-c", code, json.dumps(part), out], cwd=ROOT,
+            env=env, stdout=log_f, stderr=subprocess.STDOUT), out, log_f))
+    _DRYRUN.update(procs=procs, tmp=tmp, t0=time.time(), cells=cells)
+
+
+def _stop_dryruns() -> None:
+    """End the background traces (if any still run) and remove their
+    files."""
+    import shutil
+    for p, _, log_f in _DRYRUN.get("procs", []):
+        if p.poll() is None:
+            p.kill()
+        p.wait()
+        log_f.close()
+    if _DRYRUN.get("tmp"):
+        shutil.rmtree(_DRYRUN["tmp"], ignore_errors=True)
+    _DRYRUN.clear()
+
+
+def _dryrun_reports() -> dict:
+    """Wait (at most `DRYRUN_WAIT_S`) for the background traces; their
+    reports by cell key."""
+    check(bool(_DRYRUN), "dryrun: the background traces were not started")
+    deadline = time.time() + DRYRUN_WAIT_S
+    out = {}
+    for p, path, log_f in _DRYRUN["procs"]:
+        try:
+            rc = p.wait(timeout=max(deadline - time.time(), 1.0))
+        except subprocess.TimeoutExpired:
+            rc = None
+        log_f.flush()
+        tail = open(log_f.name).read()[-3000:]
+        what = "timed out" if rc is None else f"exited {rc}"
+        check(rc == 0, f"dryrun: a trace worker {what}:\n{tail}")
+        with open(path) as f:
+            out.update(json.load(f))
+    return out
+
+
+def _pos_finite(x) -> bool:
+    """A positive finite number (NaN fails ``x > 0``)."""
+    return isinstance(x, (int, float)) and 0 < x < float("inf")
+
+
+def _dryrun_one_device_step(cfg, B: int, S: int, n_micro: int) -> dict:
+    """One step of phase 10's cell here, when phase 10 did not run: the
+    peak over what was allocated before, and the profiler's FLOPs."""
+    import torch
+
+    from repro_torch.models.lm import LMModel, make_train_step
+    from repro_torch.optim.adamw import AdamWConfig, adamw_init
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated() / 1e9
+    params = LMModel.create(cfg, seed=0, device=DEVICE).params
+    state = adamw_init(params)
+    batch = _lm_batch(cfg, B, S, seed=0, device=DEVICE)
+    step = make_train_step(cfg, AdamWConfig(), n_micro=n_micro).step
+    _, state, _ = step(params, state, batch)
+    _sync()
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    flops = _profile_flops(lambda: step(params, state, batch))
+    del params, state, batch
+    torch.cuda.empty_cache()
+    return {"peak_gb": peak, "base_gb": base,
+            "profiler_product_flops": flops}
+
+
+def _dryrun_mesh_step(cfg, B: int, S: int) -> dict:
+    """One step of phase 14 (b)'s cell here, when phase 14 did not run:
+    each rank's allocation before and peak during it, its parameter and
+    moment slices and its collective counter over the step."""
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models.lm import LMModel, make_train_step
+    from repro_torch.nn.transformer import lm_param_specs
+    from repro_torch.optim.adamw import AdamWConfig, adamw_init
+    from repro_torch.runtime.elastic import reshard
+    mesh = make_mesh(MT_SHAPE_BF16, MT_AXES, device=DEVICE,
+                     dist_backend=_dist_backend())
+    group = mesh.group
+    model = LMModel.create(cfg, seed=5, device=DEVICE)
+    fns = make_train_step(cfg, AdamWConfig(), mesh=mesh, n_micro=MT_N_MICRO,
+                          param_specs=lm_param_specs(cfg),
+                          params_shape=model.params)
+    hp = reshard(model.params, mesh, fns.step.pspecs)
+    ho = reshard(adamw_init(model.params), mesh, fns.step.ospecs)
+    batch = _mt_batch(cfg, B, S, seed=6)
+    del model
+    mem0 = group.memory(reset=True)
+    group.collectives(reset=True)
+    fns.step(hp, ho, batch)
+    coll = group.collectives(reset=True)
+    mem = group.memory()
+    rec = {"rank_peak_gb": [x["peak_gb"] for x in mem],
+           "rank_base_gb": [x["allocated_gb"] for x in mem0],
+           "rank_args_gb": (hp.nbytes + ho.nbytes) / mesh.size / 1e9,
+           "rank_collectives": coll}
+    hp.drop()
+    ho.drop()
+    return rec
+
+
+def dryrun(detail: dict) -> dict:
+    """Phase 15: the dry-run tier (`launch/dryrun_lib.py`, `launch/cost.py`)
+    held against the card, and two production cells priced.  The traces
+    run in background processes started with the smoke (they need no
+    card); this phase collects them."""
+    import dataclasses
+
+    from repro_torch import configs
+    from repro_torch.kernels import selective_scan as ss
+    t_phase = time.time()
+    _reset_counts()
+    reports = _dryrun_reports()
+    rec = {"wait_s": time.time() - t_phase,
+           "traced_s": time.time() - _DRYRUN["t0"],
+           "card": detail.get("card"), "cells": {}}
+    log(f"dryrun: {len(reports)} cells traced in the background "
+        f"({rec['traced_s']:.1f}s since they started; this phase waited "
+        f"{rec['wait_s']:.1f}s); card: {rec['card']}")
+    be = _dist_backend()
+    h2o = configs.get_arch("h2o-danube-1.8b").full()
+
+    # (a) the dry-run against the card
+    a = reports["lm-train"]
+    lt = detail.get("lm_train")
+    if lt is None:
+        cell = next(c for c in _DRYRUN["cells"] if c["key"] == "lm-train")
+        so = cell["shape_override"]
+        lt = _dryrun_one_device_step(
+            dataclasses.replace(h2o, n_layers=LM_TRAIN_LAYERS),
+            so["global_batch"], so["seq_len"], cell["n_micro"])
+    pred = a["memory"]["total_bytes"] / 1e9
+    meas = lt["peak_gb"] - lt["base_gb"]
+    prof_flops = lt["profiler_product_flops"]
+    one = {"pred_gb": pred, "meas_gb": meas, "rel": pred / meas - 1,
+           "pred_collective_bytes": a["collectives"]["total_bytes"],
+           "meas_collective_bytes": 0,
+           "pred_product_flops": a["cost"]["product_flops"],
+           "profiler_flops": prof_flops, "trace_s": a["trace_s"]}
+    rec["cells"]["lm-train"] = one
+    log(f"  (a) phase 10's cell (h2o-danube-1.8b, {LM_TRAIN_LAYERS} layers, "
+        f"one rank, n_micro {a['n_micro']}): predicted peak "
+        f"{pred:.3f} GB ({a['memory']['argument_bytes'] / 1e9:.3f} arguments "
+        f"+ {a['memory']['peak_bytes'] / 1e9:.3f} step) vs measured "
+        f"{meas:.3f} GB ({one['rel']:+.2%}); collective bytes "
+        f"{one['pred_collective_bytes']} vs 0 (one device); product FLOPs "
+        f"{one['pred_product_flops']:.5g} vs torch.profiler's "
+        f"{prof_flops:.5g}; traced in {a['trace_s']:.1f}s")
+    check(abs(one["rel"]) <= DRYRUN_PEAK_TOL, f"dryrun: phase 10's peak "
+          f"{pred:.3f} GB predicted vs {meas:.3f} GB measured")
+    check(one["pred_collective_bytes"] == 0, "dryrun: one rank predicted "
+          "collectives")
+
+    b = reports["lm-mesh-train"]
+    mt = (detail.get("lm_mesh_train") or {}).get("bf16")
+    if mt is None:
+        layers, B, S = MT_BF16[be]
+        mt = _dryrun_mesh_step(dataclasses.replace(h2o, n_layers=layers),
+                               B, S)
+    r = b["rank"]
+    pred = b["memory"]["total_bytes"] / 1e9
+    meas = mt["rank_args_gb"] + mt["rank_peak_gb"][r] - mt["rank_base_gb"][r]
+    got = mt["rank_collectives"][r]
+    mesh_rec = {"pred_gb": pred, "meas_gb": meas, "rel": pred / meas - 1,
+                "rank": r, "pred_by_kind": b["collectives"]["by_kind"],
+                "meas_by_kind": got["by_kind"],
+                "pred_counts": b["collectives"]["counts"],
+                "meas_counts": got["counts"], "trace_s": b["trace_s"]}
+    rec["cells"]["lm-mesh-train"] = mesh_rec
+    log(f"  (a) phase 14 (b)'s cell ({MT_BF16[be][0]} layers, B "
+        f"{MT_BF16[be][1]} x S {MT_BF16[be][2]} on {MT_SHAPE_BF16}, {be}), "
+        f"rank {r}: predicted peak {pred:.3f} GB ("
+        f"{b['memory']['argument_bytes'] / 1e9:.3f} arguments + "
+        f"{b['memory']['peak_bytes'] / 1e9:.3f} step, {be}'s reduce-scatter "
+        f"staging in it) vs measured {meas:.3f} GB "
+        f"({mesh_rec['rel']:+.2%}); collective bytes by kind predicted "
+        f"{b['collectives']['by_kind']} vs the ranks' counter over one step "
+        f"{got['by_kind']}; traced in {b['trace_s']:.1f}s")
+    check(abs(mesh_rec["rel"]) <= DRYRUN_PEAK_TOL, f"dryrun: phase 14's "
+          f"rank peak {pred:.3f} GB predicted vs {meas:.3f} GB measured")
+    check(got["by_kind"] == b["collectives"]["by_kind"]
+          and got["counts"] == b["collectives"]["counts"],
+          f"dryrun: collectives predicted {b['collectives']} vs counted "
+          f"{got}")
+
+    # (b) production cells at full config on the (16, 16) mesh
+    hbm = b["memory"]["hbm_bytes"] / 1e9
+    for arch, shape in DRYRUN_PROD:
+        p = reports[f"{arch} x {shape}"]
+        m, c, rl = p["memory"], p["cost"], p["roofline"]
+        scan = sum(o["calls"] for o in p["ops"] if o["op"] == ss.KERNEL)
+        prod = {"rank_gb": m["total_bytes"] / 1e9, "fits": m["fits"],
+                "flops": c["flops"], "bytes_accessed": c["bytes_accessed"],
+                "collectives": p["collectives"], "roofline": rl,
+                "useful_flops_ratio": p["useful_flops_ratio"],
+                "node_crossing_axes": p["node_crossing_axes"],
+                "params": p["params"], "trace_s": p["trace_s"],
+                "scan_fake_calls": scan}
+        rec["cells"][f"{arch} x {shape}"] = prod
+        log(f"  (b) {arch} x {shape} x {DRYRUN_MESH[0]}: per-rank "
+            f"{prod['rank_gb']:.2f} GB of {hbm:.0f} GB (arguments "
+            f"{m['argument_bytes'] / 1e9:.2f}, step "
+            f"{m['peak_bytes'] / 1e9:.2f}), fits {m['fits']}; FLOPs "
+            f"{c['flops']:.5g}, bytes "
+            f"{c['bytes_accessed']:.5g}; collectives "
+            f"{p['collectives']['by_kind']} over axes "
+            f"{p['collectives']['by_axis']} (crossing nodes: "
+            f"{p['node_crossing_axes']}); compute {rl['t_compute_s']:.4f}s "
+            f"memory {rl['t_memory_s']:.4f}s collective "
+            f"{rl['t_collective_s']:.4f}s, dominant {rl['dominant']}; useful "
+            f"FLOP ratio {p['useful_flops_ratio']:.4f}; scan fake calls "
+            f"{scan}; traced in {p['trace_s']:.1f}s")
+        figs = [m["total_bytes"], c["flops"], c["bytes_accessed"],
+                p["collectives"]["total_bytes"], rl["t_compute_s"],
+                rl["t_memory_s"], rl["t_collective_s"],
+                p["useful_flops_ratio"]]
+        check(all(_pos_finite(x) for x in figs),
+              f"dryrun: {arch} x {shape} gave {figs}")
+    for arch, shape in DRYRUN_PROD:
+        cfg = configs.get_arch(arch).full()
+        want = cfg.repeats * sum(sp.kind == "mamba" for sp in cfg.period) \
+            if configs.SHAPES[shape].kind == "prefill" else 0
+        got = rec["cells"][f"{arch} x {shape}"]["scan_fake_calls"]
+        check(got == want, f"dryrun: {arch} x {shape} took the scan's fake "
+              f"path {got} times, not {want} (one a Mamba layer)")
+    counts = _all_counts()
+    check(not any(counts.values()), f"dryrun: the phase launched {counts}")
+    rec["launches"] = counts
+    rec["scan_fake_calls"] = sum(c["scan_fake_calls"] for c in
+                                 rec["cells"].values()
+                                 if "scan_fake_calls" in c)
+    rec["seconds"] = time.time() - t_phase
+    detail["dryrun"] = rec
+    return rec
+
+
 def _sync() -> None:
     import torch
     if DEVICE == "cuda":
@@ -5004,13 +5413,13 @@ PHASES = {"kernels": kernel_sweeps, "hub": hub_probe, "serving": serving,
           "dynamic": dynamic_plans, "profile": profiling, "scan": scan_checks,
           "lm": lm_serving, "lm-hybrid": lm_hybrid, "lm-train": lm_train,
           "advisor": advisor, "sharded": sharded, "lm-mesh": lm_mesh,
-          "lm-mesh-train": lm_mesh_train}
+          "lm-mesh-train": lm_mesh_train, "dryrun": dryrun}
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--phases", default=",".join(PHASES),
-                    help="comma-separated subset of phases 2-14 to run "
+                    help="comma-separated subset of phases 2-15 to run "
                          f"({', '.join(PHASES)}; default all); the device "
                          "phase always runs")
     ap.add_argument("--scan-variants", default="",
@@ -5042,6 +5451,8 @@ def main(argv=None) -> int:
     sys.path.insert(0, SRC)
     detail: dict = {}
     try:
+        if "dryrun" in phases:          # host work: beside every phase
+            _start_dryruns(_dist_backend())
         t0 = time.time()
         smi = subprocess.run(
             ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -5077,6 +5488,7 @@ def main(argv=None) -> int:
     finally:
         from repro_torch.distributed.ranks import close_groups
         close_groups()
+        _stop_dryruns()
 
     from repro_torch.kernels import selective_scan as ss
     from repro_torch.kernels.group_aggregate import (
@@ -5128,7 +5540,9 @@ def main(argv=None) -> int:
             **({"launches_sharded": done["sharded"]["launches"].get(kname, 0)}
                if "sharded" in done else {}),
             **({"launches_mesh_train": done["lm-mesh-train"]["launches"].get(
-                kname, 0)} if "lm-mesh-train" in done else {})})
+                kname, 0)} if "lm-mesh-train" in done else {}),
+            **({"launches_dryrun": done["dryrun"]["launches"].get(kname, 0)}
+               if "dryrun" in done else {})})
     for variant, rname in EDGE_GRAD_RECORDS.items():
         if rname not in at_training:
             continue
@@ -5164,7 +5578,10 @@ def main(argv=None) -> int:
                if "sharded" in done else {}),
             **({"launches_mesh_train": done["lm-mesh-train"]["launches"].get(
                 EDGE_GRAD_KERNEL_OF_VARIANT[variant], 0)}
-               if "lm-mesh-train" in done else {})})
+               if "lm-mesh-train" in done else {}),
+            **({"launches_dryrun": done["dryrun"]["launches"].get(
+                EDGE_GRAD_KERNEL_OF_VARIANT[variant], 0)}
+               if "dryrun" in done else {})})
     if "scan" in done:
         checks = list(done["scan"].values())
         rec = done["scan"][SCAN_TIMED]
@@ -5194,7 +5611,11 @@ def main(argv=None) -> int:
             **({"launches_sharded": done["sharded"]["launches"].get(
                 ss.KERNEL, 0)} if "sharded" in done else {}),
             **({"launches_mesh_train": done["lm-mesh-train"]["launches"].get(
-                ss.KERNEL, 0)} if "lm-mesh-train" in done else {})})
+                ss.KERNEL, 0)} if "lm-mesh-train" in done else {}),
+            **({"launches_dryrun": done["dryrun"]["launches"].get(
+                ss.KERNEL, 0),
+                "dryrun_fake_calls": done["dryrun"]["scan_fake_calls"]}
+               if "dryrun" in done else {})})
     detail["kernels"] = kernels
     out_dir = os.path.join(ROOT, "chiprun_out")
     if os.path.isdir(out_dir):

@@ -46,7 +46,14 @@ The collective helpers (`all_gather_rows`, `reduce_scatter_rows`,
 process group of one mesh axis (``group=``).  With `collective_timing`
 on they record each collective's span (CUDA events on the card, the host
 clock on the CPU), so a step's time in collectives can be read apart
-from the kernels' (`collective_ms`).
+from the kernels' (`collective_ms`).  They also count, always, each
+collective's operand bytes and calls by kind (`collective_bytes`), by
+the reference's rule (`src/repro/launch/hlo_analysis.py:50`: the bytes
+of the operand a rank sends in, each transfer counted once): an
+all-gather counts this rank's slice, a reduce-scatter and an all-reduce
+the whole tensor it puts in.  The dry-run
+(`repro_torch.launch.dryrun_lib`) reads the same counter over a traced
+step.
 
 Axis groups (`AxisGroups`, for `repro_torch.launch.mesh`): the group's
 ranks laid out row-major on a mesh of shape ``(..., data, model)``.
@@ -117,12 +124,13 @@ import numpy as np
 import torch
 import torch.multiprocessing  # noqa: F401  registers the CUDA IPC reductions
 
-__all__ = ["AxisGroups", "DIST_BACKENDS", "Rank", "RankError",
-           "RankGroup", "all_gather_rows", "all_reduce_", "check_dist_backend",
-           "close_groups", "collective_ms", "collective_timing", "copy_to",
-           "current_rank", "default_dist_backend", "from_wire",
-           "gather_from", "reduce_from", "reduce_scatter_rows",
-           "scatter_to", "shard_group", "to_wire"]
+__all__ = ["AxisGroups", "COLLECTIVE_KINDS", "DIST_BACKENDS", "Rank",
+           "RankError", "RankGroup", "all_gather_rows", "all_reduce_",
+           "check_dist_backend", "close_groups", "collective_bytes",
+           "collective_bytes_by_group", "collective_ms",
+           "collective_timing", "copy_to", "current_rank",
+           "default_dist_backend", "from_wire", "gather_from", "reduce_from",
+           "reduce_scatter_rows", "scatter_to", "shard_group", "to_wire"]
 
 DIST_BACKENDS = ("nccl", "gloo")
 INIT_TIMEOUT_S = 180.0
@@ -261,11 +269,11 @@ def current_rank() -> Rank:
 
 def _group_for(t: torch.Tensor, group=None):
     """The process group for a collective on ``t``: ``group`` when given,
-    else the default group, or under NCCL the gloo side group for a CPU
-    tensor."""
-    if group is not None:
+    else the default group, or inside a rank under NCCL the gloo side
+    group for a CPU tensor."""
+    if group is not None or _RANK is None:
         return group
-    return None if t.is_cuda else current_rank().host_group
+    return None if t.is_cuda else _RANK.host_group
 
 
 class _Span:
@@ -309,6 +317,40 @@ def collective_ms() -> float:
     return sum(a.elapsed_time(b) for a, b in _TIMING)
 
 
+COLLECTIVE_KINDS = ("all-gather", "all-reduce", "reduce-scatter",
+                    "all-to-all", "collective-permute")
+_BYTES = dict.fromkeys(COLLECTIVE_KINDS, 0)
+_CALLS = dict.fromkeys(COLLECTIVE_KINDS, 0)
+_BY_GROUP: dict = {}                # process group (None: world) -> bytes
+
+
+def _count(kind: str, x: torch.Tensor, group) -> None:
+    n = x.numel() * x.element_size()
+    _BYTES[kind] += n
+    _CALLS[kind] += 1
+    _BY_GROUP[group] = _BY_GROUP.get(group, 0) + n
+
+
+def collective_bytes(reset: bool = False) -> dict:
+    """This process's collective operand bytes and calls by kind since the
+    last reset, in the reference's form (``by_kind``, ``counts``,
+    ``total_bytes``; `src/repro/launch/hlo_analysis.py:collective_bytes`);
+    ``reset`` zeroes them after reading."""
+    out = {"by_kind": dict(_BYTES), "counts": dict(_CALLS),
+           "total_bytes": sum(_BYTES.values())}
+    if reset:
+        for k in COLLECTIVE_KINDS:
+            _BYTES[k] = _CALLS[k] = 0
+        _BY_GROUP.clear()
+    return out
+
+
+def collective_bytes_by_group() -> dict:
+    """This process's collective operand bytes by process group (None:
+    the default group) since the last reset."""
+    return dict(_BY_GROUP)
+
+
 def all_gather_rows(x: torch.Tensor, group=None) -> torch.Tensor:
     """Every rank's ``x`` (n, ...) stacked in rank order: (P n, ...), over
     the whole group or over ``group``."""
@@ -317,6 +359,7 @@ def all_gather_rows(x: torch.Tensor, group=None) -> torch.Tensor:
     world = dist.get_world_size(g)
     x = x.contiguous()
     out = x.new_empty((world * x.shape[0],) + tuple(x.shape[1:]))
+    _count("all-gather", x, g)
     with _Span():
         dist.all_gather_into_tensor(out, x, group=g)
     return out
@@ -333,6 +376,7 @@ def reduce_scatter_rows(x: torch.Tensor, group=None) -> torch.Tensor:
         raise ValueError(f"{x.shape[0]} rows do not split over {world} "
                          f"ranks")
     out = x.new_empty((x.shape[0] // world,) + tuple(x.shape[1:]))
+    _count("reduce-scatter", x, g)
     with _Span():
         dist.reduce_scatter_tensor(out, x, group=g)
     return out
@@ -344,8 +388,10 @@ def all_reduce_(x: torch.Tensor, op: str = "sum",
     whole group or over ``group``; returns x."""
     import torch.distributed as dist
     rop = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX}[op]
+    g = _group_for(x, group)
+    _count("all-reduce", x, g)
     with _Span():
-        dist.all_reduce(x, op=rop, group=_group_for(x, group))
+        dist.all_reduce(x, op=rop, group=g)
     return x
 
 
@@ -632,6 +678,10 @@ def _r_launches(r: Rank, reset: bool) -> dict:
     return out
 
 
+def _r_collectives(r: Rank, reset: bool) -> dict:
+    return collective_bytes(reset)
+
+
 def _r_drop(r: Rank, key) -> None:
     r.state.pop(key, None)
     if r.device.type == "cuda":
@@ -789,6 +839,11 @@ class RankGroup:
         """Every rank's kernel launch counters (and zero them with
         ``reset``)."""
         return self.run(_r_launches, None, reset)
+
+    def collectives(self, reset: bool = False) -> list:
+        """Every rank's `collective_bytes` (and zero them with
+        ``reset``)."""
+        return self.run(_r_collectives, None, reset)
 
     def memory(self, reset: bool = False) -> list:
         """Every rank's allocated and peak device GB (and reset the peak

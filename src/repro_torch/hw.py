@@ -4,9 +4,11 @@ model, the tuner's feasibility check and the roofline bounds.
 Port of `src/repro/hw.py`: the port targets Hopper, so the spec below
 replaces the reference's accelerator record.  Every figure is from
 NVIDIA's H100 data sheet (SXM part, dense rates, full 700 W power limit)
-and the Hopper tuning guide, and the special-function rate from the CUDA C++
-Programming Guide's arithmetic-instruction throughput table; none is a
-measurement.  A card set below
+and the Hopper tuning guide, the special-function rate from the CUDA C++
+Programming Guide's arithmetic-instruction throughput table, and the
+link rates the dry-run's collective term prices (NVLink within an
+8-card node, InfiniBand NDR across nodes) from the DGX H100 user guide;
+none is a measurement.  A card set below
 700 W runs slower under load — `chip_smoke.py` prints the card's power
 limit beside every time it reports.
 """
@@ -30,6 +32,11 @@ class GPUSpec:
     # per clock per SM x SMs x boost clock
     peak_sfu: float
     smem_per_sm: int            # bytes of shared memory one SM holds
+    # collective links, bytes/s a card each way: within a node of
+    # `node_cards` cards, and across nodes
+    link_bw_intra: float
+    link_bw_inter: float
+    node_cards: int
 
 
 H100_SXM = GPUSpec(
@@ -46,4 +53,12 @@ H100_SXM = GPUSpec(
     peak_sfu=16 * 132 * 1.98e9,
     # 228 KB a multiprocessor (Hopper tuning guide)
     smem_per_sm=233_472,
+    # NVLink 4: 18 links of 50 GB/s (both ways) a card, 900 GB/s, so 450
+    # GB/s each way, all to all through NVSwitch in an 8-card HGX H100
+    # node (H100 data sheet; DGX H100 user guide)
+    link_bw_intra=450e9,
+    # InfiniBand NDR: one 400 Gb/s ConnectX-7 port a card, 50 GB/s each
+    # way, between nodes (DGX H100 user guide, "Networking")
+    link_bw_inter=50e9,
+    node_cards=8,
 )

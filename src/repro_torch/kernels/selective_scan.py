@@ -19,11 +19,19 @@ every plain call adds one to its count in `launches`.  The kernel has no
 backward, as the reference's Pallas kernel has none: on either device the
 wrapper raises `NotImplementedError` when grad mode is on and an input
 requires a gradient (training takes the chunked path, ``fused_scan="off"``).
+
+Fake tensors (`torch._subclasses.fake_tensor`, the dry-run's) stand for
+card tensors and hold no memory: on either device, after the same
+argument checks, the wrapper returns an empty (B, S, d_inner) float32
+without building or launching anything and adds to no count; it tells
+each callable in `cost_sinks` the kernel's work instead (`kernel_cost`),
+which `repro_torch.launch.cost` prices.  Only a fake tensor takes that
+branch: a real CUDA tensor still launches or raises.
 """
 from __future__ import annotations
 
 import ctypes
-from typing import Dict
+from typing import Callable, Dict, List
 
 import torch
 
@@ -31,8 +39,9 @@ from repro_torch.kernels import build
 from repro_torch.kernels.build import bind, check_arg, raise_on
 from repro_torch.kernels.ref import selective_scan_ref
 
-__all__ = ["KERNEL", "PLAIN", "launches", "refuse_grad", "reset_launches",
-           "selective_scan", "selective_scan_plain"]
+__all__ = ["KERNEL", "PLAIN", "cost_sinks", "kernel_cost", "launches",
+           "refuse_grad", "reset_launches", "selective_scan",
+           "selective_scan_plain"]
 
 KERNEL = "selective_scan"
 PLAIN = "selective_scan_ref"
@@ -40,6 +49,16 @@ MAX_STATE = 32                 # states per channel the kernel holds
 MAX_BATCH = 65535              # grid.y
 
 launches: Dict[str, int] = {KERNEL: 0, PLAIN: 0}
+# callables ``sink(name, flops, nbytes)`` told of each fake-tensor call
+cost_sinks: List[Callable] = []
+
+
+def kernel_cost(bsz: int, seq: int, di: int, n: int) -> tuple:
+    """``(flops, bytes)`` of one call, as the kernel table's bound counts
+    them: each float32 input read once and ``y`` written once, about 7
+    FLOP per (b, t, d, n)."""
+    nbytes = 4 * (3 * bsz * seq * di + 2 * bsz * seq * n + di * n + 2 * di)
+    return 7 * bsz * seq * di * n, nbytes
 
 
 def reset_launches() -> None:
@@ -55,6 +74,11 @@ def refuse_grad(*tensors: torch.Tensor) -> None:
             f"{KERNEL} has no backward (the reference's Pallas scan has "
             f"none either); train Mamba layers on the chunked path "
             f"(MambaParams(fused_scan='off')) or call under torch.no_grad()")
+
+
+def _is_fake(t: torch.Tensor) -> bool:
+    from torch._subclasses.fake_tensor import is_fake
+    return is_fake(t)
 
 
 def selective_scan_plain(xc, dt_raw, b, c, a_log, dt_bias,
@@ -75,7 +99,8 @@ def selective_scan(xc: torch.Tensor, dt_raw: torch.Tensor, b: torch.Tensor,
     on one device.  Returns y (B, S, d_inner) float32.  Raises
     `NotImplementedError` under autograd (see the module docstring)."""
     refuse_grad(xc, dt_raw, b, c, a_log, dt_bias, d_skip)
-    if not xc.is_cuda:
+    fake = _is_fake(xc)
+    if not xc.is_cuda and not fake:
         return selective_scan_plain(xc, dt_raw, b, c, a_log, dt_bias, d_skip)
     if xc.dim() != 3 or b.dim() != 3:
         raise ValueError(f"xc and b must be 3-D, got {tuple(xc.shape)} and "
@@ -97,6 +122,11 @@ def selective_scan(xc: torch.Tensor, dt_raw: torch.Tensor, b: torch.Tensor,
         raise ValueError(f"{KERNEL} takes at most {MAX_BATCH} batch rows, "
                          f"got {bsz}")
     y = torch.empty((bsz, seq, di), dtype=f32, device=dev)
+    if fake:
+        flops, nbytes = kernel_cost(bsz, seq, di, n)
+        for sink in cost_sinks:
+            sink(KERNEL, flops, nbytes)
+        return y
     if y.numel() == 0:
         return y
     lib = build.load(KERNEL)

@@ -29,7 +29,11 @@ capacity over each rank's tokens (the mesh rule); the reference's
 decode counts it over the whole batch, which gives the same result
 wherever no choice is dropped: at most 8 tokens a rank a step, since a
 capacity is at least 8.  ``step.timing = True`` records each rank's
-span and its time in collectives in ``step.last_stats``.
+span and its time in collectives in ``step.last_stats``.  A rank's work
+in each step is one function of its `AxisGroups`, its slices and the
+batch that returns tensors (`rank_train`, `rank_prefill`,
+`rank_decode`): the ranks call it, and `repro_torch.launch.dryrun_lib`
+traces it on fake tensors.
 
 ``backend="cuda"`` prefills the Mamba slots through the hand-written scan
 kernel, ``"torch"`` through its plain version (on the card too, for the
@@ -68,6 +72,7 @@ from repro_torch.optim.adamw import (AdamWConfig, OptState, adamw_update,
 __all__ = ["LMModel", "TrainStepFns", "decode_cache_specs",
            "make_train_step", "make_prefill_step", "make_decode_step",
            "lm_params_from_jax", "lm_params_to_jax", "opt_state_specs",
+           "prefill_kv_specs", "rank_decode", "rank_prefill", "rank_train",
            "train_config", "weight_decay_mask"]
 
 _TORCH_DTYPE = {"float32": torch.float32, "bfloat16": torch.bfloat16,
@@ -130,13 +135,16 @@ def weight_decay_mask(params: dict) -> dict:
     return mask(params, False)
 
 
-def _batch_specs(cfg: LMConfig, mesh) -> dict:
+def _batch_specs(cfg: LMConfig, mesh, mask: bool = False) -> dict:
     """`PartitionSpec`s of the training batch dict (the reference's
-    `src/repro/models/lm.py:69`): every leaf's rows over (pod, data)."""
+    `src/repro/models/lm.py:69`): every leaf's rows over (pod, data);
+    ``mask`` adds the mask's."""
     if mesh is None:
         return {}
     b = batch_axes_for(mesh)
     specs = {"labels": P(b, None), "pos": P(b, None)}
+    if mask:
+        specs["mask"] = P(b, None)
     if cfg.rope == "mrope":
         specs["pos"] = P(b, None, None)
     if cfg.frontend == "tokens":
@@ -332,19 +340,44 @@ class _RankClock:
             collective_timing(False)
 
 
+def rank_prefill(mesh, lp, inputs: torch.Tensor, pos: torch.Tensor, *,
+                 cfg: LMConfig, backend: str, kv_specs):
+    """The prefill step's work on a rank, tensors in and out: ``mesh`` its
+    `AxisGroups`, ``lp`` its `Local` slice of the parameters, ``inputs``
+    / ``pos`` the whole batch (the rank takes its rows).  Returns (its
+    rows' last-token logits, whole over ``model``; its slices of
+    ``kvs`` by ``kv_specs``)."""
+    from repro_torch.nn.tensor_parallel import lm_prefill_tp
+    bspec = P(batch_axes_for(mesh))
+    inputs, pos = constrain(inputs, mesh, bspec), constrain(pos, mesh, bspec)
+    with torch.no_grad():
+        return lm_prefill_tp(lp, cfg, mesh, inputs, pos, backend=backend,
+                             kv_specs=kv_specs)
+
+
+def rank_decode(mesh, lp, cache, tok: torch.Tensor, t: int, *,
+                cfg: LMConfig) -> torch.Tensor:
+    """The decode step's work on a rank: ``cache`` its `Local` slice of
+    the cache (written in place), ``tok`` the whole batch's tokens.
+    Returns its rows' logits, whole over ``model``."""
+    from repro_torch.nn.tensor_parallel import lm_decode_tp
+    tok = constrain(tok, mesh, P(batch_axes_for(mesh)))
+    with torch.no_grad():
+        return lm_decode_tp(lp, cfg, mesh, cache, tok, t)
+
+
 def _r_prefill(r, mesh_key: str, params_key: str, kv_key: str, cfg,
                backend: str, inputs_w, pos_w, kv_specs, timing: bool):
     from repro_torch.distributed.ranks import from_wire, to_wire
     from repro_torch.distributed.sharding import Local
-    from repro_torch.nn.tensor_parallel import MODEL, lm_prefill_tp
+    from repro_torch.nn.tensor_parallel import MODEL
     set_matmul_precision()
     mesh = r.state[mesh_key]
-    bspec = P(batch_axes_for(mesh))
-    inputs = constrain(from_wire(inputs_w, r.device), mesh, bspec)
-    pos = constrain(from_wire(pos_w, r.device), mesh, bspec)
-    with torch.no_grad(), _RankClock(r, timing) as clock:
-        logits, kvs = lm_prefill_tp(r.state[params_key], cfg, mesh, inputs,
-                                    pos, backend=backend, kv_specs=kv_specs)
+    inputs, pos = from_wire(inputs_w, r.device), from_wire(pos_w, r.device)
+    with _RankClock(r, timing) as clock:
+        logits, kvs = rank_prefill(mesh, r.state[params_key], inputs, pos,
+                                   cfg=cfg, backend=backend,
+                                   kv_specs=kv_specs)
     r.state[kv_key] = Local(kvs, kv_specs, mesh)
     return (to_wire(logits) if mesh.index(MODEL) == 0 else None,
             clock.stats)
@@ -353,14 +386,13 @@ def _r_prefill(r, mesh_key: str, params_key: str, kv_key: str, cfg,
 def _r_decode(r, mesh_key: str, params_key: str, cache_key: str, cfg,
               tok_w, t: int, timing: bool):
     from repro_torch.distributed.ranks import from_wire, to_wire
-    from repro_torch.nn.tensor_parallel import MODEL, lm_decode_tp
+    from repro_torch.nn.tensor_parallel import MODEL
     set_matmul_precision()
     mesh = r.state[mesh_key]
-    tok = constrain(from_wire(tok_w, r.device), mesh,
-                    P(batch_axes_for(mesh)))
-    with torch.no_grad(), _RankClock(r, timing) as clock:
-        logits = lm_decode_tp(r.state[params_key], cfg, mesh,
-                              r.state[cache_key], tok, t)
+    tok = from_wire(tok_w, r.device)
+    with _RankClock(r, timing) as clock:
+        logits = rank_decode(mesh, r.state[params_key], r.state[cache_key],
+                             tok, t, cfg=cfg)
     return (to_wire(logits) if mesh.index(MODEL) == 0 else None,
             clock.stats)
 
@@ -379,6 +411,18 @@ class _MeshStep:
         return join_batch(self.mesh, batch_axes_for(self.mesh), parts, batch)
 
 
+def prefill_kv_specs(cfg: LMConfig, mesh, batch: int, seq: int):
+    """``(shapes, specs)`` of the mesh prefill's ``kvs``: meta tensors
+    (R, B, S, K, hd) per attention slot (None per Mamba slot) and their
+    pruned `decode_cache_specs`."""
+    kv = torch.empty((cfg.repeats, batch, seq, cfg.n_kv, cfg.head_dim),
+                     device="meta")
+    shapes = tuple((kv, kv) if spec.kind == "attn" else None
+                   for spec in cfg.period)
+    return shapes, prune_specs_for_mesh(
+        mesh, decode_cache_specs(cfg, mesh, shapes), shapes)
+
+
 class _MeshPrefill(_MeshStep):
     """The mesh prefill: ``(params, inputs, pos) -> (logits, kvs)``."""
 
@@ -392,12 +436,7 @@ class _MeshPrefill(_MeshStep):
         cfg, mesh = self.cfg, self.mesh
         handle = _on_ranks(params, mesh, self.pspecs)
         B, S = inputs.shape[:2]
-        kv = torch.empty((cfg.repeats, B, S, cfg.n_kv, cfg.head_dim),
-                         device="meta")
-        shapes = tuple((kv, kv) if spec.kind == "attn" else None
-                       for spec in cfg.period)
-        kv_specs = prune_specs_for_mesh(
-            mesh, decode_cache_specs(cfg, mesh, shapes), shapes)
+        shapes, kv_specs = prefill_kv_specs(cfg, mesh, B, S)
         kv_key = mesh.group.new_key("kv")
         got = mesh.group.run(_r_prefill, None, mesh.key, handle.key, kv_key,
                              cfg, self.backend, to_wire(inputs), to_wire(pos),
@@ -427,41 +466,54 @@ class _MeshDecode(_MeshStep):
         return self._logits(got, tok.shape[0], tok.device), cache
 
 
+def rank_train(mesh, lp, lo, batch: dict, *, cfg: LMConfig,
+               opt: AdamWConfig, n_micro: int, bspecs: dict,
+               donate: bool = True):
+    """The train step's work on a rank, tensors in and out: its slices of
+    the gradient (the loss of its rows of each micro-batch, the FSDP
+    reduce-scatters in the backward, the sums over the batch axes after),
+    the whole gradient's norm, and AdamW on its slices of the parameters
+    ``lp`` and moments ``lo`` (`Local`), in place with ``donate``, else
+    into new tensors.  ``batch`` is the whole batch.  Returns (new
+    parameters, new optimizer state, the whole batch's metrics as 0-d
+    tensors)."""
+    from repro_torch.distributed.accumulate import \
+        accumulate_gradients_on_ranks
+    from repro_torch.nn.tensor_parallel import lm_loss_tp
+    from repro_torch.optim.adamw import global_norm
+    grads, _loss, metrics = accumulate_gradients_on_ranks(
+        lambda local, mb, rep: lm_loss_tp(local, cfg, mesh, mb, rep=rep),
+        lp, batch, n_micro, bspecs)
+    gn = global_norm(grads, specs=lp.specs, mesh=mesh)
+    update = adamw_update_ if donate else adamw_update
+    new_p, new_o, opt_metrics = update(
+        opt, grads, lo.tree, lp.tree, decay=weight_decay_mask(lp.tree),
+        norm=gn)
+    del grads
+    return new_p, new_o, dict(metrics, **opt_metrics)
+
+
 def _r_train(r, mesh_key: str, params_key: str, opt_key: str, out_keys,
              cfg, opt: AdamWConfig, n_micro: int, batch_w: dict,
              bspecs: dict, timing: bool):
-    """The train step on a rank: its slices of the gradient (the loss of
-    its rows of each micro-batch, the FSDP reduce-scatters in the
-    backward, the sums over the batch axes after), the whole gradient's
-    norm, and AdamW on its slices of the parameters and moments, in
-    place (``out_keys`` None) or into new tensors kept under
-    ``out_keys``.  Returns (the whole batch's metrics, clock stats)."""
-    from repro_torch.distributed.accumulate import \
-        accumulate_gradients_on_ranks
+    """`rank_train` on a rank's slices, in place (``out_keys`` None) or
+    into new tensors kept under ``out_keys``.  Returns (the whole batch's
+    metrics, clock stats)."""
     from repro_torch.distributed.ranks import from_wire
     from repro_torch.distributed.sharding import Local
-    from repro_torch.nn.tensor_parallel import lm_loss_tp
-    from repro_torch.optim.adamw import global_norm
     set_matmul_precision()
     mesh = r.state[mesh_key]
     lp, lo = r.state[params_key], r.state[opt_key]
     batch = {k: from_wire(v, r.device) for k, v in batch_w.items()}
     with _RankClock(r, timing) as clock:
-        grads, _loss, metrics = accumulate_gradients_on_ranks(
-            lambda local, mb, rep: lm_loss_tp(local, cfg, mesh, mb, rep=rep),
-            lp, batch, n_micro, bspecs)
-        gn = global_norm(grads, specs=lp.specs, mesh=mesh)
-        update = adamw_update_ if out_keys is None else adamw_update
-        new_p, new_o, opt_metrics = update(
-            opt, grads, lo.tree, lp.tree, decay=weight_decay_mask(lp.tree),
-            norm=gn)
-        del grads
+        new_p, new_o, metrics = rank_train(
+            mesh, lp, lo, batch, cfg=cfg, opt=opt, n_micro=n_micro,
+            bspecs=bspecs, donate=out_keys is None)
     if out_keys is None:
         lo.tree = new_o
     else:
         r.state[out_keys[0]] = Local(new_p, lp.specs, mesh)
         r.state[out_keys[1]] = Local(new_o, lo.specs, mesh)
-    metrics = dict(metrics, **opt_metrics)
     return {k: float(v) for k, v in metrics.items()}, clock.stats
 
 
@@ -485,9 +537,7 @@ class _MeshTrain(_MeshStep):
                              f"{self.n_micro} micro-batches")
         handle = _on_ranks(params, mesh, self.pspecs)
         o_handle = _on_ranks(opt_state, mesh, self.ospecs)
-        bspecs = dict(_batch_specs(self.cfg, mesh))
-        if "mask" in batch:
-            bspecs["mask"] = P(batch_axes_for(mesh), None)
+        bspecs = _batch_specs(self.cfg, mesh, mask="mask" in batch)
         out_keys = (None if self.donate else
                     (mesh.group.new_key("tree"), mesh.group.new_key("tree")))
         got = mesh.group.run(_r_train, None, mesh.key, handle.key,

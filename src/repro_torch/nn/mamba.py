@@ -193,9 +193,11 @@ def mamba_forward(p: dict, x: torch.Tensor, mp: MambaParams,
     reduce_ssm = reduce if reduce_ssm is None else reduce_ssm
     if mp.fused_scan == "on" and h0 is None and not return_state:
         refuse_grad(x, *p.values())
-        if backend == "cuda" and not x.is_cuda:
+        from torch._subclasses.fake_tensor import is_fake
+        if backend == "cuda" and not x.is_cuda and not is_fake(x):
             raise ValueError("backend='cuda' runs the scan kernel and needs "
-                             "CUDA tensors; use backend='torch' on the CPU")
+                             "CUDA tensors (or the dry-run's fake ones); use "
+                             "backend='torch' on the CPU")
         return _mamba_forward_fused(p, x, mp, backend=backend, reduce=reduce,
                                     reduce_ssm=reduce_ssm)
     bsz, seq, _ = x.shape

@@ -101,7 +101,10 @@ def _moe_local(router_w, wi, wo, x, mp: MoEParams, *, e_offset: int = 0,
     le = top_idx.reshape(-1) - e_offset          # (T*k,) token-major
     valid = (le >= 0) & (le < e_local)
     le = torch.where(valid, le, 0)
-    oh = F.one_hot(le, e_local).to(torch.int32) * valid[:, None]
+    # one-hot written out: `F.one_hot` takes other ops on fake tensors
+    # than on real ones, and the dry-run traces this path
+    oh = ((le[:, None] == torch.arange(e_local, device=le.device))
+          & valid[:, None]).to(torch.int32)
     mypos = (torch.cumsum(oh, dim=0) - 1).gather(1, le[:, None])[:, 0]
     keep = valid & (mypos < C)
 

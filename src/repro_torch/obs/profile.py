@@ -91,7 +91,7 @@ def _cuda_device(out):
 
 def _block(out):
     """Wait for the device work behind ``out`` (no-op off the card); returns
-    ``out`` so calls nest as in the reference."""
+    ``out``."""
     _synchronize(out)
     return out
 
@@ -280,22 +280,25 @@ class ProfileReport:
     dim: int
     backend: str
 
-    def attribution(self) -> dict:
-        """Per-schedule p50 seconds.  Shard rows (none until sharding is
-        ported) would measure the same work differently partitioned, so
-        they are EXCLUDED from the sum-to-total identity."""
-        return {s.schedule: s.measured.p50 for s in self.schedules
-                if "shard" not in s.schedule}
+    def attribution(self, device: bool = False) -> dict:
+        """Per-schedule p50 seconds (``device``: the device-only p50s, on
+        the card).  Shard rows (``profile_plan(shards=)``) measure the
+        same work differently partitioned, so they are EXCLUDED from the
+        sum-to-total identity."""
+        return {s.schedule: (s.measured.device_p50 if device
+                             else s.measured.p50)
+                for s in self.schedules if "shard" not in s.schedule}
 
-    def attribution_error(self) -> float:
+    def attribution_error(self, device: bool = False) -> float:
         """|sum(per-schedule p50) - total p50| / total p50.  Small by
         construction (the total runs the same calls back to back), large
         only when measurement noise swamps the kernels — the signal to
-        distrust this profile."""
-        total = self.total.p50
+        distrust this profile.  ``device`` compares the device-only p50s
+        (on the card), which the host's load does not move."""
+        total = self.total.device_p50 if device else self.total.p50
         if not total or total <= 0:
             return float("nan")
-        return abs(sum(self.attribution().values()) - total) / total
+        return abs(sum(self.attribution(device).values()) - total) / total
 
     def to_rows(self) -> list:
         return [s.to_row() for s in self.schedules]
@@ -387,13 +390,15 @@ def profile_plan(plan, feat=None, *, backend: str = "cuda", device="cuda",
 
     # total: the SAME callables back to back inside one timed call, so its
     # structure matches the per-schedule rows and the attribution identity
-    # holds up to noise
+    # holds up to noise.  It waits for nothing itself (`measure` waits
+    # after each wall sample): a wait inside would put the host's wake-up
+    # into the total's device-only samples, and the two schedules queue
+    # back to back, so those samples hold their device time alone
     if bwd_fn is not None:
         def total_call(x):
-            return _block(bwd_fn(_block(fwd_fn(x))))
+            return bwd_fn(fwd_fn(x))
     else:
-        def total_call(x):
-            return _block(fwd_fn(x))
+        total_call = fwd_fn
     m_total = measure(total_call, feat_t, warmup=warmup, iters=iters)
 
     if shards:
