@@ -369,9 +369,17 @@ Phases, each timed, any failure exits non-zero before the result line:
      parameters and `OptState` moved to (1, 4) by `remesh_state`, 2 more:
      losses within 1e-5 of 4 steps on (2, 2); (d) ``seq_shard_carry`` on
      (1, 4) against the same step without it: loss and gradients within
-     1e-5.  Every kernel counter on every rank and in the caller is
-     zeroed at the start and read at the end: all 0 (training runs no
-     kernel; the scan has no backward).
+     1e-5; (e) attention replicated over ``model``
+     (`nn/tensor_parallel.py:_replicated`): qwen2-vl-2b at full width
+     (d 1536, 12 heads, 2 kv heads, V 151936, d_ff 8960) with 2 of its 28
+     layers, float32, on a (1, 8) mesh of eight gloo ranks on card 0
+     whatever the backend above (eight NCCL ranks would need eight
+     cards): prefill B 2 x S 256 and 8 decode steps from step 0 against
+     the one-device port within 1e-4, one train step's loss,
+     ``grad_norm`` and gradients against one device under (a)'s gate.
+     Every kernel counter on every rank and in the caller is zeroed at
+     the start and read at the end: all 0 (training runs no kernel; the
+     scan has no backward).
   15. dryrun — the dry-run tier (`launch/dryrun_lib.py`, `launch/cost.py`:
      a rank program traced on fake tensors in a fake process group of
      the mesh's size, under a per-op counter).  Its traces run no kernel
@@ -394,8 +402,11 @@ Phases, each timed, any failure exits non-zero before the result line:
      beside `torch.profiler`'s ``with_flops`` over phase 10's profiled
      step; when phase 10 or 14 did not run, one real step of its cell
      runs here.  (b) `DRYRUN_PROD` at full config on ``pod16x16``:
-     qwen3-moe-235b-a22b x train_4k and jamba-v0.1-52b x prefill_32k
-     (through the scan's fake path, one call a Mamba layer): per-rank GB
+     qwen3-moe-235b-a22b x train_4k, jamba-v0.1-52b x prefill_32k
+     (through the scan's fake path, one call a Mamba layer) and
+     gemma2-2b x decode_32k (8 heads on a model axis of 16: attention
+     replicated, so no ``wo`` all-reduce, 3 all-reduces a layer and the
+     embedding's): per-rank GB
      against 80, ``fits``, FLOPs, bytes, collective bytes by kind and by
      axis, the axes crossing 8-card nodes, the three roofline terms and
      the dominant one; finite positive figures.  The caller's kernel
@@ -4789,6 +4800,14 @@ MT_SMALL_BATCH, MT_SMALL_SEQ = 4, 64
 MT_REMESH_STEPS = 2                  # on (2, 2), then as many on (1, 4)
 MT_TRAJ_TOL = 1e-5
 MT_SEQ_TOL = 1e-5
+# (e): attention replicated over ``model``: qwen2-vl-2b at full width (12
+# heads, 2 kv heads: 8 divides neither), float32, 2 of its 28 layers, on
+# (1, 8) gloo ranks on card 0 whatever the transport above (eight NCCL
+# ranks would need eight cards)
+MT_REP_ARCH, MT_REP_LAYERS = "qwen2-vl-2b", 2
+MT_REP_SHAPE = (1, 8)
+MT_REP_BATCH, MT_REP_SEQ, MT_REP_DECODE = 2, 256, 8
+MT_REP_TOL = 1e-4
 
 
 def _mt_batch(cfg, B: int, S: int, seed: int) -> dict:
@@ -4824,6 +4843,148 @@ def _mt_linear_grads(cfg, params, batch, mesh=None, specs=None):
     return grads, metrics
 
 
+def _mt_embeds_batch(cfg, B: int, S: int, seed: int) -> dict:
+    """A numpy-made ``embeds`` batch on the card: frames, token labels,
+    (B, 3, S) M-RoPE positions."""
+    import numpy as np
+    import torch
+    rng = np.random.default_rng(seed)
+    return {"embeds": torch.as_tensor(
+                rng.standard_normal((B, S, cfg.d_model)),
+                dtype=torch.float32, device=DEVICE),
+            "labels": torch.as_tensor(rng.integers(0, cfg.vocab, (B, S)),
+                                      device=DEVICE),
+            "pos": torch.arange(S, device=DEVICE).expand(B, 3, S)
+            .contiguous()}
+
+
+def _mt_replicated() -> dict:
+    """Phase 14 (e): attention replicated over ``model``
+    (`nn/tensor_parallel.py:_replicated`), qwen2-vl-2b at full width on
+    (1, 8) gloo ranks: prefill, decode from step 0 and one train step
+    against the one-device port on the card."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models.lm import (LMModel, make_decode_step,
+                                       make_prefill_step)
+    from repro_torch.nn.transformer import init_lm_cache, lm_param_specs
+    from repro_torch.runtime.elastic import reshard
+
+    t0 = time.time()
+    full = configs.get_arch(MT_REP_ARCH).full()
+    cfg = dataclasses.replace(full, n_layers=MT_REP_LAYERS,
+                              dtype=torch.float32)
+    tp = MT_REP_SHAPE[1]
+    check(cfg.n_heads % tp != 0 and cfg.n_kv % tp != 0,
+          f"{MT_REP_ARCH}'s heads {cfg.n_heads} / {cfg.n_kv} divide {tp}")
+    mesh = make_mesh(MT_REP_SHAPE, MT_AXES, device=DEVICE,
+                     dist_backend="gloo")
+    group = mesh.group
+    rec = {"mesh_start_s": time.time() - t0, "layers": MT_REP_LAYERS,
+           "of_layers": full.n_layers}
+    log(f"  (e) attention replicated over model: {MT_REP_ARCH} at full "
+        f"width (d {cfg.d_model}, H {cfg.n_heads}, K {cfg.n_kv}, V "
+        f"{cfg.vocab:,}, d_ff {cfg.d_ff:,}), {MT_REP_LAYERS} of "
+        f"{full.n_layers} layers, float32, on {MT_REP_SHAPE} over {MT_AXES}: "
+        f"{group.num_shards} gloo ranks on card 0, gloo whatever the "
+        f"transport above picks (eight NCCL ranks would need eight cards); "
+        f"ready in {rec['mesh_start_s']:.1f}s")
+    _mt_rank_counts(group)
+    _reset_counts()
+    params = LMModel.create(cfg, seed=9, device=DEVICE).params
+    specs = lm_param_specs(cfg)
+    B, S = MT_REP_BATCH, MT_REP_SEQ
+    batch = _mt_embeds_batch(cfg, B, S, seed=10)
+
+    # prefill and decode from step 0 against the one-device port
+    prefill, _ = make_prefill_step(cfg, mesh=mesh, param_specs=specs,
+                                   params_shape=params, backend="torch")
+    check(all(sp["attn"]["wq"][1] is None and sp["attn"]["wo"][0] is None
+              for slots in prefill.pspecs["blocks"] for sp in slots),
+          "the pruned specs still split the heads over model")
+    handle = reshard(params, mesh, prefill.pspecs)
+    prefill.timing = True
+    _sync()
+    t1 = time.perf_counter()
+    logits, kvs = prefill(handle, batch["embeds"], batch["pos"])
+    rec["prefill_ms"] = (time.perf_counter() - t1) * 1e3
+    rec["prefill_rank_collective_ms"] = [
+        s["collective_ms"] for s in prefill.last_stats]
+    kvs.drop()
+    with torch.no_grad():
+        want = make_prefill_step(cfg, backend="torch")(
+            params, batch["embeds"], batch["pos"])[0]
+    rec["prefill_err"] = _nerr(logits, want)
+    cache = init_lm_cache(cfg, B, max_seq=S, dtype=torch.float32,
+                          device=DEVICE)
+    decode, _, _ = make_decode_step(cfg, mesh=mesh, param_specs=specs,
+                                    params_shape=params, cache_shape=cache)
+    cache = reshard(cache, mesh, decode.cspecs)
+    frames = batch["embeds"][:, :MT_REP_DECODE]
+    _sync()
+    t1 = time.perf_counter()
+    got = _decode_logits(decode, handle, cache, frames)
+    rec["decode_ms_per_step"] = (time.perf_counter() - t1) * 1e3 \
+        / MT_REP_DECODE
+    cache.drop()
+    handle.drop()
+    want_dec = _decode_logits(
+        make_decode_step(cfg), params,
+        init_lm_cache(cfg, B, max_seq=S, dtype=torch.float32,
+                      device=DEVICE), frames)
+    rec["decode_err"] = max(_nerr(a, b) for a, b in zip(got, want_dec))
+    check(bool(torch.isfinite(logits).all())
+          and tuple(logits.shape) == (B, cfg.vocab)
+          and all(bool(torch.isfinite(g).all()) for g in got),
+          f"replicated mesh logits {tuple(logits.shape)} not finite")
+    log(f"    prefill B {B} x S {S} on the mesh {rec['prefill_ms']:.1f} ms "
+        f"(ranks in collectives " + ", ".join(
+            f"{c:.1f}" for c in rec["prefill_rank_collective_ms"])
+        + f" ms), logits vs one device {rec['prefill_err']:.2e}; "
+        f"{MT_REP_DECODE} decode steps from step 0, "
+        f"{rec['decode_ms_per_step']:.1f} ms a step, worst step vs one "
+        f"device {rec['decode_err']:.2e} (limit {MT_REP_TOL:.0e})")
+    for k in ("prefill_err", "decode_err"):
+        check(rec[k] <= MT_REP_TOL, f"replicated {k} {rec[k]:.3e} > "
+              f"{MT_REP_TOL}")
+    del logits, want, got, want_dec
+
+    # one train step's gradients against one device, phase 14 (a)'s gate
+    got, m_mesh = _mt_linear_grads(cfg, params, batch, mesh, specs)
+    want, m_one = _mt_linear_grads(cfg, params, batch)
+    e = {"loss": _nerr(m_mesh["loss"], m_one["loss"]),
+         "grad_norm": _nerr(m_mesh["grad_norm"], m_one["grad_norm"]),
+         "grads": max(_nerr(a, b) for a, b in zip(got, want))}
+    _ulp_nudge(params, +1)
+    nudged, m_nudged = _mt_linear_grads(cfg, params, batch)
+    _ulp_nudge(params, -1)
+    spread = {"loss": _nerr(m_nudged["loss"], m_one["loss"]),
+              "grad_norm": _nerr(m_nudged["grad_norm"], m_one["grad_norm"]),
+              "grads": max(_nerr(a, b) for a, b in zip(nudged, want))}
+    tol = {k: max(MT_F32_DEFAULT_TOL, MT_F32_SPREAD * v)
+           for k, v in spread.items()}
+    rec.update(train=e, train_tol=tol, train_ulp_spread=spread,
+               loss=float(m_one["loss"]))
+    log(f"    train step, n_micro {MT_N_MICRO}, mesh vs one device (one "
+        f"device under a one-ulp nudge; limit): " + ", ".join(
+            f"{k} {e[k]:.2e} ({spread[k]:.2e}; {tol[k]:.1e})" for k in e))
+    for k, v in e.items():
+        check(v <= tol[k], f"replicated mesh train {k} {v:.3e} > "
+              f"{tol[k]:.3e}")
+    rec["launches"] = _mt_rank_counts(group)
+    group.close()
+    del params, got, want, nudged
+    if DEVICE == "cuda":
+        torch.cuda.empty_cache()
+    rec["seconds"] = time.time() - t0
+    log(f"    (e) took {rec['seconds']:.1f}s")
+    return rec
+
+
 def _mt_rank_counts(group) -> dict:
     """Every kernel counter summed over the ranks (and zeroed)."""
     out: dict = {}
@@ -4840,7 +5001,8 @@ def lm_mesh_train(detail: dict) -> dict:
     cross-entropy, `distributed/accumulate.py` on ranks, the sharded
     AdamW) on four ranks: float32 cells against the one-device step, bf16
     h2o-danube-1.8b at full width, a re-mesh mid-training and
-    ``seq_shard_carry``."""
+    ``seq_shard_carry``; then attention replicated over ``model``
+    (qwen2-vl-2b at full width on eight ranks, `_mt_replicated`)."""
     import dataclasses
 
     import torch
@@ -5050,7 +5212,12 @@ def lm_mesh_train(detail: dict) -> dict:
     for k, v in rec["seq_shard"].items():
         check(v <= MT_SEQ_TOL, f"seq_shard_carry {k} {v:.3e} > {MT_SEQ_TOL}")
 
+    # (e) attention replicated over model, on its own eight ranks
+    rec["replicated"] = _mt_replicated()
+
     ranks = _mt_rank_counts(group)
+    for k, v in rec["replicated"]["launches"].items():
+        ranks[k] = ranks.get(k, 0) + v
     parent = _all_counts()
     rec["launches"] = ranks
     log(f"  every kernel counter over the phase: ranks {ranks}, caller "
@@ -5067,7 +5234,8 @@ def lm_mesh_train(detail: dict) -> dict:
 
 # (b): production cells at full config on the (16, 16) mesh
 DRYRUN_PROD = (("qwen3-moe-235b-a22b", "train_4k"),
-               ("jamba-v0.1-52b", "prefill_32k"))
+               ("jamba-v0.1-52b", "prefill_32k"),
+               ("gemma2-2b", "decode_32k"))    # attention replicated
 DRYRUN_MESH = ("pod16x16", (16, 16))
 DRYRUN_PEAK_TOL = 0.10               # predicted vs measured per-rank peak
 DRYRUN_WAIT_S = 480.0                # the most phase 15 waits for its traces
@@ -5127,8 +5295,9 @@ def _dryrun_worker(cells_json: str, out_path: str) -> None:
 
 
 def _start_dryruns(be: str) -> None:
-    """Start phase 15's traces in three background processes (each
-    production cell alone, the two checked cells together); phase 15
+    """Start phase 15's traces in three background processes (the two
+    long production cells alone, the two checked cells and the short
+    decode cell together); phase 15
     collects them.  They run no kernel and allocate
     nothing on the card (fake tensors), but they see it: a CUDA build's
     autograd engine refuses a process that has no visible card."""
@@ -5138,7 +5307,7 @@ def _start_dryruns(be: str) -> None:
     env = dict(os.environ,
                PYTHONPATH=SRC + os.pathsep + os.environ.get("PYTHONPATH", ""))
     procs = []
-    for i, part in enumerate((cells[2:3], cells[3:4], cells[:2])):
+    for i, part in enumerate((cells[2:3], cells[3:4], cells[:2] + cells[4:])):
         out = os.path.join(tmp, f"reports{i}.json")
         log_f = open(os.path.join(tmp, f"worker{i}.log"), "w")
         code = (f"import sys; sys.path.insert(0, {ROOT!r}); import chip_smoke;"
@@ -5370,6 +5539,16 @@ def dryrun(detail: dict) -> dict:
         got = rec["cells"][f"{arch} x {shape}"]["scan_fake_calls"]
         check(got == want, f"dryrun: {arch} x {shape} took the scan's fake "
               f"path {got} times, not {want} (one a Mamba layer)")
+        if cfg.n_heads and cfg.n_heads % DRYRUN_MESH[1][1] \
+                and configs.SHAPES[shape].kind == "decode":
+            # replicated attention issues no wo all-reduce: a layer's are
+            # the sequence-split cache's two and the FFN's, plus the
+            # vocab-parallel embedding's
+            n = rec["cells"][f"{arch} x {shape}"]["collectives"]["counts"][
+                "all-reduce"]
+            want = 3 * cfg.n_layers + (cfg.frontend == "tokens")
+            check(n == want, f"dryrun: {arch} x {shape} issued {n} "
+                  f"all-reduces, not {want}")
     counts = _all_counts()
     check(not any(counts.values()), f"dryrun: the phase launched {counts}")
     rec["launches"] = counts

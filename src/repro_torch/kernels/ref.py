@@ -7,7 +7,10 @@ any device.  They are what a CPU tensor runs (the CUDA kernels' wrappers
 route CPU tensors here) and what `chip_smoke.py` holds each kernel against
 on the card.  `group_edge_grad_ref` is the oracle of the edge-value
 cotangent (training's backward); `selective_scan_ref` is the Mamba-1
-scan's.  The baseline oracles of the benchmarks wait for their slice.
+scan's.  `edge_centric_aggregate_ref` (:96) and
+`node_centric_aggregate_ref` (:109) are the paper's §5.1 strawmen, the
+baselines a benchmark sets beside the planned kernels; no path of the
+port calls them.
 
 All accumulate in float32 whatever the feature dtype; every oracle takes ``acc_dtype=torch.float64`` for a near-exact sum, the witness
 `chip_smoke.py` holds every float32 sum against.
@@ -17,7 +20,8 @@ from __future__ import annotations
 import torch
 
 __all__ = ["segment_aggregate_ref", "group_aggregate_ref",
-           "group_edge_grad_ref", "selective_scan_ref", "softplus"]
+           "group_edge_grad_ref", "selective_scan_ref", "softplus",
+           "edge_centric_aggregate_ref", "node_centric_aggregate_ref"]
 
 
 def softplus(x: torch.Tensor) -> torch.Tensor:
@@ -126,3 +130,32 @@ def group_edge_grad_ref(grad_out: torch.Tensor, feat: torch.Tensor,
         gsel = grad_out[rows, c0:c0 + step].to(acc_dtype)
         dots += (fsel * gsel[:, None, :]).sum(dim=-1)
     return dots.reshape(T, gpt, gs)
+
+
+def edge_centric_aggregate_ref(feat: torch.Tensor, src: torch.Tensor,
+                               dst: torch.Tensor, edge_val: torch.Tensor,
+                               num_nodes: int) -> torch.Tensor:
+    """Edge-centric baseline (the PyG torch-scatter analogue, Fig. 4c): one
+    unit per edge.  The same function as `segment_aggregate_ref`, with
+    each pre-scaled message materialized (in the feature dtype) before
+    its float32 scatter-add."""
+    messages = feat[src.long()] * edge_val[:, None]
+    out = torch.zeros((num_nodes, feat.shape[1]), dtype=torch.float32,
+                      device=feat.device)
+    return out.index_add_(0, dst.long(), messages.float())
+
+
+def node_centric_aggregate_ref(feat: torch.Tensor, padded_nbrs: torch.Tensor,
+                               mask: torch.Tensor,
+                               edge_val_padded: torch.Tensor,
+                               num_nodes: int) -> torch.Tensor:
+    """Node-centric baseline (Fig. 4b): one unit per node, each padded to
+    the largest degree, the workload imbalance of Fig. 2b.
+
+    padded_nbrs: (N, max_deg) neighbor ids (0 in the padding)
+    mask:        (N, max_deg) 1.0 valid / 0.0 pad
+    edge_val_padded: (N, max_deg)
+    ``num_nodes`` is the reference's argument, unused there too."""
+    gathered = feat[padded_nbrs.long()]                       # (N, deg, D)
+    w = (mask * edge_val_padded)[..., None]
+    return (gathered * w).sum(dim=1).float()

@@ -74,9 +74,10 @@ def m_rope(x: torch.Tensor, pos3: torch.Tensor, sections: tuple, *,
     if sum(sections) != half:
         raise ValueError(f"sections {sections} do not sum to head_dim/2 "
                          f"= {half}")
-    sec_id = torch.repeat_interleave(
-        torch.arange(3, device=x.device),
-        torch.tensor(sections, device=x.device))              # (half,)
+    # built from the Python ints: a repeat count held in a tensor gives
+    # an output shape fake tensors (the dry-run) cannot know
+    sec_id = torch.tensor([i for i, n in enumerate(sections)
+                           for _ in range(n)], device=x.device)  # (half,)
     pos = pos3.float()[:, sec_id, :]                  # (B, half, S)
     ang = pos.transpose(1, 2) * _inv_freq(half, theta, x.device)
     return _rotate(x, ang)

@@ -33,6 +33,16 @@ and activations are the rank's batch slice.
     over ``model`` and sliced, since its one ``H + 2K`` dim does not
     split at the q / k / v boundaries.  ``wo`` is row-parallel: one
     all-reduce over ``model``.
+  * Attention replicated over ``model``: where the pruned specs keep no
+    ``model`` axis on the query heads (`valid_spec` drops it when the
+    model axis does not divide them: gemma2-2b's 8 and qwen2-vl-2b's 12
+    heads on 16), every model rank computes all H query heads and all
+    K kv heads with ``wo`` whole, and no sum over ``model`` follows, as
+    GSPMD runs the reference's attention there (`_replicated`).  On a
+    whole carry each rank's input and weight gradients are then whole
+    (nothing summed); on a sequence-split carry a rank gathers the
+    sequence, keeps its own tokens of the output, and its weight
+    gradients are partial (summed).
   * Decode over a cache split by sequence (``n_kv % tp != 0``): every
     rank attends with all H query heads over its slots, and the shards
     combine by log-sum-exp: a max all-reduce of the logits' maxima and
@@ -60,9 +70,10 @@ remat'd period re-issues its collectives in the backward in the order
 of its forward, the same on every rank.
 
 Row-parallel partial sums are all-reduced in the activation dtype, as
-the MoE's combine is.  A dim a split needs (heads, ``d_ff``,
-``d_inner``, the vocab, the experts) must divide by the model axis, or
-the call raises.
+the MoE's combine is.  Heads fall back to replicated attention where
+the model axis does not divide them; the other dims a split needs
+(``d_ff``, ``d_inner``, the vocab, the experts) must divide by the
+model axis, or the call raises.
 """
 from __future__ import annotations
 
@@ -134,9 +145,24 @@ class _Carry:
         return reduce_from(y, self.mesh, MODEL)
 
     def leaf(self, t: torch.Tensor) -> torch.Tensor:
-        """A leaf read on the carry (norm gains, output biases): on a
-        split carry each rank reads it for its tokens alone."""
+        """A leaf read on the carry (norm gains, output biases, the
+        weights of replicated attention): on a split carry each rank
+        reads it for its tokens alone."""
         return copy_to(t, self.mesh, MODEL) if self.seq else t
+
+    def gather(self, h: torch.Tensor) -> torch.Tensor:
+        """``h`` whole for a layer every model rank computes whole: on a
+        split carry the sequence gathered (its gradient reduce-scattered:
+        each rank's part is that of its own tokens' outputs), on a whole
+        one ``h`` as it is (its gradient is whole on every rank)."""
+        if self.seq:
+            return gather_from(h, self.mesh, MODEL, 1, sum_grad=(MODEL,))
+        return h
+
+    def keep(self, y: torch.Tensor) -> torch.Tensor:
+        """A whole layer output ``y`` (B, S, d) back onto the carry, with
+        no sum: a split carry keeps the rank's tokens."""
+        return self.mesh.chunk(y, MODEL, 1) if self.seq else y
 
     def positions(self, pos: torch.Tensor) -> torch.Tensor:
         """``pos`` (B, S) or (B, 3, S) for the carry's tokens."""
@@ -185,67 +211,93 @@ def _norm(cfg, lp: Local, x: torch.Tensor, carry: _Carry) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 # attention
 
+def _replicated(lp: Local) -> bool:
+    """Whether every model rank computes the layer's attention whole: the
+    pruned spec of its query heads keeps no ``model`` axis (`valid_spec`
+    drops it where the model axis does not divide them).  The heads dim
+    is ``wq``'s dim 1, or ``wo``'s dim 0 beside a fused ``wqkv``, whose
+    one ``H + 2K`` dim can divide where ``H`` does not (gemma2-2b's 16
+    on 16)."""
+    spec = lp.specs["wq"][1] if "wq" in lp.specs else lp.specs["wo"][0]
+    return MODEL not in _model_axes(spec)
+
+
 @dataclasses.dataclass
 class _Heads:
     """A rank's attention weights: query heads [hs, hs + Hl), kv heads
-    [k0, k1), as a local param dict and its `AttnParams`."""
+    [k0, k1), as a local param dict and its `AttnParams`; ``replicated``
+    when they are all of them on every model rank (`_replicated`)."""
 
     p: dict
     ap: AttnParams
     hs: int
     k0: int
+    replicated: bool
 
 
-def _heads(ap: AttnParams, lp: Local, mesh, *, q_all: bool,
+def _heads(ap: AttnParams, lp: Local, mesh, carry: _Carry, *, q_all: bool,
            kv_split: bool) -> _Heads:
     """The rank's attention weights: its query heads (all of them with
     ``q_all``) and its kv heads (its ``K / tp`` with ``kv_split``, else
     all ``K``).  Leaves every model rank holds whole but reads in part
-    enter by `copy_to` (their gradients are summed over ``model``)."""
+    enter by `copy_to` (their gradients are summed over ``model``).
+    Replicated attention takes every head and every weight whole, read
+    as the carry reads a leaf (`_Carry.leaf`)."""
     H, K = ap.n_heads, ap.n_kv
     tp, r = mesh.size(MODEL), mesh.index(MODEL)
-    Hl = H if q_all else _split(H, tp, "n_heads")
-    hs = 0 if q_all else r * Hl
-    Kl = _split(K, tp, "n_kv") if kv_split else K
-    k0 = r * Kl if kv_split else 0
-    part = lambda t: copy_to(t, mesh, MODEL)  # noqa: E731
+    rep = _replicated(lp)
+    if rep:
+        Hl, hs, Kl, k0 = H, 0, K, 0
+        part = carry.leaf
+    else:
+        Hl = H if q_all else _split(H, tp, "n_heads")
+        hs = 0 if q_all else r * Hl
+        Kl = _split(K, tp, "n_kv") if kv_split else K
+        k0 = r * Kl if kv_split else 0
+        part = lambda t: copy_to(t, mesh, MODEL)  # noqa: E731
+    q_whole = q_all or rep
     if ap.fused_qkv:
         w = part(lp.get("wqkv"))
         p = {"wq": w[:, hs:hs + Hl], "wk": w[:, H + k0:H + k0 + Kl],
              "wv": w[:, H + K + k0:H + K + k0 + Kl]}
     else:
-        p = {"wq": part(lp.get("wq")) if q_all
+        p = {"wq": part(lp.get("wq")) if q_whole
              else lp.get("wq", None, MODEL),
              "wk": part(lp.get("wk"))[:, k0:k0 + Kl],
              "wv": part(lp.get("wv"))[:, k0:k0 + Kl]}
     if ap.bias:
-        p["bq"] = part(lp.get("bq")) if q_all else lp.get("bq", MODEL)
+        p["bq"] = part(lp.get("bq")) if q_whole else lp.get("bq", MODEL)
         p["bk"] = part(lp.get("bk"))[k0:k0 + Kl]
         p["bv"] = part(lp.get("bv"))[k0:k0 + Kl]
     if ap.qk_norm:
         p["qnorm"], p["knorm"] = part(lp.get("qnorm")), part(lp.get("knorm"))
     local = dataclasses.replace(ap, n_heads=Hl, n_kv=Kl, fused_qkv=False)
-    return _Heads(p=p, ap=local, hs=hs, k0=k0)
+    return _Heads(p=p, ap=local, hs=hs, k0=k0, replicated=rep)
 
 
-def _row_parallel_wo(ap: AttnParams, lp: Local, carry: _Carry,
-                     out: torch.Tensor, dtype) -> torch.Tensor:
-    """``out`` (B, S, H/tp, hd), the rank's query heads, through ``wo``'s
-    rows for those heads, summed over ``model`` onto the carry, plus the
-    bias."""
-    wo = lp.get("wo", MODEL)
-    y = carry.exit(out.to(dtype).flatten(-2)
-                   @ wo.to(dtype).reshape(-1, wo.shape[-1]))
+def _attention_out(ap: AttnParams, lp: Local, carry: _Carry,
+                   out: torch.Tensor, dtype, replicated: bool
+                   ) -> torch.Tensor:
+    """``out`` (B, S, H_l, hd), the rank's query heads, through ``wo``
+    onto the carry, plus the bias.  Split heads: ``wo``'s rows for those
+    heads, summed over ``model`` (row-parallel).  Replicated: ``wo``
+    whole, no sum; a split carry keeps the rank's tokens."""
+    wo = carry.leaf(lp.get("wo")) if replicated else lp.get("wo", MODEL)
+    y = out.to(dtype).flatten(-2) @ wo.to(dtype).reshape(-1, wo.shape[-1])
+    y = carry.keep(y) if replicated else carry.exit(y)
     if ap.bias:
         y = y + carry.leaf(lp.get("bo")).to(dtype)
     return y
 
 
-def _attention(cfg, ap: AttnParams, lp: Local, mesh, x, pos, *,
-               kv_split: bool):
-    """The rank's query heads over the whole sequence ``x`` (B, S, d).
-    Returns (out (B, S, H/tp, hd) f32, k, v (B, S, K_l, hd))."""
-    hd = _heads(ap, lp, mesh, q_all=False, kv_split=kv_split)
+def _attention(cfg, ap: AttnParams, lp: Local, mesh, carry: _Carry, h, pos,
+               *, kv_split: bool):
+    """The attention half of a slot: ``h`` (the normed carry) in, the
+    rank's query heads over the whole sequence, the output back on the
+    carry.  Returns (y on the carry, k, v (B, S, K_l, hd): the rank's kv
+    heads, all K when replicated)."""
+    hd = _heads(ap, lp, mesh, carry, q_all=False, kv_split=kv_split)
+    x = carry.gather(h) if hd.replicated else carry.enter(h)
     q, k, v = _qkv(hd.p, hd.ap, x)
     q, k = _apply_rope(hd.ap, q, k, pos)
     n_rep = ap.n_heads // ap.n_kv
@@ -258,7 +310,17 @@ def _attention(cfg, ap: AttnParams, lp: Local, mesh, x, pos, *,
                               softcap=ap.softcap, scale=ap.scale,
                               q_chunk=cfg.q_chunk, kv_chunk=cfg.kv_chunk,
                               causal_mode=cfg.causal_mode)
-    return out, k, v
+    return _attention_out(ap, lp, carry, out, h.dtype, hd.replicated), k, v
+
+
+def _no_head_split_cache(lp: Local, layout: str) -> None:
+    """Replicated attention computes every kv head, which a cache split
+    over kv heads cannot take (the default specs never pair the two:
+    heads the model axis does not divide have kv heads it does not
+    divide)."""
+    if layout == "heads" and _replicated(lp):
+        raise ValueError("attention replicated over the model axis needs a "
+                         "kv cache that is not split over kv heads")
 
 
 def _attention_decode(ap: AttnParams, lp: Local, mesh, x, cache: dict,
@@ -266,7 +328,9 @@ def _attention_decode(ap: AttnParams, lp: Local, mesh, x, cache: dict,
     """One step over the rank's slice of the layer's cache (written in
     place)."""
     layout = _kv_layout(kv_spec)
-    hd = _heads(ap, lp, mesh, q_all=layout != "heads",
+    _no_head_split_cache(lp, layout)
+    carry = _Carry(mesh)
+    hd = _heads(ap, lp, mesh, carry, q_all=layout != "heads",
                 kv_split=layout == "heads")
     q, k, v = _qkv(hd.p, hd.ap, x)
     q, k = _apply_rope(hd.ap, q, k, pos)
@@ -287,9 +351,11 @@ def _attention_decode(ap: AttnParams, lp: Local, mesh, x, cache: dict,
     else:
         out = _decode_attention_split(q, cache["k"], cache["v"], kv_pos, t,
                                       ap, mesh, seq_axes)
-        Hl = _split(ap.n_heads, mesh.size(MODEL), "n_heads")
-        out = out[:, :, mesh.index(MODEL) * Hl:(mesh.index(MODEL) + 1) * Hl]
-    return _row_parallel_wo(ap, lp, _Carry(mesh), out, x.dtype)
+        if not hd.replicated:
+            Hl = _split(ap.n_heads, mesh.size(MODEL), "n_heads")
+            r = mesh.index(MODEL)
+            out = out[:, :, r * Hl:(r + 1) * Hl]
+    return _attention_out(ap, lp, carry, out, x.dtype, hd.replicated)
 
 
 def _decode_attention_split(q, cache_k, cache_v, kv_pos, t: int,
@@ -375,16 +441,15 @@ def _slot(cfg, spec, lp: Local, mesh, carry: _Carry, x, pos, *,
           backend: str, kv_split: bool):
     """One layer on the carry.  Returns (x, aux or None, (k, v) or None:
     the attention slot's keys and values, the rank's kv heads)."""
-    h = carry.enter(_norm(cfg, lp["norm1"], x, carry))
+    h = _norm(cfg, lp["norm1"], x, carry)
     kv = None
     if spec.kind == "attn":
-        ap = cfg.attn_params(spec)
-        out, k, v = _attention(cfg, ap, lp["attn"], mesh, h, pos,
-                               kv_split=kv_split)
-        h = _row_parallel_wo(ap, lp["attn"], carry, out, x.dtype)
+        h, k, v = _attention(cfg, cfg.attn_params(spec), lp["attn"], mesh,
+                             carry, h, pos, kv_split=kv_split)
         kv = (k, v)
     else:
-        h = _mamba(cfg, lp["mamba"], mesh, carry, h, backend=backend)
+        h = _mamba(cfg, lp["mamba"], mesh, carry, carry.enter(h),
+                   backend=backend)
     if cfg.post_norm:
         h = _norm(cfg, lp["post1"], h, carry)
     x, aux = _ffn(cfg, spec, lp, mesh, carry, x + h)
@@ -403,11 +468,15 @@ def lm_prefill_tp(lp: Local, cfg, mesh, inputs: torch.Tensor,
         for s, (spec, bp) in enumerate(zip(cfg.period, slots)):
             kv_spec = kv_specs[s][0] if kv_specs[s] is not None else None
             layout = _kv_layout(kv_spec) if kv_spec is not None else "whole"
+            if spec.kind == "attn":
+                _no_head_split_cache(bp["attn"], layout)
             x, _aux, kv = _slot(cfg, spec, bp, mesh, carry, x, pos,
                                 backend=backend, kv_split=layout == "heads")
             if kv is not None and layout == "seq":
+                # the rank's slots copied out: a view would keep the
+                # layer's whole k / v alive until the stack
                 axes = _model_axes(kv_spec[2])
-                kv = tuple(mesh.chunk(t, axes, 1) for t in kv)
+                kv = tuple(mesh.chunk(t, axes, 1).clone() for t in kv)
             per_slot[s].append(kv)
     x = _norm(cfg, lp["final_norm"], x, carry)
     kvs = tuple(None if spec.kind != "attn" else

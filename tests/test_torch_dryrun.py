@@ -304,6 +304,19 @@ def _batch(cfg, B: int, S: int, seed: int) -> dict:
 @pytest.mark.parametrize("mesh_shape", [(2, 2), (1, 4)])
 @pytest.mark.parametrize("kind", ["train", "prefill"])
 def test_traced_collectives_equal_the_ranks_counter(kind, mesh_shape):
+    _check_traced_collectives(kind, mesh_shape)
+
+
+@pytest.mark.parametrize("kind", ["train", "prefill"])
+def test_traced_collectives_equal_the_ranks_counter_with_replicated_heads(
+        kind):
+    """3 query heads and 1 kv head on a model axis of 4: attention runs
+    replicated over ``model`` (no ``wo`` all-reduce), in the trace as on
+    the ranks."""
+    _check_traced_collectives(kind, (1, 4), n_heads=3, n_kv=1)
+
+
+def _check_traced_collectives(kind, mesh_shape, **heads):
     from repro_torch.launch.mesh import make_mesh
     from repro_torch.models.lm import (LMModel, make_prefill_step,
                                        make_train_step)
@@ -311,11 +324,12 @@ def test_traced_collectives_equal_the_ranks_counter(kind, mesh_shape):
     from repro_torch.optim.adamw import AdamWConfig, adamw_init
     arch = "h2o-danube-1.8b" if kind == "train" else "jamba-v0.1-52b"
     shape = SMALL[kind]
-    cfg = dataclasses.replace(get_arch(arch).reduced(), dtype=torch.float32)
+    overrides = dict(heads, dtype=torch.float32)
+    cfg = dataclasses.replace(get_arch(arch).reduced(), **overrides)
     want = dryrun_lib.run_cell(
         arch, shape.name, mesh_shape, "t", use_reduced=True,
         shape_override=shape, n_micro=2 if kind == "train" else 1,
-        config_overrides={"dtype": torch.float32}, verbose=False)
+        config_overrides=overrides, verbose=False)
     mesh = make_mesh(mesh_shape, ("data", "model"), device="cpu")
     params = LMModel.create(cfg, seed=0, device="cpu").params
     batch = _batch(cfg, shape.global_batch, shape.seq_len, seed=1)
@@ -384,6 +398,44 @@ def test_cli_runs_a_full_config_cell(tmp_path):
         t.numel() for t in tree_leaves(_port_full("h2o-danube-1.8b")[1]))
     assert set(rep["node_crossing_axes"]) == {"data", "model"}
     assert rep["collectives"]["total_bytes"] > 0
+
+
+@pytest.mark.parametrize("arch", ["gemma2-2b", "qwen2-vl-2b"])
+def test_cli_runs_a_replicated_attention_cell(arch, tmp_path):
+    """A production cell whose heads the model axis (16) does not divide
+    (gemma2-2b 8 / 4, qwen2-vl-2b 12 / 2) traces at full config, its
+    attention replicated over ``model``: decode issues no ``wo``
+    all-reduce, so a layer's all-reduces are the sequence-split cache's
+    two and the FFN's (plus one for a vocab-parallel embedding)."""
+    out = tmp_path / "reports"
+    assert dryrun.main(["--arch", arch, "--shape", "decode_32k",
+                        "--out", str(out)]) == 0
+    rep = json.loads((out / f"{arch}__decode_32k__pod16x16.json")
+                     .read_text())
+    cfg = _port_full(arch)[0]
+    assert cfg.n_heads % 16 and cfg.n_kv % 16
+    assert rep["num_chips"] == 256 and rep["memory"]["fits"]
+    assert rep["collectives"]["counts"]["all-reduce"] == (
+        3 * cfg.n_layers + (cfg.frontend == "tokens"))
+    assert all(x > 0 for x in (rep["cost"]["flops"],
+                               rep["collectives"]["total_bytes"]))
+
+
+def test_mesh_prefill_holds_only_the_ranks_kv_slots():
+    """A cache split over the sequence on ``model``: each further layer
+    adds at most its rank's slots of k and v to the prefill's peak, not
+    the layer's whole k and v (a view of the whole would keep it)."""
+    B, S = 4, 256
+    cfg = get_arch("h2o-danube-1.8b").reduced()
+    peaks = [dryrun_lib.run_cell(
+        "h2o-danube-1.8b", "prefill_32k", (1, 4), "t", use_reduced=True,
+        shape_override=ShapeDef("p", "prefill", S, B), verbose=False,
+        config_overrides={"n_layers": n, "dtype": torch.float32})[
+            "memory"]["peak_bytes"] for n in (2, 4, 6)]
+    kv_whole = 2 * B * S * cfg.n_kv * cfg.head_dim * 4     # k and v, f32
+    assert cfg.n_kv % 4 != 0
+    assert peaks[2] - peaks[1] == peaks[1] - peaks[0]
+    assert 0 < (peaks[1] - peaks[0]) / 2 <= kv_whole / 4
 
 
 def test_in_place_updates_of_arguments_allocate_nothing():
