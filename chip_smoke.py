@@ -4808,6 +4808,15 @@ MT_REP_ARCH, MT_REP_LAYERS = "qwen2-vl-2b", 2
 MT_REP_SHAPE = (1, 8)
 MT_REP_BATCH, MT_REP_SEQ, MT_REP_DECODE = 2, 256, 8
 MT_REP_TOL = 1e-4
+# (f): the FFN, the Mamba mixer and the vocabulary replicated over
+# ``model``, on (1, 3) gloo ranks on card 0 (a model axis of 3 divides
+# none of the dims listed): (arch, layers, whole dims, train step);
+# Falcon-Mamba-7B at d_inner 8192 and V 65024, qwen2-vl-2b at d_ff 8960
+# and V 151936 with its 12 heads split 4 a rank; float32, (e)'s batch,
+# sequence, decode steps and limit
+MT_WHOLE_CELLS = (("falcon-mamba-7b", 2, ("d_inner", "vocab"), False),
+                  ("qwen2-vl-2b", 2, ("d_ff", "vocab"), True))
+MT_WHOLE_SHAPE = (1, 3)
 
 
 def _mt_batch(cfg, B: int, S: int, seed: int) -> dict:
@@ -4821,10 +4830,12 @@ def _mt_batch(cfg, B: int, S: int, seed: int) -> dict:
             "pos": torch.arange(S, device=DEVICE).expand(B, S).contiguous()}
 
 
-def _mt_linear_grads(cfg, params, batch, mesh=None, specs=None):
+def _mt_linear_grads(cfg, params, batch, mesh=None, specs=None,
+                     times=None):
     """The train step's gradient from its parameter delta under the
     linearising AdamW (``g / (|g| + 1)`` a parameter, so ``g = d / (1 -
-    |d|)``), on ``mesh`` or on one device; returns (leaves, metrics)."""
+    |d|)``), on ``mesh`` or on one device; returns (leaves, metrics).
+    ``times``: a list the step's wall ms is appended to."""
     from repro_torch.distributed.sharding import tree_leaves
     from repro_torch.models.lm import make_train_step
     from repro_torch.optim.adamw import AdamWConfig, adamw_init
@@ -4833,7 +4844,13 @@ def _mt_linear_grads(cfg, params, batch, mesh=None, specs=None):
     kw = ({"mesh": mesh, "param_specs": specs, "params_shape": params}
           if mesh is not None else {})
     fns = make_train_step(cfg, opt, n_micro=MT_N_MICRO, donate=False, **kw)
-    new, _, metrics = fns.step(params, adamw_init(params), batch)
+    state = adamw_init(params)
+    _sync()
+    t1 = time.perf_counter()
+    new, _, metrics = fns.step(params, state, batch)
+    _sync()
+    if times is not None:
+        times.append((time.perf_counter() - t1) * 1e3)
     if mesh is not None:
         new = gather(new, DEVICE)
     grads = []
@@ -4858,6 +4875,104 @@ def _mt_embeds_batch(cfg, B: int, S: int, seed: int) -> dict:
             .contiguous()}
 
 
+def _mt_serve_check(cfg, mesh, params, batch, backend: str,
+                    rec: dict) -> None:
+    """Prefill ``batch`` (B x S) on ``mesh`` and `MT_REP_DECODE` decode
+    steps from step 0, each against the one-device port on the card
+    (``backend``: the Mamba scan's, on both); fills ``rec``, with each
+    rank's kernel counters over the mesh prefill alone (zeroed just
+    before it)."""
+    import torch
+
+    from repro_torch.models.lm import make_decode_step, make_prefill_step
+    from repro_torch.nn.transformer import init_lm_cache, lm_param_specs
+    from repro_torch.runtime.elastic import reshard
+
+    specs = lm_param_specs(cfg)
+    inputs = batch["tokens"] if cfg.frontend == "tokens" else batch["embeds"]
+    B, S = inputs.shape[:2]
+    prefill, _ = make_prefill_step(cfg, mesh=mesh, param_specs=specs,
+                                   params_shape=params, backend=backend)
+    handle = reshard(params, mesh, prefill.pspecs)
+    prefill.timing = True
+    mesh.group.launches(reset=True)
+    _sync()
+    t1 = time.perf_counter()
+    logits, kvs = prefill(handle, inputs, batch["pos"])
+    rec["prefill_ms"] = (time.perf_counter() - t1) * 1e3
+    rec["prefill_rank_launches"] = mesh.group.launches(reset=True)
+    rec["prefill_rank_collective_ms"] = [
+        s["collective_ms"] for s in prefill.last_stats]
+    kvs.drop()
+    with torch.no_grad():
+        want = make_prefill_step(cfg, backend=backend)(
+            params, inputs, batch["pos"])[0]
+    rec["prefill_err"] = _nerr(logits, want)
+    cache = init_lm_cache(cfg, B, max_seq=S, dtype=torch.float32,
+                          device=DEVICE)
+    decode, _, _ = make_decode_step(cfg, mesh=mesh, param_specs=specs,
+                                    params_shape=params, cache_shape=cache)
+    cache = reshard(cache, mesh, decode.cspecs)
+    frames = inputs[:, :MT_REP_DECODE]
+    _sync()
+    t1 = time.perf_counter()
+    got = _decode_logits(decode, handle, cache, frames)
+    rec["decode_ms_per_step"] = (time.perf_counter() - t1) * 1e3 \
+        / MT_REP_DECODE
+    cache.drop()
+    handle.drop()
+    want_dec = _decode_logits(
+        make_decode_step(cfg), params,
+        init_lm_cache(cfg, B, max_seq=S, dtype=torch.float32,
+                      device=DEVICE), frames)
+    rec["decode_err"] = max(_nerr(a, b) for a, b in zip(got, want_dec))
+    check(bool(torch.isfinite(logits).all())
+          and tuple(logits.shape) == (B, cfg.vocab)
+          and all(bool(torch.isfinite(g).all()) for g in got),
+          f"{cfg.name} mesh logits {tuple(logits.shape)} not finite")
+    log(f"    prefill B {B} x S {S} on the mesh {rec['prefill_ms']:.1f} ms "
+        f"(ranks in collectives " + ", ".join(
+            f"{c:.1f}" for c in rec["prefill_rank_collective_ms"])
+        + f" ms), logits vs one device {rec['prefill_err']:.2e}; "
+        f"{MT_REP_DECODE} decode steps from step 0, "
+        f"{rec['decode_ms_per_step']:.1f} ms a step, worst step vs one "
+        f"device {rec['decode_err']:.2e} (limit {MT_REP_TOL:.0e})")
+    for k in ("prefill_err", "decode_err"):
+        check(rec[k] <= MT_REP_TOL, f"{cfg.name} mesh {k} {rec[k]:.3e} > "
+              f"{MT_REP_TOL}")
+
+
+def _mt_train_check(cfg, mesh, params, batch, rec: dict) -> None:
+    """One train step's loss, gradient norm and gradients on ``mesh``
+    against one device, under phase 14 (a)'s gate; fills ``rec``."""
+    from repro_torch.nn.transformer import lm_param_specs
+    times: list = []
+    got, m_mesh = _mt_linear_grads(cfg, params, batch, mesh,
+                                   lm_param_specs(cfg), times=times)
+    want, m_one = _mt_linear_grads(cfg, params, batch)
+    e = {"loss": _nerr(m_mesh["loss"], m_one["loss"]),
+         "grad_norm": _nerr(m_mesh["grad_norm"], m_one["grad_norm"]),
+         "grads": max(_nerr(a, b) for a, b in zip(got, want))}
+    del got
+    _ulp_nudge(params, +1)
+    nudged, m_nudged = _mt_linear_grads(cfg, params, batch)
+    _ulp_nudge(params, -1)
+    spread = {"loss": _nerr(m_nudged["loss"], m_one["loss"]),
+              "grad_norm": _nerr(m_nudged["grad_norm"], m_one["grad_norm"]),
+              "grads": max(_nerr(a, b) for a, b in zip(nudged, want))}
+    tol = {k: max(MT_F32_DEFAULT_TOL, MT_F32_SPREAD * v)
+           for k, v in spread.items()}
+    rec.update(train=e, train_tol=tol, train_ulp_spread=spread,
+               train_step_ms=times[0], loss=float(m_one["loss"]))
+    log(f"    train step on the mesh {times[0]:.1f} ms, n_micro "
+        f"{MT_N_MICRO}, mesh vs one device (one device under a one-ulp "
+        f"nudge; limit): " + ", ".join(
+            f"{k} {e[k]:.2e} ({spread[k]:.2e}; {tol[k]:.1e})" for k in e))
+    for k, v in e.items():
+        check(v <= tol[k], f"{cfg.name} mesh train {k} {v:.3e} > "
+              f"{tol[k]:.3e}")
+
+
 def _mt_replicated() -> dict:
     """Phase 14 (e): attention replicated over ``model``
     (`nn/tensor_parallel.py:_replicated`), qwen2-vl-2b at full width on
@@ -4868,11 +4983,10 @@ def _mt_replicated() -> dict:
     import torch
 
     from repro_torch import configs
+    from repro_torch.distributed.sharding import prune_specs_for_mesh
     from repro_torch.launch.mesh import make_mesh
-    from repro_torch.models.lm import (LMModel, make_decode_step,
-                                       make_prefill_step)
-    from repro_torch.nn.transformer import init_lm_cache, lm_param_specs
-    from repro_torch.runtime.elastic import reshard
+    from repro_torch.models.lm import LMModel
+    from repro_torch.nn.transformer import lm_param_specs
 
     t0 = time.time()
     full = configs.get_arch(MT_REP_ARCH).full()
@@ -4896,92 +5010,149 @@ def _mt_replicated() -> dict:
     _mt_rank_counts(group)
     _reset_counts()
     params = LMModel.create(cfg, seed=9, device=DEVICE).params
-    specs = lm_param_specs(cfg)
-    B, S = MT_REP_BATCH, MT_REP_SEQ
-    batch = _mt_embeds_batch(cfg, B, S, seed=10)
-
-    # prefill and decode from step 0 against the one-device port
-    prefill, _ = make_prefill_step(cfg, mesh=mesh, param_specs=specs,
-                                   params_shape=params, backend="torch")
+    batch = _mt_embeds_batch(cfg, MT_REP_BATCH, MT_REP_SEQ, seed=10)
+    pspecs = prune_specs_for_mesh(mesh, lm_param_specs(cfg), params)
     check(all(sp["attn"]["wq"][1] is None and sp["attn"]["wo"][0] is None
-              for slots in prefill.pspecs["blocks"] for sp in slots),
+              for slots in pspecs["blocks"] for sp in slots),
           "the pruned specs still split the heads over model")
-    handle = reshard(params, mesh, prefill.pspecs)
-    prefill.timing = True
-    _sync()
-    t1 = time.perf_counter()
-    logits, kvs = prefill(handle, batch["embeds"], batch["pos"])
-    rec["prefill_ms"] = (time.perf_counter() - t1) * 1e3
-    rec["prefill_rank_collective_ms"] = [
-        s["collective_ms"] for s in prefill.last_stats]
-    kvs.drop()
-    with torch.no_grad():
-        want = make_prefill_step(cfg, backend="torch")(
-            params, batch["embeds"], batch["pos"])[0]
-    rec["prefill_err"] = _nerr(logits, want)
-    cache = init_lm_cache(cfg, B, max_seq=S, dtype=torch.float32,
-                          device=DEVICE)
-    decode, _, _ = make_decode_step(cfg, mesh=mesh, param_specs=specs,
-                                    params_shape=params, cache_shape=cache)
-    cache = reshard(cache, mesh, decode.cspecs)
-    frames = batch["embeds"][:, :MT_REP_DECODE]
-    _sync()
-    t1 = time.perf_counter()
-    got = _decode_logits(decode, handle, cache, frames)
-    rec["decode_ms_per_step"] = (time.perf_counter() - t1) * 1e3 \
-        / MT_REP_DECODE
-    cache.drop()
-    handle.drop()
-    want_dec = _decode_logits(
-        make_decode_step(cfg), params,
-        init_lm_cache(cfg, B, max_seq=S, dtype=torch.float32,
-                      device=DEVICE), frames)
-    rec["decode_err"] = max(_nerr(a, b) for a, b in zip(got, want_dec))
-    check(bool(torch.isfinite(logits).all())
-          and tuple(logits.shape) == (B, cfg.vocab)
-          and all(bool(torch.isfinite(g).all()) for g in got),
-          f"replicated mesh logits {tuple(logits.shape)} not finite")
-    log(f"    prefill B {B} x S {S} on the mesh {rec['prefill_ms']:.1f} ms "
-        f"(ranks in collectives " + ", ".join(
-            f"{c:.1f}" for c in rec["prefill_rank_collective_ms"])
-        + f" ms), logits vs one device {rec['prefill_err']:.2e}; "
-        f"{MT_REP_DECODE} decode steps from step 0, "
-        f"{rec['decode_ms_per_step']:.1f} ms a step, worst step vs one "
-        f"device {rec['decode_err']:.2e} (limit {MT_REP_TOL:.0e})")
-    for k in ("prefill_err", "decode_err"):
-        check(rec[k] <= MT_REP_TOL, f"replicated {k} {rec[k]:.3e} > "
-              f"{MT_REP_TOL}")
-    del logits, want, got, want_dec
-
-    # one train step's gradients against one device, phase 14 (a)'s gate
-    got, m_mesh = _mt_linear_grads(cfg, params, batch, mesh, specs)
-    want, m_one = _mt_linear_grads(cfg, params, batch)
-    e = {"loss": _nerr(m_mesh["loss"], m_one["loss"]),
-         "grad_norm": _nerr(m_mesh["grad_norm"], m_one["grad_norm"]),
-         "grads": max(_nerr(a, b) for a, b in zip(got, want))}
-    _ulp_nudge(params, +1)
-    nudged, m_nudged = _mt_linear_grads(cfg, params, batch)
-    _ulp_nudge(params, -1)
-    spread = {"loss": _nerr(m_nudged["loss"], m_one["loss"]),
-              "grad_norm": _nerr(m_nudged["grad_norm"], m_one["grad_norm"]),
-              "grads": max(_nerr(a, b) for a, b in zip(nudged, want))}
-    tol = {k: max(MT_F32_DEFAULT_TOL, MT_F32_SPREAD * v)
-           for k, v in spread.items()}
-    rec.update(train=e, train_tol=tol, train_ulp_spread=spread,
-               loss=float(m_one["loss"]))
-    log(f"    train step, n_micro {MT_N_MICRO}, mesh vs one device (one "
-        f"device under a one-ulp nudge; limit): " + ", ".join(
-            f"{k} {e[k]:.2e} ({spread[k]:.2e}; {tol[k]:.1e})" for k in e))
-    for k, v in e.items():
-        check(v <= tol[k], f"replicated mesh train {k} {v:.3e} > "
-              f"{tol[k]:.3e}")
+    _mt_serve_check(cfg, mesh, params, batch, "torch", rec)
+    _mt_train_check(cfg, mesh, params, batch, rec)
     rec["launches"] = _mt_rank_counts(group)
+    for c in rec.pop("prefill_rank_launches"):
+        for k, v in c.items():
+            rec["launches"][k] = rec["launches"].get(k, 0) + v
     group.close()
-    del params, got, want, nudged
+    del params
     if DEVICE == "cuda":
         torch.cuda.empty_cache()
     rec["seconds"] = time.time() - t0
     log(f"    (e) took {rec['seconds']:.1f}s")
+    return rec
+
+
+# the leaf and dim whose pruned spec decides each part (`_whole`)
+WHOLE_DIMS = {"d_inner": ("mamba", "in_proj", 2), "d_ff": ("ffn", "wi", 2)}
+
+
+def _whole_over_model(pspecs, what: str) -> bool:
+    """Whether the pruned specs keep no ``model`` axis on ``what`` (the
+    vocabulary, ``d_inner`` or ``d_ff``) anywhere."""
+    def off(entry) -> bool:
+        return "model" not in (entry if isinstance(entry, tuple)
+                               else (entry,))
+    if what == "vocab":
+        return off(pspecs["unembed"][1] if "unembed" in pspecs
+                   else pspecs["embed"][0])
+    part, leaf, dim = WHOLE_DIMS[what]
+    return all(off(sp[part][leaf][dim]) for slots in pspecs["blocks"]
+               for sp in slots if part in sp)
+
+
+def _mt_whole() -> dict:
+    """Phase 14 (f): the FFN, the Mamba mixer and the vocabulary
+    replicated over ``model`` (`nn/tensor_parallel.py:_whole`),
+    Falcon-Mamba-7B and qwen2-vl-2b at full width on (1, 3) gloo ranks:
+    prefill (the scan kernel on every rank, over all d_inner channels)
+    and decode from step 0 against the one-device port, one qwen2-vl-2b
+    train step against one device, and the scan kernel at a rank's shape
+    against its plain version."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.distributed.sharding import prune_specs_for_mesh
+    from repro_torch.kernels import selective_scan as ss
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models.lm import LMModel
+    from repro_torch.nn.transformer import lm_param_specs
+
+    t0 = time.time()
+    tp = MT_WHOLE_SHAPE[1]
+    mesh = make_mesh(MT_WHOLE_SHAPE, MT_AXES, device=DEVICE,
+                     dist_backend="gloo")
+    group = mesh.group
+    rec = {"mesh_start_s": time.time() - t0, "cells": {}}
+    log(f"  (f) the FFN, the Mamba mixer and the vocabulary replicated over "
+        f"model, on {MT_WHOLE_SHAPE} over {MT_AXES}: {group.num_shards} "
+        f"gloo ranks on card 0; ready in {rec['mesh_start_s']:.1f}s")
+    for name, layers, whole, train in MT_WHOLE_CELLS:
+        t1 = time.time()
+        full = configs.get_arch(name).full()
+        cfg = dataclasses.replace(full, n_layers=layers, dtype=torch.float32)
+        B, S = MT_REP_BATCH, MT_REP_SEQ
+        cell = {"layers": layers, "of_layers": full.n_layers}
+        dims = {"vocab": cfg.vocab, "d_ff": cfg.d_ff,
+                "d_inner": cfg.mamba.d_inner if cfg.mamba else None}
+        check(all(dims[w] % tp for w in whole),
+              f"{name}: the model axis {tp} divides one of "
+              f"{ {w: dims[w] for w in whole} }")
+        if cfg.mamba is not None and DEVICE == "cuda":
+            # the scan kernel at the shape a rank's prefill gives it
+            args = scan_inputs(B, S, cfg.mamba.d_inner, cfg.mamba.d_state,
+                               seed=11)
+            y = ss.selective_scan(*args)
+            plain = ss.selective_scan_plain(*args)
+            bms, by, _sfu = scan_bound(B, S, cfg.mamba.d_inner,
+                                       cfg.mamba.d_state)
+            cell["scan"] = {
+                "shape": [B, S, cfg.mamba.d_inner, cfg.mamba.d_state],
+                "max_abs_err": float((y - plain).abs().max()),
+                "err": _nerr(y, plain),
+                "device_ms": time_ms(lambda: ss.selective_scan(*args),
+                                     device_only=True),
+                "plain_ms": time_ms(lambda: ss.selective_scan_plain(*args)),
+                "bound_ms": bms, "bound_by": by}
+            log(f"    scan kernel at a rank's shape (B {B}, S {S}, d_inner "
+                f"{cfg.mamba.d_inner}, N {cfg.mamba.d_state}) vs plain "
+                f"{cell['scan']['err']:.3e}; device "
+                f"{cell['scan']['device_ms']:.3f} ms, plain "
+                f"{cell['scan']['plain_ms']:.3f} ms, bound "
+                f"{bms:.3f} ms ({by})")
+            check(cell["scan"]["err"] <= TOL, f"scan at the (1, 3) rank "
+                  f"shape {cell['scan']['err']:.3e} > {TOL}")
+            del args, y, plain
+        params = LMModel.create(cfg, seed=12, device=DEVICE).params
+        pspecs = prune_specs_for_mesh(mesh, lm_param_specs(cfg), params)
+        check(all(_whole_over_model(pspecs, w) for w in whole),
+              f"{name}: the pruned specs still split one of {whole} over "
+              f"model")
+        cell["heads_split"] = (cfg.n_heads > 0
+                               and cfg.n_heads % tp == 0)
+        log(f"  (f) {name} at full width (d {cfg.d_model}, "
+            + ", ".join(f"{w} {dims[w]:,}" for w in whole)
+            + (f", H {cfg.n_heads} split {cfg.n_heads // tp} a rank"
+               if cell["heads_split"] else "")
+            + f"), {layers} of {full.n_layers} layers, float32; whole on "
+            f"every model rank: {', '.join(whole)}")
+        batch = (_mt_batch(cfg, B, S, seed=13) if cfg.frontend == "tokens"
+                 else _mt_embeds_batch(cfg, B, S, seed=13))
+        group.memory(reset=True)
+        _mt_serve_check(cfg, mesh, params, batch, MESH_BACKEND, cell)
+        launches = cell.pop("prefill_rank_launches")
+        if cfg.mamba is not None:
+            scan = [c[ss.KERNEL] if MESH_BACKEND == "cuda" else c[ss.PLAIN]
+                    for c in launches]
+            cell["scan_launches_by_rank"] = scan
+            log(f"    scan launches over the mesh prefill by rank: {scan} "
+                f"({layers} layers)")
+            check(all(n > 0 for n in scan), f"{name}: a rank's prefill "
+                  f"launched the scan kernel {scan} times")
+        if train:
+            _mt_train_check(cfg, mesh, params, batch, cell)
+        cell["rank_peak_gb"] = [m["peak_gb"] for m in group.memory()]
+        cell["seconds"] = time.time() - t1
+        log(f"    peak GB by rank " + ", ".join(
+            f"{g:.2f}" for g in cell["rank_peak_gb"])
+            + f"; {cell['seconds']:.1f}s")
+        rec["cells"][name] = cell
+        del params, batch
+        if DEVICE == "cuda":
+            torch.cuda.empty_cache()
+    rec["launches"] = _mt_rank_counts(group)
+    group.close()
+    rec["seconds"] = time.time() - t0
+    log(f"    (f) took {rec['seconds']:.1f}s")
     return rec
 
 
@@ -5002,7 +5173,10 @@ def lm_mesh_train(detail: dict) -> dict:
     AdamW) on four ranks: float32 cells against the one-device step, bf16
     h2o-danube-1.8b at full width, a re-mesh mid-training and
     ``seq_shard_carry``; then attention replicated over ``model``
-    (qwen2-vl-2b at full width on eight ranks, `_mt_replicated`)."""
+    (qwen2-vl-2b at full width on eight ranks, `_mt_replicated`), and the
+    FFN, the Mamba mixer and the vocabulary replicated over it
+    (Falcon-Mamba-7B and qwen2-vl-2b at full width on three ranks,
+    `_mt_whole`)."""
     import dataclasses
 
     import torch
@@ -5220,10 +5394,14 @@ def lm_mesh_train(detail: dict) -> dict:
         ranks[k] = ranks.get(k, 0) + v
     parent = _all_counts()
     rec["launches"] = ranks
-    log(f"  every kernel counter over the phase: ranks {ranks}, caller "
+    log(f"  every kernel counter over (a)-(e): ranks {ranks}, caller "
         f"{parent}")
     check(not any(ranks.values()) and not any(parent.values()),
           f"the training path launched {ranks} on the ranks, {parent} here")
+
+    # (f) the FFN, the Mamba mixer and the vocabulary replicated over
+    # model, on its own three ranks; its prefill launches the scan kernel
+    rec["whole"] = _mt_whole()
     rec["seconds"] = time.time() - t_phase
     detail["lm_mesh_train"] = rec
     return rec
@@ -5790,7 +5968,12 @@ def main(argv=None) -> int:
             **({"launches_sharded": done["sharded"]["launches"].get(
                 ss.KERNEL, 0)} if "sharded" in done else {}),
             **({"launches_mesh_train": done["lm-mesh-train"]["launches"].get(
-                ss.KERNEL, 0)} if "lm-mesh-train" in done else {}),
+                ss.KERNEL, 0),
+                "launches_mesh_whole_by_rank": done["lm-mesh-train"]["whole"][
+                    "cells"]["falcon-mamba-7b"].get("scan_launches_by_rank"),
+                "mesh_whole_rank_scan": done["lm-mesh-train"]["whole"][
+                    "cells"]["falcon-mamba-7b"].get("scan")}
+               if "lm-mesh-train" in done else {}),
             **({"launches_dryrun": done["dryrun"]["launches"].get(
                 ss.KERNEL, 0),
                 "dryrun_fake_calls": done["dryrun"]["scan_fake_calls"]}

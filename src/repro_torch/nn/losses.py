@@ -13,7 +13,9 @@ backward does the same: it saves only ``x``, ``w``, ``labels`` and
 ``mask``, recomputes each chunk's softmax and accumulates ``dW`` in
 float32, so in both passes one (B, c, V) chunk is the only live logits.
 
-Port-only: `vocab_parallel_xent_sums`, the rank counterpart of
+Port-only: `chunked_xent_sums`, the sums `chunked_softmax_xent` divides
+(a rank whose unembedding is whole over the model axis computes them
+whole), and `vocab_parallel_xent_sums`, the rank counterpart of
 `_ChunkedSums` on a mesh (`repro_torch.nn.tensor_parallel`), over the
 rank's vocab slice of the unembedding, with no logits gathered.
 """
@@ -23,7 +25,7 @@ from typing import Optional
 
 import torch
 
-__all__ = ["chunked_softmax_xent", "softmax_xent_dense",
+__all__ = ["chunked_softmax_xent", "chunked_xent_sums", "softmax_xent_dense",
            "vocab_parallel_xent_sums"]
 
 
@@ -146,17 +148,36 @@ def chunked_softmax_xent(x: torch.Tensor, w_unembed: torch.Tensor,
     step, forward AND backward.  metrics: ``xent``, ``accuracy``,
     ``tokens``."""
     B, S, _ = x.shape
-    c = min(chunk, S)
-    while S % c:
-        c -= 1
     m = (torch.ones((B, S), dtype=torch.float32, device=x.device)
          if mask is None else mask.float())
-    sum_loss, sum_correct = _ChunkedSums.apply(
-        x.float(), w_unembed.float(), labels.long(), m, c, float(z_loss),
-        None if logit_softcap is None else float(logit_softcap))
+    sum_loss, sum_correct = chunked_xent_sums(
+        x, w_unembed, labels, m, chunk=chunk, z_loss=z_loss,
+        logit_softcap=logit_softcap)
     denom = torch.clamp(m.sum(), min=1.0)
     loss = sum_loss / denom
     return loss, _metrics(loss, sum_correct, denom)
+
+
+def _chunk_of(S: int, chunk: int) -> int:
+    """The largest chunk up to ``chunk`` that divides S."""
+    c = min(chunk, S)
+    while S % c:
+        c -= 1
+    return c
+
+
+def chunked_xent_sums(x: torch.Tensor, w: torch.Tensor,
+                      labels: torch.Tensor, mask: torch.Tensor, *,
+                      chunk: int = 512, z_loss: float = 0.0,
+                      logit_softcap: Optional[float] = None):
+    """`chunked_softmax_xent`'s sums: x (B,S,d), w (d,V), labels / mask
+    (B,S) -> (sum_loss, sum_correct) over the mask (``sum_correct``
+    takes no gradient).  Inside a rank whose unembedding is whole over
+    the model axis it is the loss every model rank computes whole."""
+    return _ChunkedSums.apply(
+        x.float(), w.float(), labels.long(), mask.float(),
+        _chunk_of(x.shape[1], chunk), float(z_loss),
+        None if logit_softcap is None else float(logit_softcap))
 
 
 class _VocabParallelSums(torch.autograd.Function):
@@ -247,10 +268,7 @@ def vocab_parallel_xent_sums(x: torch.Tensor, w: torch.Tensor,
     (sum_loss, sum_correct), the same on every rank of ``axis``
     (``sum_correct`` takes no gradient).  Chunks as
     `chunked_softmax_xent`'s."""
-    S = x.shape[1]
-    c = min(chunk, S)
-    while S % c:
-        c -= 1
     return _VocabParallelSums.apply(
-        x.float(), w.float(), labels.long(), mask.float(), c, float(z_loss),
+        x.float(), w.float(), labels.long(), mask.float(),
+        _chunk_of(x.shape[1], chunk), float(z_loss),
         None if logit_softcap is None else float(logit_softcap), mesh, axis)

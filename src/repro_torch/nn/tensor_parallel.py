@@ -59,21 +59,37 @@ and activations are the rank's batch slice.
     ``model``; the training loss is
     `repro_torch.nn.losses.vocab_parallel_xent_sums` over the rank's
     vocab slice, with no logits gathered.
+  * The FFN, the Mamba mixer and the vocabulary replicated over
+    ``model``: each is decided on its own, from the pruned spec of its
+    dim (`_whole`: ``d_ff`` from ``wi``'s dim 2 or ``w1``'s dim 1,
+    ``d_inner`` from ``in_proj``'s dim 2, the vocabulary from
+    ``embed``'s dim 0 or ``unembed``'s dim 1).  Where `valid_spec`
+    dropped the ``model`` axis there (Falcon-Mamba-7B's d_inner 8192 and
+    V 65024 on a model axis of 3), every model rank computes that part
+    whole, as GSPMD runs the reference: the input through
+    `_Carry.gather`, the weights whole through `_Carry.leaf`, the output
+    onto the carry through `_Carry.keep`, no sum over ``model``.  The
+    Mamba mixer then scans all ``d_inner`` channels on every rank and
+    its decode state is whole; the embedding looks up the carry's own
+    tokens in the whole table; the logits need no gather; the loss is
+    `repro_torch.nn.losses.chunked_xent_sums` over the whole vocabulary
+    on every rank, its input taken through `_Carry.share`.
   * The MoE is `repro_torch.nn.moe`'s expert-parallel path on the rank's
     mesh.
 
 Gradients follow `repro_torch.distributed.ranks`' convention: the
-collectives above are its differentiable ones (`_Carry` holds the four
-ways a layer meets the carry), so the same code serves prefill and
+collectives above are its differentiable ones (`_Carry` holds the ways
+a layer meets the carry), so the same code serves prefill and
 decode under `torch.no_grad()` and training under autograd, and a
 remat'd period re-issues its collectives in the backward in the order
 of its forward, the same on every rank.
 
 Row-parallel partial sums are all-reduced in the activation dtype, as
-the MoE's combine is.  Heads fall back to replicated attention where
-the model axis does not divide them; the other dims a split needs
-(``d_ff``, ``d_inner``, the vocab, the experts) must divide by the
-model axis, or the call raises.
+the MoE's combine is.  Heads, ``d_ff``, ``d_inner`` and the vocabulary
+fall back to replication where the model axis does not divide them; the
+expert count must divide by it (`repro_torch.nn.moe` refuses otherwise,
+as the reference asserts), and `_split` refuses a dim that must split
+and does not.
 """
 from __future__ import annotations
 
@@ -89,7 +105,7 @@ from repro_torch.nn.attention import (_NEG, AttnParams, _apply_rope, _qkv,
                                       blockwise_attention, decode_attention,
                                       ring_positions)
 from repro_torch.nn.layers import apply_glu_mlp
-from repro_torch.nn.losses import vocab_parallel_xent_sums
+from repro_torch.nn.losses import chunked_xent_sums, vocab_parallel_xent_sums
 from repro_torch.nn.mamba import mamba_decode, mamba_forward
 from repro_torch.nn.moe import _moe_ranks
 
@@ -109,6 +125,14 @@ def _split(n: int, tp: int, what: str) -> int:
 def _model_axes(entry) -> tuple:
     axes = entry if isinstance(entry, tuple) else (entry,)
     return tuple(a for a in axes if a is not None)
+
+
+def _whole(lp: Local, key: str, dim: int) -> bool:
+    """Whether the pruned spec of leaf ``key`` keeps no ``model`` axis on
+    dim ``dim`` (`valid_spec` drops it where the model axis does not
+    divide the dim): every model rank then computes that part whole."""
+    spec = lp.specs[key]
+    return MODEL not in _model_axes(spec[dim] if dim < len(spec) else None)
 
 
 def _kv_layout(spec) -> str:
@@ -164,9 +188,20 @@ class _Carry:
         no sum: a split carry keeps the rank's tokens."""
         return self.mesh.chunk(y, MODEL, 1) if self.seq else y
 
+    def share(self, h: torch.Tensor) -> torch.Tensor:
+        """``h`` whole for a result every model rank computes whole and
+        holds whole (the loss over a whole vocabulary): on a split carry
+        the sequence gathered, its gradient this rank's slice of the
+        whole one (nothing summed); on a whole one ``h`` as it is."""
+        return gather_from(h, self.mesh, MODEL, 1) if self.seq else h
+
+    def own(self, t: torch.Tensor, dim: int) -> torch.Tensor:
+        """``t`` along its sequence ``dim``, for the carry's tokens."""
+        return self.mesh.chunk(t, MODEL, dim) if self.seq else t
+
     def positions(self, pos: torch.Tensor) -> torch.Tensor:
         """``pos`` (B, S) or (B, 3, S) for the carry's tokens."""
-        return self.mesh.chunk(pos, MODEL, pos.dim() - 1) if self.seq else pos
+        return self.own(pos, pos.dim() - 1)
 
 
 # ---------------------------------------------------------------------------
@@ -174,32 +209,53 @@ class _Carry:
 
 def _embed(cfg, lp: Local, mesh, carry: _Carry, inputs: torch.Tensor,
            pos: torch.Tensor) -> torch.Tensor:
+    """The carry's embeddings.  A vocab-parallel table: the rank's rows
+    looked up for every token, summed over ``model``; a whole one
+    (`_whole`): the carry's own tokens looked up, no sum."""
     from repro_torch.nn.transformer import _embed_post
-    if cfg.frontend == "tokens":
+    if cfg.frontend == "tokens" and _whole(lp, "embed", 0):
+        w = carry.leaf(lp.get("embed"))                     # (V, d)
+        x = w[carry.own(inputs, 1).long()].to(cfg.dtype)
+    elif cfg.frontend == "tokens":
         w = lp.get("embed", MODEL)                          # (V/tp, d)
         ids = inputs.long() - mesh.index(MODEL) * w.shape[0]
         hit = (ids >= 0) & (ids < w.shape[0])
         rows = w[ids.clamp(0, w.shape[0] - 1)].to(cfg.dtype)
         x = carry.exit(torch.where(hit[..., None], rows, 0))
     else:
-        x = inputs.to(cfg.dtype)
-        if carry.seq:
-            x = mesh.chunk(x, MODEL, 1)
+        x = carry.own(inputs.to(cfg.dtype), 1)
     return _embed_post(cfg, x, carry.positions(pos))
 
 
-def _unembed_local(cfg, lp: Local) -> torch.Tensor:
-    """The rank's vocab slice of the unembedding, (d, V/tp)."""
-    if cfg.tie_embeddings and cfg.frontend == "tokens":
-        return lp.get("embed", MODEL).T
-    return lp.get("unembed", None, MODEL)
+def _tied(cfg) -> bool:
+    return cfg.tie_embeddings and cfg.frontend == "tokens"
+
+
+def _unembed_whole(cfg, lp: Local) -> bool:
+    """Whether the pruned spec keeps no ``model`` axis on the
+    unembedding's vocabulary (`_whole`; ``embed``'s when tied)."""
+    return (_whole(lp, "embed", 0) if _tied(cfg)
+            else _whole(lp, "unembed", 1))
+
+
+def _unembed(cfg, lp: Local) -> tuple:
+    """The rank's unembedding and whether it is whole: (d, V/tp), its
+    vocab slice, or (d, V) (`_unembed_whole`); ``embed.T`` when tied."""
+    whole = _unembed_whole(cfg, lp)
+    if _tied(cfg):
+        return (lp.get("embed") if whole else lp.get("embed", MODEL)).T, whole
+    return (lp.get("unembed") if whole
+            else lp.get("unembed", None, MODEL)), whole
 
 
 def _logits(cfg, lp: Local, mesh, last: torch.Tensor) -> torch.Tensor:
-    logits = last.float() @ _unembed_local(cfg, lp).float()
+    """The last token's logits (B, V) f32, whole over ``model``: the
+    vocab slices' all-gathered, or a whole unembedding's as they are."""
+    w, whole = _unembed(cfg, lp)
+    logits = last.float() @ w.float()
     if cfg.final_softcap is not None:
         logits = cfg.final_softcap * torch.tanh(logits / cfg.final_softcap)
-    return mesh.all_gather(logits, MODEL, dim=-1)
+    return logits if whole else mesh.all_gather(logits, MODEL, dim=-1)
 
 
 def _norm(cfg, lp: Local, x: torch.Tensor, carry: _Carry) -> torch.Tensor:
@@ -218,8 +274,7 @@ def _replicated(lp: Local) -> bool:
     is ``wq``'s dim 1, or ``wo``'s dim 0 beside a fused ``wqkv``, whose
     one ``H + 2K`` dim can divide where ``H`` does not (gemma2-2b's 16
     on 16)."""
-    spec = lp.specs["wq"][1] if "wq" in lp.specs else lp.specs["wo"][0]
-    return MODEL not in _model_axes(spec)
+    return _whole(lp, "wq", 1) if "wq" in lp.specs else _whole(lp, "wo", 0)
 
 
 @dataclasses.dataclass
@@ -384,31 +439,72 @@ def _decode_attention_split(q, cache_k, cache_v, kv_pos, t: int,
 # ---------------------------------------------------------------------------
 # Mamba, FFN
 
-def _mamba_local(mp, lp: Local, mesh):
-    tp = mesh.size(MODEL)
-    p = {"in_proj": lp.get("in_proj", None, None, MODEL),
-         "conv_w": lp.get("conv_w", None, MODEL),
-         "conv_b": lp.get("conv_b", MODEL),
-         "x_proj": lp.get("x_proj", MODEL),
-         "dt_proj": lp.get("dt_proj", None, MODEL),
-         "dt_bias": lp.get("dt_bias", MODEL),
-         "A_log": lp.get("A_log", MODEL),
-         "D": lp.get("D", MODEL),
-         "out_proj": lp.get("out_proj", MODEL)}
+def _same(t: torch.Tensor) -> torch.Tensor:
+    return t
+
+
+# the dims of the Mamba mixer's leaves split over ``model`` by d_inner
+_MAMBA_SPLIT = {"in_proj": (None, None, MODEL), "conv_w": (None, MODEL),
+                "conv_b": (MODEL,), "x_proj": (MODEL,),
+                "dt_proj": (None, MODEL), "dt_bias": (MODEL,),
+                "A_log": (MODEL,), "D": (MODEL,), "out_proj": (MODEL,)}
+
+
+def _mamba_local(mp, lp: Local, mesh, carry: _Carry):
+    """The rank's Mamba weights and widths, and whether they are whole:
+    its ``d_inner`` channels, or all of them, read as the carry reads a
+    leaf, where the pruned spec keeps no ``model`` axis on ``d_inner``
+    (`_whole`)."""
+    if _whole(lp, "in_proj", 2):
+        return {k: carry.leaf(lp.get(k)) for k in _MAMBA_SPLIT}, mp, True
+    p = {k: lp.get(k, *want) for k, want in _MAMBA_SPLIT.items()}
     return p, dataclasses.replace(
-        mp, d_inner=_split(mp.d_inner, tp, "d_inner"))
+        mp, d_inner=_split(mp.d_inner, mesh.size(MODEL), "d_inner")), False
 
 
 def _mamba(cfg, lp: Local, mesh, carry: _Carry, h: torch.Tensor, *,
            backend: str) -> torch.Tensor:
-    """The rank's ``d_inner`` channels over the whole sequence ``h``; the
-    ``x_proj`` sum is read whole in every rank's channels, so its
-    gradient is summed too."""
-    p, mp = _mamba_local(cfg.mamba, lp, mesh)
+    """The Mamba mixer on the normed carry ``h``, over the whole
+    sequence.  Split: the rank's ``d_inner`` channels; the ``x_proj`` sum
+    is read whole in every rank's channels, so its gradient is summed
+    too.  Whole: every channel on every model rank, no sum; a split
+    carry keeps the rank's tokens."""
+    p, mp, whole = _mamba_local(cfg.mamba, lp, mesh, carry)
+    if whole:
+        return mamba_forward(p, carry.gather(h), mp, backend=backend,
+                             reduce=carry.keep, reduce_ssm=_same)
     return mamba_forward(
-        p, h, mp, backend=backend, reduce=carry.exit,
+        p, carry.enter(h), mp, backend=backend, reduce=carry.exit,
         reduce_ssm=lambda t: copy_to(reduce_from(t, mesh, MODEL), mesh,
                                      MODEL))
+
+
+# the dims of the dense FFN's leaves split over ``model`` by d_ff (column-
+# then row-parallel); ``b2`` is read on the carry either way
+_FFN_SPLIT = {"wi": (None, None, MODEL), "wo": (MODEL,), "w1": (None, MODEL),
+              "b1": (MODEL,), "w2": (MODEL,)}
+
+
+def _dense_ffn(cfg, mlp: str, f: Local, carry: _Carry,
+               h: torch.Tensor) -> torch.Tensor:
+    """The GLU or plain MLP on the normed carry ``h``, its output on the
+    carry.  Split: column- then row-parallel, one sum over ``model``.
+    Whole (the pruned spec keeps no ``model`` axis on ``d_ff``:
+    `_whole`): every model rank computes it whole, no sum; a split carry
+    keeps the rank's tokens."""
+    if _whole(f, *(("wi", 2) if mlp == "glu" else ("w1", 1))):
+        x, out = carry.gather(h), carry.keep
+        w = {k: carry.leaf(f.get(k)) for k in _FFN_SPLIT if k in f.tree}
+    else:
+        x, out = carry.enter(h), carry.exit
+        w = {k: f.get(k, *want) for k, want in _FFN_SPLIT.items()
+             if k in f.tree}
+    if mlp == "glu":
+        return out(apply_glu_mlp(w, x, act=cfg.activation))
+    dt = x.dtype
+    u = cfg.activation((x @ w["w1"].to(dt)).float() + w["b1"].float())
+    return (out(u.to(dt) @ w["w2"].to(dt))
+            + carry.leaf(f.get("b2")).to(dt))
 
 
 def _ffn(cfg, spec, lp: Local, mesh, carry: _Carry, x: torch.Tensor):
@@ -416,21 +512,13 @@ def _ffn(cfg, spec, lp: Local, mesh, carry: _Carry, x: torch.Tensor):
     if spec.mlp == "none":
         return x, None
     aux = None
-    h = carry.enter(_norm(cfg, lp["norm2"], x, carry))
+    h = _norm(cfg, lp["norm2"], x, carry)
     f = lp["ffn"]
-    if spec.mlp == "glu":
-        h = carry.exit(apply_glu_mlp(
-            {"wi": f.get("wi", None, None, MODEL), "wo": f.get("wo", MODEL)},
-            h, act=cfg.activation))
-    elif spec.mlp == "mlp":
-        dt = h.dtype
-        u = cfg.activation((h @ f.get("w1", None, MODEL).to(dt)).float()
-                           + f.get("b1", MODEL).float())
-        h = (carry.exit(u.to(dt) @ f.get("w2", MODEL).to(dt))
-             + carry.leaf(f.get("b2")).to(dt))
+    if spec.mlp in ("glu", "mlp"):
+        h = _dense_ffn(cfg, spec.mlp, f, carry, h)
     else:
-        h, aux, _dropped = _moe_ranks(f, h, cfg.moe, mesh=mesh,
-                                      batch_axes=("pod", "data"),
+        h, aux, _dropped = _moe_ranks(f, carry.enter(h), cfg.moe,
+                                      mesh=mesh, batch_axes=("pod", "data"),
                                       ep_axis=MODEL, combine=carry.exit)
     if cfg.post_norm:
         h = _norm(cfg, lp["post2"], h, carry)
@@ -448,8 +536,7 @@ def _slot(cfg, spec, lp: Local, mesh, carry: _Carry, x, pos, *,
                              carry, h, pos, kv_split=kv_split)
         kv = (k, v)
     else:
-        h = _mamba(cfg, lp["mamba"], mesh, carry, carry.enter(h),
-                   backend=backend)
+        h = _mamba(cfg, lp["mamba"], mesh, carry, h, backend=backend)
     if cfg.post_norm:
         h = _norm(cfg, lp["post1"], h, carry)
     x, aux = _ffn(cfg, spec, lp, mesh, carry, x + h)
@@ -502,10 +589,14 @@ def lm_forward_tp(lp: Local, cfg, mesh, inputs: torch.Tensor,
                   pos: torch.Tensor, *, backend: str = "cuda"):
     """`repro_torch.nn.transformer.lm_forward` (no kv) on a rank: returns
     (hidden (B_l, S, d), whole over ``model``, and the MoE aux loss).
-    Under grad mode each repeat of the period is checkpointed as
-    ``cfg.remat`` says; with ``cfg.seq_shard_carry`` (and S divisible
-    by the model axis, else the carry stays whole, as the reference's
-    constraint falls back) the carry is split over the sequence."""
+    The hidden's gradient is read as the unembedding uses it: summed over
+    ``model`` for a vocab-parallel one (each rank's loss part reads all
+    of it, `_Carry.enter`), taken whole for a whole one (every rank's
+    loss is the whole, `_Carry.share`).  Under grad mode each repeat of
+    the period is checkpointed as ``cfg.remat`` says; with
+    ``cfg.seq_shard_carry`` (and S divisible by the model axis, else the
+    carry stays whole, as the reference's constraint falls back) the
+    carry is split over the sequence."""
     from repro_torch.nn.transformer import _maybe_remat
     tp = mesh.size(MODEL)
     seq = cfg.seq_shard_carry and tp > 1 and inputs.shape[1] % tp == 0
@@ -520,7 +611,8 @@ def lm_forward_tp(lp: Local, cfg, mesh, inputs: torch.Tensor,
         x, a = body(slots, x, pos)
         aux = aux + a
     x = _norm(cfg, lp["final_norm"], x, carry)
-    return carry.enter(x), aux
+    return (carry.share(x) if _unembed_whole(cfg, lp)
+            else carry.enter(x)), aux
 
 
 def lm_loss_tp(lp: Local, cfg, mesh, batch: dict, *, rep: int = 1):
@@ -539,10 +631,14 @@ def lm_loss_tp(lp: Local, cfg, mesh, batch: dict, *, rep: int = 1):
     mask = batch.get("mask")
     m = (torch.ones(labels.shape, dtype=torch.float32, device=labels.device)
          if mask is None else mask.float())
-    sum_loss, sum_correct = vocab_parallel_xent_sums(
-        hidden.float(), _unembed_local(cfg, lp).float(), labels.long(), m,
-        mesh=mesh, axis=MODEL, chunk=cfg.loss_chunk, z_loss=cfg.z_loss,
-        logit_softcap=cfg.final_softcap)
+    w, whole = _unembed(cfg, lp)
+    kw = dict(chunk=cfg.loss_chunk, z_loss=cfg.z_loss,
+              logit_softcap=cfg.final_softcap)
+    if whole:
+        sum_loss, sum_correct = chunked_xent_sums(hidden, w, labels, m, **kw)
+    else:
+        sum_loss, sum_correct = vocab_parallel_xent_sums(
+            hidden, w, labels, m, mesh=mesh, axis=MODEL, **kw)
     with torch.no_grad():
         tot = torch.stack([sum_loss.detach(), sum_correct, m.sum()])
         tot = mesh.all_reduce(tot, batch_axes_for(mesh)) / rep
@@ -575,8 +671,10 @@ def lm_decode_tp(lp: Local, cfg, mesh, cache: Local, tok: torch.Tensor,
                 h = _attention_decode(cfg.attn_params(spec), bp["attn"], mesh,
                                       h, layer, cache.specs[s]["k"], t, pos)
             else:
-                p, mp = _mamba_local(cfg.mamba, bp["mamba"], mesh)
-                h, new = mamba_decode(p, h, layer, mp, reduce)
+                p, mp, whole = _mamba_local(cfg.mamba, bp["mamba"], mesh,
+                                            carry)
+                h, new = mamba_decode(p, h, layer, mp,
+                                      _same if whole else reduce)
                 for k, v in new.items():
                     layer[k].copy_(v)
             if cfg.post_norm:

@@ -263,14 +263,18 @@ def test_remat_dots_matches_reference(meshes, seq_shard):
 
 
 # ---------------------------------------------------------------------------
-# what still raises
+# what still raises, and what no longer does
 
 
 def test_split_still_raises_for_a_d_ff_the_model_axis_does_not_divide():
-    """Heads fall back to replication; a ``d_ff`` does not: `_split`
-    refuses it, and so does a dry-run trace of a mesh step whose model
-    axis does not divide it (the same config with a dividing ``d_ff``
-    traces, its 3 heads replicated)."""
+    """`_split` still refuses a ``d_ff`` that must split and does not;
+    the mesh path no longer asks it to: where the model axis does not
+    divide ``d_ff`` the pruned specs keep it whole and every model rank
+    computes the FFN whole (`nn/tensor_parallel.py:_dense_ffn`), so a
+    dry-run trace of such a mesh step (``d_ff`` 130 on (1, 4), its 3
+    heads replicated) traces, with collective bytes, as the same config
+    with a dividing ``d_ff`` does, and each rank does more FLOPs than
+    there (its FFN is whole)."""
     with pytest.raises(ValueError, match="d_ff 130 does not split over the "
                                          "model axis"):
         _split(130, 4, "d_ff")
@@ -278,9 +282,36 @@ def test_split_still_raises_for_a_d_ff_the_model_axis_does_not_divide():
     kw = dict(use_reduced=True, verbose=False,
               shape_override=t_configs.ShapeDef("tiny", "prefill", 16, 2))
     heads = {"n_heads": 3, "n_kv": 1, "dtype": torch.float32}
-    rep = dryrun_lib.run_cell("h2o-danube-1.8b", "prefill_32k", (1, 4), "t",
-                              config_overrides=dict(heads, d_ff=128), **kw)
-    assert rep["collectives"]["total_bytes"] > 0
-    with pytest.raises(ValueError, match="does not split over"):
-        dryrun_lib.run_cell("h2o-danube-1.8b", "prefill_32k", (1, 4), "t",
-                            config_overrides=dict(heads, d_ff=130), **kw)
+    reps = {d_ff: dryrun_lib.run_cell(
+        "h2o-danube-1.8b", "prefill_32k", (1, 4), "t",
+        config_overrides=dict(heads, d_ff=d_ff), **kw) for d_ff in (128, 130)}
+    for rep in reps.values():
+        assert rep["collectives"]["total_bytes"] > 0
+    assert reps[130]["cost"]["flops"] > reps[128]["cost"]["flops"]
+
+
+def test_an_expert_count_the_model_axis_does_not_divide_is_refused_by_both():
+    """The experts are not replicated: a model axis that does not divide
+    them is refused by the port (`nn/moe.py`, before any rank runs) and
+    by the reference alike (`src/repro/nn/moe.py:139` asserts ``E % tp
+    == 0``), on a mesh with a model axis of 3 and 4 experts."""
+    import types
+
+    from repro.nn import moe as j_moe
+    from repro_torch.nn import moe as t_moe
+    from repro_torch.nn.layers import Initializer
+    mesh = types.SimpleNamespace(axis_names=("data", "model"),
+                                 shape={"data": 1, "model": 3})
+    j_cfg = j_configs.get_arch("olmoe-1b-7b").reduced()
+    t_cfg = t_configs.get_arch("olmoe-1b-7b").reduced()
+    j_mp = dataclasses.replace(j_cfg.moe, n_experts=4, topk=2)
+    t_mp = dataclasses.replace(t_cfg.moe, n_experts=4, topk=2)
+    p = t_moe.moe_init(Initializer(torch.Generator().manual_seed(0),
+                                   device="cpu"), t_cfg.d_model, t_mp)
+    with pytest.raises(ValueError, match="4 experts do not split over "
+                                         "model"):
+        t_moe.moe_apply(p, torch.zeros(1, 2, t_cfg.d_model), t_mp,
+                        mesh=mesh)
+    with pytest.raises(AssertionError, match=r"\(4, 3\)"):
+        j_moe.moe_apply({}, jnp.zeros((1, 2, j_cfg.d_model)), j_mp,
+                        mesh=mesh)
